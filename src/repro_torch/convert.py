@@ -10,6 +10,10 @@ nothing of it):
 - trained trees: ``TreeArrays.feat/thr/leaf``;
 - sketch hash constants: ``TableHashes.hashes[name].a/b/a2/b2`` and ``k``
   (uint32 words, carried as Python ints).
+
+Histogram split mode carries nothing new: its cuts, bins and row lists
+are numpy functions of the same tables (``core/hist.py``), and a
+histogram fit takes the reference's hashes like any other.
 """
 from __future__ import annotations
 

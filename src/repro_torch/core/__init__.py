@@ -8,9 +8,11 @@ Public API:
     Booster, BoostConfig             — Algorithms 1–3 (trainer.py)
     MaterializedBooster              — the paper's baseline (baseline.py)
     TreeArrays, predict_rows         — trees (tree.py)
+    build_hist_plans, quantile_cuts  — histogram split plans (hist.py)
 """
 from .baseline import MaterializedBooster
 from .engine import DirectEngine, QueryEngine
+from .hist import TableHistPlan, build_hist_plans, hist_scores, quantile_cuts
 from .schema import NotAcyclicError, Schema, Table
 from .semiring import Arithmetic, BooleanSR, Channels, PolyCoeff, PolyFreq, Tropical
 from .sketch import Hash2, TableHashes, sketch_factors
@@ -26,4 +28,5 @@ __all__ = [
     "DirectEngine", "QueryEngine",
     "BoostConfig", "Booster", "FitTrace", "MaterializedBooster",
     "TreeArrays", "leaf_masks", "predict_rows",
+    "TableHistPlan", "build_hist_plans", "hist_scores", "quantile_cuts",
 ]

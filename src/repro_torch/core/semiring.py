@@ -9,7 +9,8 @@ the element; leading dims are batch dims (query batch, rows, leaves).
 - :class:`Channels`    — (R^c, +, ⊙): c independent arithmetic channels;
   fuses the paper's three node queries (count, Σy, Σy²) into one pass.
 - :class:`PolyCoeff`   — (R^k, +, ·mod z^k): the tensor-sketch polynomial
-  semiring in coefficient space; ⊗ = circular convolution via FFT.
+  semiring in coefficient space; ⊗ = circular convolution (the polymul
+  kernel on CUDA tensors, FFT on CPU tensors).
 - :class:`PolyFreq`    — rfft image of PolyCoeff; ⊗ = elementwise complex
   product (O(k)).
 - :class:`Tropical`    — (R∪{+inf}, min, +).
@@ -32,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from ..kernels.polymul import poly_mul
 from ..kernels.segment_sum import Segments, segment_sum
 
 
@@ -151,8 +153,10 @@ class Channels(_ModuleSemiring):
 class PolyCoeff(_ModuleSemiring):
     """Polynomials mod z^k, coefficient representation (paper §3).
 
-    ⊗ = circular convolution, evaluated with real FFTs (O(k log k)).
-    ``k`` must be even.
+    ⊗ = circular convolution through ``kernels/polymul``: on CUDA
+    tensors the hand-written kernel (the direct k-term sum per
+    coefficient, 2 ≤ k ≤ 1024); on CPU tensors its plain version, real
+    FFTs (O(k log k)).  ``k`` must be even.
     """
 
     k: int = 64
@@ -172,9 +176,7 @@ class PolyCoeff(_ModuleSemiring):
         return out
 
     def mul(self, a, b):
-        fa = torch.fft.rfft(a, n=self.k, dim=-1)
-        fb = torch.fft.rfft(b, n=self.k, dim=-1)
-        return torch.fft.irfft(fa * fb, n=self.k, dim=-1).to(self.dtype)
+        return poly_mul(a, b).to(self.dtype)
 
     def norm_sq(self, vals):
         return torch.sum(torch.square(vals), dim=-1)

@@ -7,7 +7,8 @@ T_i, threshold α)`` with the paper's closed form
     MSE(v,j,α) ∝ −( S_L²/n_L + S_R²/n_R )          (lower is better)
 
 where S = Σ residuals on a side.  Candidate thresholds are the distinct
-values of the column (sort orders precomputed once per schema).
+values of the column (sort orders precomputed once per schema), or, in
+histogram split mode, its quantile cuts (hist.py).
 """
 from __future__ import annotations
 
@@ -156,13 +157,21 @@ def _best_feature(plan, scores, thr, sl, nl, sr, nr, tot_n, tot_s) -> SplitResul
     )
 
 
-def best_split_for_table(plan: TableSplitPlan, n: torch.Tensor, s: torch.Tensor
-                         ) -> SplitResult:
+def best_split_for_table(plan, n: torch.Tensor, s: torch.Tensor) -> SplitResult:
     """Sweep all features of one table.  ``n``/``s``: (K, rows) counts
-    and residual sums per node per row of the table."""
+    and residual sums per node per row of the table.  The route follows
+    the plan's type: the exact boundary sweep for a
+    :class:`TableSplitPlan`, the quantile-histogram sweep (hist.py) for a
+    ``TableHistPlan``."""
+    from .hist import TableHistPlan, hist_scores
+
     tot_n = torch.sum(n, dim=1)
     tot_s = torch.sum(s, dim=1)
-    return _best_feature(plan, *_exact_scores(plan, n, s, tot_n, tot_s), tot_n, tot_s)
+    if isinstance(plan, TableHistPlan):
+        parts = hist_scores(plan, n, s, tot_n, tot_s)
+    else:
+        parts = _exact_scores(plan, n, s, tot_n, tot_s)
+    return _best_feature(plan, *parts, tot_n, tot_s)
 
 
 def merge_table_results(results) -> SplitResult:

@@ -27,6 +27,7 @@ import torch
 
 from ..obs import fence, get_registry, span
 from .engine import DirectEngine, QueryEngine
+from .hist import HIST_ROUTES, build_hist_plans, refresh_hist_plans
 from .schema import Schema
 from .semiring import Channels, PolyCoeff, PolyFreq
 from .sketch import TableHashes
@@ -42,10 +43,15 @@ class BoostConfig:
     lr: float = 1.0                  # shrinkage (paper: 1.0)
     mode: str = "exact"              # "exact" (Alg 2) | "sketch" (Alg 3)
     sketch_k: int = 64               # k = O((2+3^τ)/(ε²δ)), power of two
-    sketch_domain: str = "freq"      # "freq" (beyond-paper) | "coeff" (faithful FFT)
+    sketch_domain: str = "freq"      # "freq" (beyond-paper) | "coeff" (paper; polymul ⊗)
     min_gain: float = 1e-7
     ssr_mode: str = "per_table"      # "per_table" (faithful) | "once" | "off"
-    split_mode: str = "exact"        # "exact" (paper); "hist" is not ported yet
+    split_mode: str = "exact"        # "exact" (paper) | "hist" (quantile bins)
+    hist_bins: int = 256             # B: quantile bins per feature (hist mode)
+    hist_edge_tol: float = 0.25      # re-quantize a table's bin edges once this
+    #                                  fraction of its rows re-binned (0 = always)
+    hist_route: str = "auto"         # histogram accumulation: "auto" |
+    #                                  "gather" | "scatter" | "kernel" (segment-⊕)
     seed: int = 0
 
 
@@ -68,11 +74,10 @@ class Booster:
     def __init__(self, schema: Schema, cfg: BoostConfig,
                  hashes: Optional[TableHashes] = None,
                  engine: Optional[QueryEngine] = None):
-        if cfg.split_mode == "hist":
-            raise NotImplementedError(
-                "split_mode='hist' is not ported yet (ROADMAP §1 item 5, core/hist.py)")
-        if cfg.split_mode != "exact":
+        if cfg.split_mode not in ("exact", "hist"):
             raise ValueError(f"split_mode {cfg.split_mode!r}")
+        if cfg.hist_route not in HIST_ROUTES:
+            raise ValueError(f"hist_route {cfg.hist_route!r}")
         if cfg.mode not in ("exact", "sketch"):
             raise ValueError(f"mode {cfg.mode!r}")
         self.schema = schema
@@ -86,7 +91,39 @@ class Booster:
         self.c3 = Channels(3)
         self.engine = engine if engine is not None else DirectEngine()
         self.engine.bind(self)
-        self.plans = build_split_plans(schema, featmats=self.engine.plan_featmats())
+        self.plans = self._build_plans()
+
+    def _build_plans(self):
+        featmats = self.engine.plan_featmats()
+        if self.cfg.split_mode == "hist":
+            return build_hist_plans(self.schema, featmats=featmats,
+                                    n_bins=self.cfg.hist_bins, route=self.cfg.hist_route)
+        return build_split_plans(self.schema, featmats=featmats)
+
+    def refresh_plans(self, dirty: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]] = None):
+        """Refresh split plans after the engine's feature matrices changed.
+        ``dirty`` (``{table: (rows, new feature rows)}``) names the rows
+        that changed: hist mode re-bins only those rows against frozen
+        quantile edges (re-quantizing a table's edges only past
+        ``cfg.hist_edge_tol`` drift).  Exact mode, or no ``dirty``,
+        rebuilds every plan."""
+        t0 = time.perf_counter()
+        if self.cfg.split_mode == "hist" and dirty is not None:
+            with span("plan.refresh", mode="hist", tables=len(dirty),
+                      rows=sum(len(r) for r, _ in dirty.values())):
+                self.plans = refresh_hist_plans(
+                    self.plans, dirty, n_rows_fn=self.engine.n_rows,
+                    featmat_fn=self._plan_featmat, n_bins=self.cfg.hist_bins,
+                    edge_tol=self.cfg.hist_edge_tol)
+        else:
+            with span("plan.refresh", mode=self.cfg.split_mode, full_rebuild=True):
+                self.plans = self._build_plans()
+        get_registry().histogram("train.plan_refresh_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+
+    def _plan_featmat(self, table: str) -> torch.Tensor:
+        featmats = self.engine.plan_featmats()
+        return featmats[table] if featmats and table in featmats else self.schema.featmat[table]
 
     # ------------------------------------------------------ residual stats --
     def _table_stats(self, table, masks, prev_masks, prev_vals, want_ssr: bool):

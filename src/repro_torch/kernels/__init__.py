@@ -7,5 +7,10 @@ tensors and as the on-card oracle) and the CUDA source under
 loaded through ``ctypes``.
 
     segment_sum — out[k, key, c] = Σ_{r ∈ key} vals[k, r, c]  (every
-                  SumProd message emission)
+                  SumProd message emission, and the histogram sweep's
+                  segment-⊕ route)
+    polymul     — out[b, i] = Σ_j a[b, j] · b[b, (i − j) mod k]  (every ⊗ of
+                  the coefficient-domain sketch semiring, PolyCoeff)
+
+``_build.py`` compiles a ``csrc/<name>.cu`` and loads it, for both.
 """

@@ -15,23 +15,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from .ref import segment_sum_ref
-
-_PKG = Path(__file__).resolve().parents[2]
-_SRC = _PKG / "csrc" / "segment_sum.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
 
 launches = 0
 _lib: Optional[ctypes.CDLL] = None
@@ -44,66 +35,52 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Segments:
-    """CSR of a static key column: row ``order[offsets[key]:offsets[key+1]]``
-    are the rows whose key is ``key``, in ascending row order."""
+    """CSR of a static key column: rows ``order[offsets[key]:offsets[key+1]]``
+    are the rows whose key is ``key``, in ascending entry order.
 
-    ids: torch.Tensor      # (n,) int64 key per row
-    order: torch.Tensor    # (n,) int32 rows sorted by key, stable
+    ``n_rows`` is the row count of the values the CSR reduces.  It is
+    the key column's length, unless the column covers several tiled
+    copies of the rows (``from_ids(..., row_period=n)``): entry e then
+    names row ``e mod n``, and the tiled values are never built."""
+
+    ids: torch.Tensor      # (entries,) int64 key per entry
+    order: torch.Tensor    # (entries,) int32 rows sorted by key, stable
     offsets: torch.Tensor  # (n_keys+1,) int32 run starts
     n_keys: int
+    n_rows: int
 
     @staticmethod
-    def from_ids(ids: np.ndarray, n_keys: int, device) -> "Segments":
+    def from_ids(ids: np.ndarray, n_keys: int, device,
+                 row_period: Optional[int] = None) -> "Segments":
         ids = np.asarray(ids, np.int64).reshape(-1)
         if len(ids) >= 2 ** 31:
             raise ValueError(f"segment_sum takes < 2^31 rows, got {len(ids)}")
-        order = np.argsort(ids, kind="stable").astype(np.int32)
+        order = np.argsort(ids, kind="stable")
+        n_rows = len(ids) if row_period is None else int(row_period)
+        if row_period is not None:
+            order %= n_rows
         offsets = np.zeros(n_keys + 1, np.int64)
         np.cumsum(np.bincount(ids, minlength=n_keys), out=offsets[1:])
         return Segments(
             ids=torch.from_numpy(ids).to(device),
-            order=torch.from_numpy(order).to(device),
+            order=torch.from_numpy(order.astype(np.int32)).to(device),
             offsets=torch.from_numpy(offsets.astype(np.int32)).to(device),
             n_keys=int(n_keys),
+            n_rows=n_rows,
         )
 
 
 # ------------------------------------------------------------------ build --
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.access(cand, os.X_OK):
-            return cand
-    raise RuntimeError("nvcc not found: the segment_sum kernel is built with the "
-                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build(verbose: bool = False) -> Tuple[Path, str]:
-    """Compile the kernel into a shared library (cached by the source's
-    hash); returns its path and the compiler's messages (``-Xptxas -v``
-    register and spill report when ``verbose``)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"segment_sum-{tag}.so"
-    if lib.exists() and not verbose:
-        return lib, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)           # atomic: concurrent builders never see a torn file
-    return lib, proc.stdout + proc.stderr
+    """Compile ``csrc/segment_sum.cu`` (see ``kernels/_build.py``);
+    returns the library's path and the compiler's messages."""
+    return _build.build("segment_sum", verbose=verbose)
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
+        lib = _build.load("segment_sum")
         for name in ("segment_sum_f32", "segment_sum_bf16"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
@@ -132,8 +109,8 @@ def segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
     if vals.dim() != 3:
         raise ValueError(f"segment_sum takes (K, n, C) values, got shape {tuple(vals.shape)}")
     K, n, C = vals.shape
-    if seg.order.shape != (n,) or seg.offsets.shape != (seg.n_keys + 1,):
-        raise ValueError(f"segment_sum: CSR of {seg.order.shape[0]} rows / "
+    if seg.n_rows != n or seg.offsets.shape != (seg.n_keys + 1,):
+        raise ValueError(f"segment_sum: CSR of {seg.n_rows} rows / "
                          f"{seg.offsets.shape[0] - 1} keys does not fit values of {n} rows")
     if vals.device.type == "cpu":
         return segment_sum_ref(vals, seg.order, seg.offsets)

@@ -142,8 +142,13 @@ def test_materialized_baseline(request, fixture):
 
 def test_config_guards(exact):
     ps = exact("chain")[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Booster(ps, BoostConfig(split_mode="hist"))
+    from repro_torch.core import TableHistPlan
+    hist = Booster(ps, BoostConfig(split_mode="hist"))       # ported: no longer raises
+    assert hist.plans and all(isinstance(p, TableHistPlan) for p in hist.plans.values())
+    with pytest.raises(ValueError, match="split_mode"):
+        Booster(ps, BoostConfig(split_mode="histo"))
+    with pytest.raises(ValueError, match="hist_route"):
+        Booster(ps, BoostConfig(split_mode="hist", hist_route="onehot"))
     with pytest.raises(ValueError):
         Booster(ps, BoostConfig(mode="approximate"))
     if not torch.cuda.is_available():        # no silent fallback to the host

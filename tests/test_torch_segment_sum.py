@@ -175,3 +175,23 @@ def test_tropical_and_boolean_segment_add():
     for k in range(2):
         np.testing.assert_array_equal(
             got[k], np.asarray(rsem.Tropical().segment_add(jnp.asarray(xb[k]), jids, keys)))
+
+
+def test_tiled_key_column_reads_untiled_rows():
+    """A key column over d tiled copies of the rows (the histogram
+    sweep's ``bins + f·(B+1)``), with its order taken modulo n, reduces
+    the untiled (n, C) values to what the reference's segment-sum gives
+    on the tiled (d·n, C) values."""
+    rng = np.random.default_rng(8)
+    d, n, nb, C = 3, 500, 17, 4
+    ids = (rng.integers(0, nb, (d, n)) + np.arange(d)[:, None] * nb).reshape(-1)
+    seg = Segments.from_ids(ids, d * nb, "cpu", row_period=n)
+    assert seg.n_rows == n and int(seg.order.max()) < n
+    for integer in (True, False):
+        x = _vals(rng, (n, C), integer)
+        got = segment_sum(torch.from_numpy(x)[None], seg)[0]
+        want = jax.ops.segment_sum(jnp.tile(jnp.asarray(x), (d, 1)), jnp.asarray(ids),
+                                   d * nb)
+        _check(got.numpy(), want, integer)
+    with pytest.raises(ValueError, match="does not fit"):
+        segment_sum(torch.zeros(1, d * n, C), seg)
