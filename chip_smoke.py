@@ -21,7 +21,15 @@ Phases (any failure exits non-zero):
      2e-5 · (|a| ⊛ |b|) per coefficient, bfloat16 within that plus
      2^-8 · |exact| (the output's rounding).  Prints kernel, plain,
      ``torch.fft`` (the library route, never called by the port on the
-     card) and bound times.
+     card) and bound times;
+   - the rwkv6_chunk kernel (``rwkv6_chunk.cu``) against its plain version
+     in float64 at the RWKV-6 prefill's shape (8, 1024, 32, 64, c 16), one
+     long prompt (1, 4096, 32, 64, 16) and the reference test's
+     (2, 64, 2, 32, 16) and (3, 48, 1, 16, 8), on numpy-seeded inputs
+     (standard-normal r, k, v, u; log-decays uniform in [−2, −0.01]):
+     |kernel − plain_f64| ≤ 2e-5 · W per element, W the plain WKV of |r|,
+     |k|, |v|, |u| with the same decays.  Prints kernel, plain (float32)
+     and bound times; no single PyTorch call computes the WKV.
 2. Serve path at real size: star schema with 4,194,304 fact rows and
    4,096-row dimension tables; train 5 trees of depth 3 (sketch mode, no
    SSR), compile, ``score_grouped`` by every table, then 2,000 Zipf(1.3)
@@ -43,6 +51,24 @@ Phases (any failure exits non-zero):
    gather route's, and segment-⊕ launches on the histogram route.
    Prints each fit's time and counts, and the device time of one more
    tree of B split into the polymul kernel and the rest.
+5. RWKV-6 1.6B serving at its full published width (24 layers, d_model
+   2048, 32 heads of 64, d_ff 7168, vocab 65,536, bf16) with random weights
+   from a ``torch.Generator`` seed: prefill 8 prompts of 1,024 numpy-seeded
+   token ids, then greedy-decode 64 tokens, after one untimed warm-up.
+   Gates: (a) finite logits, padded ids masked; (b) the prefill's
+   last-position logits with the plain WKV patched in (the module's
+   function, by this script) against the kernel's: in a float32 twin of
+   the model (the same weights upcast) within 1e-4 · max|logit| with the
+   same greedy tokens, and in bf16 no further apart than the bf16 model
+   is from its float32 twin (its own rounding, which 24 layers amplify
+   past the reference's 2-layer band); (c) decode_step after
+   prefill(S) against prefill(S + 1)'s last-position logits (the oracle
+   of ``tests/test_archs.py``): bf16 within the reference's band (atol
+   0.08, rtol 0.05), float32 within 1e-4 · max|logit|; (d) rwkv6_chunk
+   launches: one a layer per prefill, none while decoding.  Prints
+   prefill ms, decode ms a token and tok/s, and the kernel's share of one
+   prefill's device time (torch.profiler); ``--profile`` adds decode's
+   idle share.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -53,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
@@ -71,6 +98,9 @@ F32_OPS_PER_S = 67e12              # H100 SXM published float32 rate outside the
 FLOAT_RTOL = 1e-5                  # float inputs: |err| ≤ FLOAT_RTOL · Σ|v| per element
 POLY_RTOL = 2e-5                   # polymul: |err| ≤ POLY_RTOL · (|a| ⊛ |b|), f32 sums of k products
 BF16_ULP = 2.0 ** -8               # bf16 output rounding, relative
+WKV_RTOL = 2e-5                    # rwkv6_chunk: |err| ≤ WKV_RTOL · W, W the WKV of |r|, |k|, |v|, |u|
+LM_BAND = dict(atol=0.08, rtol=0.05)   # the reference's bf16 band (tests/test_archs.py)
+LM_F32_RTOL = 1e-4                 # float32 LM logits: |Δ| ≤ LM_F32_RTOL · max|logit|
 N_KEYS = 4096                      # dimension-table key domain of the serve path
 
 
@@ -275,6 +305,68 @@ def phase_polymul(ops, ref, dev="cuda"):
         ("pm64_offtile_f32", (1 << 20) + 3, 64, torch.float32),
     ]
     return [poly_case(ops, ref, *c, dev=dev) for c in cases]
+
+
+def wkv_flops(B: int, S: int, H: int, hs: int, c: int) -> int:
+    """Operations of the chunked WKV on these shapes: per chunk and head,
+    the pairwise decays of the strictly lower triangle (a difference, an
+    exponential, two products and a sum a key: 5·c(c−1)/2·hs), the bonus
+    diagonal (3·c·hs), A·v over the lower triangle and its diagonal
+    (c(c+1)·hs), the two state products (4·c·hs²), the state's decay
+    (2·hs²) and the elementwise cumsum, decays and sum (7·c·hs)."""
+    per = (5 * c * (c - 1) // 2 * hs + 3 * c * hs + c * (c + 1) * hs + 4 * c * hs * hs
+           + 2 * hs * hs + 7 * c * hs)
+    return B * H * (S // c) * per
+
+
+def wkv_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda"):
+    """One rwkv6_chunk shape: the kernel within WKV_RTOL · W of the plain
+    version in float64, determinism, and timings.  Returns the shape's record."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, hs), dtype=np.float32) for _ in range(3))
+    logw = -rng.uniform(0.01, 2.0, (B, S, H, hs)).astype(np.float32)
+    u = rng.standard_normal((H, hs), dtype=np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (r, k, v, logw, u)]
+    got = ops.rwkv6_chunk(*args, c)
+    if not torch.equal(got, ops.rwkv6_chunk(*args, c)):
+        raise AssertionError(f"{name}: two runs of the kernel differ")
+    want = ref.rwkv6_chunk_ref(*args, c, torch.float64)
+    mag = ref.rwkv6_chunk_ref(args[0].abs(), args[1].abs(), args[2].abs(), args[3],
+                              args[4].abs(), c, torch.float64)
+    err = (got.double() - want).abs()
+    if bool((err > WKV_RTOL * mag).any()):
+        raise AssertionError(f"{name}: WKV outside {WKV_RTOL}·W (max |err|/W "
+                             f"{float((err / mag).max())})")
+    max_abs_err, max_rel_err = float(err.max()), float((err / mag).max())
+    del got, want, mag, err
+
+    kernel_ms = cuda_ms(lambda: ops.rwkv6_chunk(*args, c))
+    plain_ms = cuda_ms(lambda: ref.rwkv6_chunk_ref(*args, c), max_reps=3)
+    nbytes = 4 * (5 * B * S * H * hs + H * hs)  # r, k, v, logw, u read once, out written once
+    flops = wkv_flops(B, S, H, hs, c)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
+    rec = {"case": name, "B": B, "S": S, "H": H, "hs": hs, "chunk": c,
+           "max_abs_err": max_abs_err, "max_err_over_w": max_rel_err, "ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "flops": flops}
+    log(f"  {name:<22} B={B} S={S} H={H} hs={hs} c={c} kernel_ms {kernel_ms:.4f}  "
+        f"plain_ms {plain_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
+        f"{flops:.3e} flops = {ops_ms:.4f} ms)  max_abs_err {max_abs_err:.3e}  "
+        f"max err/W {max_rel_err:.3e}")
+    del args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_wkv(ops, ref, dev="cuda"):
+    cases = [
+        ("prefill_8x1024", 8, 1024, 32, 64, 16),        # phase 5's prefill
+        ("long_1x4096", 1, 4096, 32, 64, 16),
+        ("ref_test_hs32", 2, 64, 2, 32, 16),             # tests/test_kernels.py's off shapes
+        ("ref_test_hs16_c8", 3, 48, 1, 16, 8),
+    ]
+    return [wkv_case(ops, ref, *c, dev=dev) for c in cases]
 
 
 # ------------------------------------------------------------------ phase 2 --
@@ -613,6 +705,175 @@ def phase_coeff_hist(pops, sops, n_fact: int, dev="cuda"):
     return out
 
 
+# ------------------------------------------------------------------ phase 5 --
+@contextlib.contextmanager
+def plain_wkv(module, plain):
+    """``module.rwkv6_chunk`` replaced by ``plain`` inside the block."""
+    kernel = module.rwkv6_chunk
+    module.rwkv6_chunk = plain
+    try:
+        yield
+    finally:
+        module.rwkv6_chunk = kernel
+
+
+def upcast(t):
+    """LM parameters with every bfloat16 tensor in float32."""
+    if isinstance(t, dict):
+        return {k: upcast(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [upcast(v) for v in t]
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def phase_lm(wops, other_ops, cfg, batch: int = 8, prompt: int = 1024,
+             decode_tokens: int = 64, dev="cuda", profile: bool = False):
+    """RWKV-6 serving: prefill ``batch`` × ``prompt`` ids, greedy-decode
+    ``decode_tokens``; the gates (a)–(d) of the module docstring."""
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.models import Model
+    from repro_torch.models import rwkv6 as rw
+
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    times = {"init_s": time.perf_counter() - t0}
+    def count(t):
+        if isinstance(t, dict):
+            t = list(t.values())
+        return sum(count(v) for v in t) if isinstance(t, list) else t.numel()
+
+    n_params = count(params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (batch, prompt)))
+    tokens = tokens.to(dev)
+    V = cfg.vocab
+
+    def masked(logits) -> bool:
+        pad = logits[:, V:]
+        return bool(torch.isfinite(logits[:, :V]).all()) and bool((pad == -1e30).all())
+
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": tokens})     # warm-up, not counted
+        for _ in range(2):
+            logits, cache = model.decode_step(params, cache, torch.argmax(logits, -1))
+        sync(dev)
+
+        for o in (wops, *other_ops):                                   # main path starts here
+            o.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        sync(dev)
+        times["prefill_s"] = time.perf_counter() - t0
+        launches_prefill = wops.launches
+        toks = torch.argmax(logits, -1)
+        seq, finite = [toks], torch.ones((), dtype=torch.bool, device=dev)
+        c = cache
+        t0 = time.perf_counter()
+        for step in range(decode_tokens):
+            dl, c = model.decode_step(params, c, toks)
+            if step == 0:
+                first_decode = dl
+            finite &= torch.isfinite(dl[:, :V]).all() & (dl[:, V:] == -1e30).all()
+            toks = torch.argmax(dl, -1)
+            seq.append(toks)
+        sync(dev)
+        times["decode_s"] = time.perf_counter() - t0
+        launches = wops.launches                                       # ... and ends here
+        others = {o.__name__: o.launches for o in other_ops}
+
+        # (a) finite and masked
+        if not (masked(logits) and bool(finite)):
+            raise AssertionError("lm: prefill or decode logits not finite, or padded ids unmasked")
+        # (d) launches: one a layer per prefill, none while decoding
+        if not (launches_prefill == cfg.n_layers and launches == launches_prefill):
+            raise AssertionError(f"lm: rwkv6_chunk launched {launches_prefill} times in the "
+                                 f"prefill and {launches - launches_prefill} while decoding; "
+                                 f"expected {cfg.n_layers} and 0")
+        if any(others.values()):
+            raise AssertionError(f"lm: kernels off the LM path launched: {others}")
+
+        # outside the counted run: the same weights in float32, and the plain
+        # WKV patched into the module in place of the kernel
+        m32 = Model(cfg.replace(dtype="float32"), device=dev)
+        p32 = upcast(params)
+        l32, c32 = m32.prefill(p32, {"tokens": tokens})
+        with plain_wkv(rw, rwkv6_chunk_ref):
+            plain_logits, _ = model.prefill(params, {"tokens": tokens})
+            plain32, _ = m32.prefill(p32, {"tokens": tokens})
+        maxdiff = lambda a, b: float((a - b).abs()[:, :V].max())
+        # (b) kernel against plain inside the model: in float32 within
+        # LM_F32_RTOL of the largest logit with the same greedy tokens; in
+        # bf16 no further apart than the served model is from its float32
+        # twin (its own rounding)
+        diff_b, diff_b32 = maxdiff(logits, plain_logits), maxdiff(l32, plain32)
+        noise = maxdiff(logits, l32)
+        lim_b32 = LM_F32_RTOL * float(l32[:, :V].abs().max())
+        # (c) decode after prefill(S) against prefill(S + 1): bf16 within the
+        # reference's band, float32 within LM_F32_RTOL of the largest logit
+        longer, _ = model.prefill(params, {"tokens": torch.cat([tokens, seq[0][:, None]], 1)})
+        nxt32 = torch.argmax(l32, -1)
+        dec32, _ = m32.decode_step(p32, c32, nxt32)
+        longer32, _ = m32.prefill(p32, {"tokens": torch.cat([tokens, nxt32[:, None]], 1)})
+        diff_c, diff_c32 = maxdiff(first_decode, longer), maxdiff(dec32, longer32)
+        lim_c32 = LM_F32_RTOL * float(longer32[:, :V].abs().max())
+        log(f"  max |Δlogit|: kernel vs plain WKV {diff_b:.4f} bf16 (the bf16 model vs its "
+            f"f32 twin: {noise:.4f}), {diff_b32:.3e} f32 (limit {lim_b32:.3e}); decode vs "
+            f"prefill(S + 1) {diff_c:.4f} bf16 (band atol {LM_BAND['atol']}, rtol "
+            f"{LM_BAND['rtol']}), {diff_c32:.3e} f32 (limit {lim_c32:.3e})")
+        if not (diff_b32 <= lim_b32 and torch.equal(l32.argmax(-1), plain32.argmax(-1))
+                and diff_b <= noise):
+            raise AssertionError("lm: kernel and plain WKV disagree inside the model")
+        if not (torch.allclose(first_decode[:, :V], longer[:, :V], **LM_BAND)
+                and diff_c32 <= lim_c32):
+            raise AssertionError("lm: decode after prefill(S) is off prefill(S + 1)")
+        del m32, p32, c32, l32, plain32, dec32, longer32
+
+        prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}), max_reps=5)
+        prof = profile_window(lambda: model.prefill(params, {"tokens": tokens}),
+                              split="rwkv6_chunk") if torch.device(dev).type == "cuda" else None
+        decode_prof = None
+        if profile:
+            def steps(n=16):
+                lg, c = logits, cache
+                for _ in range(n):
+                    lg, c = model.decode_step(params, c, torch.argmax(lg, -1))
+            decode_prof = profile_window(steps)
+
+    seqs = torch.stack(seq, 1).cpu().numpy()
+    decode_ms = times["decode_s"] * 1e3 / decode_tokens
+    out = {"arch": cfg.name, "n_params": n_params, "layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt, "decode_tokens": decode_tokens, "times": times,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "decode_tok_per_s": batch * decode_tokens / times["decode_s"],
+           "launches": launches, "launches_prefill": launches_prefill,
+           "launches_decode": launches - launches_prefill,
+           "max_diff_kernel_vs_plain": diff_b, "max_diff_kernel_vs_plain_f32": diff_b32,
+           "max_diff_bf16_vs_f32": noise, "max_diff_decode_vs_prefill": diff_c,
+           "max_diff_decode_vs_prefill_f32": diff_c32,
+           "sample": seqs[0, :16].tolist()}
+    log(f"  {cfg.name}: {n_params:,} parameters ({cfg.n_layers} layers, d {cfg.d_model}), "
+        f"init {times['init_s']:.2f}s")
+    log(f"  prefill {batch}x{prompt}: {times['prefill_s'] * 1e3:.1f} ms (counted run), "
+        f"{prefill_ms:.1f} ms (mean, CUDA events); decode {decode_tokens} tokens: "
+        f"{decode_ms:.2f} ms a token, {out['decode_tok_per_s']:.1f} tok/s")
+    log(f"  rwkv6_chunk launches {launches_prefill} in the prefill, "
+        f"{launches - launches_prefill} while decoding; greedy row 0 {out['sample']}")
+    if prof is not None:
+        out["profile_prefill"] = prof
+        out["kernel_share_of_prefill"] = prof["split_ms"] / prof["device_busy_ms"]
+        log(f"  profile prefill: wall {prof['wall_ms']:.1f} ms, kernels busy "
+            f"{prof['device_busy_ms']:.1f} ms (rwkv6_chunk {prof['split_ms']:.1f} ms, share "
+            f"{out['kernel_share_of_prefill']:.3f}), idle share {prof['idle_share']:.3f}; "
+            f"top {prof['top']}")
+    if decode_prof is not None:
+        out["profile_decode_16"] = decode_prof
+        log(f"  profile 16 decode steps: wall {decode_prof['wall_ms']:.1f} ms, kernels busy "
+            f"{decode_prof['device_busy_ms']:.1f} ms, idle share "
+            f"{decode_prof['idle_share']:.3f}; top {decode_prof['top']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -621,16 +882,18 @@ def main() -> int:
                     help="phase-4 fact rows (coefficient-domain and histogram fits)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 2, trace one more training round and one scoring "
-                         "pass per table with torch.profiler and print the device's "
-                         "busy and idle share")
+                         "pass per table, and in phase 5 16 decode steps, with "
+                         "torch.profiler and print the device's busy and idle share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import polymul, segment_sum
+    from repro_torch import configs
+    from repro_torch.kernels import polymul, rwkv6_chunk, segment_sum
     from repro_torch.kernels.polymul import ops as pops
+    from repro_torch.kernels.rwkv6_chunk import ops as wops
     from repro_torch.kernels.segment_sum import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -645,8 +908,9 @@ def main() -> int:
         f"{torch.cuda.get_device_capability(0)}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:          # one nvcc per source, started together
-        builds = list(pool.map(lambda m: m.build(verbose=True), (segment_sum, polymul)))
+    with ThreadPoolExecutor(3) as pool:          # one nvcc per source, started together
+        builds = list(pool.map(lambda m: m.build(verbose=True),
+                               (segment_sum, polymul, rwkv6_chunk)))
     log(f"build: {', '.join(lib.name for lib, _ in builds)} in "
         f"{time.perf_counter() - t0:.2f}s")
     for _, build_log in builds:
@@ -654,9 +918,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    log("phase 1: segment_sum and polymul kernels vs plain versions on the card")
+    log("phase 1: segment_sum, polymul and rwkv6_chunk kernels vs plain versions on the card")
     shapes = phase_kernel(ops, ref)
     pshapes = phase_polymul(pops, polymul)
+    wshapes = phase_wkv(wops, rwkv6_chunk)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
     serve = phase_serve(ops, args.n_fact, profile=args.profile)
     log(f"phase 3: paper check at {args.paper_n_fact} fact rows")
@@ -664,9 +929,14 @@ def main() -> int:
     log(f"phase 4: paper's coefficient-domain sketch and histogram splits at "
         f"{args.coeff_n_fact} fact rows")
     coeff = phase_coeff_hist(pops, ops, args.coeff_n_fact)
+    torch.cuda.empty_cache()
+    lm_cfg = configs.get("rwkv6_1_6b")
+    log(f"phase 5: {lm_cfg.name} serving at full width: prefill 8 x 1024, decode 64 tokens")
+    lm = phase_lm(wops, (ops, pops), lm_cfg, profile=args.profile)
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
+    whead = next(s for s in wshapes if s["case"] == "prefill_8x1024")
     kernels = [{
         "name": "segment_sum", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_sum.cu",
@@ -690,8 +960,19 @@ def main() -> int:
         "shape": {k: phead[k] for k in ("B", "k", "dtype")},
         "launches_by_path": {"coeff_fit": coeff["polymul_launches"]},
         "shapes": pshapes,
+    }, {
+        "name": "rwkv6_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_chunk.cu",
+        "replaces": "src/repro/kernels/rwkv6_chunk/rwkv6_chunk.py:60",
+        "launches": lm["launches"], "max_abs_err": whead["max_abs_err"],
+        "ms": whead["ms"], "plain_ms": whead["plain_ms"], "bound_ms": whead["bound_ms"],
+        "bound_by": whead["bound_by"], "library_ms": None,   # no single PyTorch call
+        "shape": {k: whead[k] for k in ("B", "S", "H", "hs", "chunk")},
+        "launches_by_path": {"lm_prefill": lm["launches_prefill"],
+                             "lm_decode": lm["launches_decode"]},
+        "shapes": wshapes,
     }]
-    log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff}))
+    log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm}))
     log(json.dumps({"kernels": kernels}))
     # the run drives one card, device 0
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,10 @@ nothing of it):
   build the port's :class:`~repro_torch.core.Schema`;
 - trained trees: ``TreeArrays.feat/thr/leaf``;
 - sketch hash constants: ``TableHashes.hashes[name].a/b/a2/b2`` and ``k``
-  (uint32 words, carried as Python ints).
+  (uint32 words, carried as Python ints);
+- LM parameters: the ``Model.init`` pytree of nested dicts, whose
+  ``layers`` entry is stacked over a leading layer axis; each leaf is
+  read with ``np.asarray`` and keeps its dtype (bfloat16 bit for bit).
 
 Histogram split mode carries nothing new: its cuts, bins and row lists
 are numpy functions of the same tables (``core/hist.py``), and a
@@ -17,7 +20,7 @@ histogram fit takes the reference's hashes like any other.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -52,3 +55,28 @@ def table_hashes(ref_hashes) -> TableHashes:
                 for name, h in ref_hashes.hashes.items()},
         k=int(ref_hashes.k),
     )
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A reference array as a tensor of the same dtype.  numpy has no
+    bfloat16 of its own: the reference's arrays come out with the
+    ``ml_dtypes`` bfloat16, which ``torch.from_numpy`` refuses, so their
+    bits go through an int16 view."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def lm_params(ref_params, device="cuda") -> Dict[str, Any]:
+    """The port's LM parameters from the reference's ``Model.init`` pytree:
+    the same nested dict, with ``layers`` unstacked into a list of
+    per-layer dicts (``models/lm.py``)."""
+    out = {k: _map(lambda x: _tensor(x, device), v) for k, v in ref_params.items()}
+    n_layers = len(out["layers"]["ln1"]["scale"])
+    out["layers"] = [_map(lambda t: t[i], out["layers"]) for i in range(n_layers)]
+    return out

@@ -11,6 +11,8 @@ loaded through ``ctypes``.
                   segment-⊕ route)
     polymul     — out[b, i] = Σ_j a[b, j] · b[b, (i − j) mod k]  (every ⊗ of
                   the coefficient-domain sketch semiring, PolyCoeff)
+    rwkv6_chunk — the chunked RWKV-6 WKV with a carried hs × hs state (every
+                  time-mix of an RWKV-6 prefill, ``models/rwkv6.py``)
 
-``_build.py`` compiles a ``csrc/<name>.cu`` and loads it, for both.
+``_build.py`` compiles a ``csrc/<name>.cu`` and loads it, for each.
 """

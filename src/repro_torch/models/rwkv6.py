@@ -1,0 +1,138 @@
+"""RWKV-6 "Finch" (arXiv:2404.05892): attention-free, data-dependent decay.
+
+Recurrence per head (k-dim = v-dim = head_size):
+    S_t = diag(w_t) S_{t-1} + k_tᵀ v_t
+    o_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)
+
+The port of the reference's ``models/rwkv6.py``.  The prefill computes
+the WKV in the chunked form through ``kernels/rwkv6_chunk``: the
+hand-written CUDA kernel for a CUDA tensor, the plain chunked version
+(``kernels/rwkv6_chunk/ref.py``) for a CPU tensor.  Decode is the O(1) recurrent step
+in plain torch.  Casts follow the reference: the weights and the token
+mixes are in the model dtype, the decay and the WKV in float32, and the
+WKV output is normed in float32 and cast back before the gate and ``wo``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rwkv6_chunk import rwkv6_chunk
+from .config import ModelConfig
+from .layers import _dense_init, rmsnorm
+
+LORA = 64           # rank of the decay's data-dependent term
+
+
+def init_rwkv_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, device=None):
+    D = cfg.d_model
+    hs = cfg.rwkv_head_size
+    H = D // hs
+    dev = device or gen.device
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=gen.device)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=gen.device)
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    dense = lambda shape, scale=1.0: _dense_init(gen, shape, dtype, scale, device=dev)
+    return {
+        # token-shift data-dependent lerp (5 targets: w, k, v, r, g)
+        "mu": (rand(5, D) * 0.5 + 0.25).to(dev, dtype),
+        # decay: w_t = exp(-exp(w0 + tanh(x @ A) @ B))
+        "w0": torch.full((D,), -4.0, dtype=torch.float32, device=dev),
+        "wA": dense((D, LORA)),
+        "wB": (randn(LORA, D) * 0.01).to(dev, dtype),
+        "u": (randn(H, hs) * 0.1).to(dev, torch.float32),
+        "wr": dense((D, D)),
+        "wk": dense((D, D)),
+        "wv": dense((D, D)),
+        "wg": dense((D, D)),
+        "wo": dense((D, D), out_scale),
+        "ln_x": torch.ones(D, dtype=dtype, device=dev),
+        # channel mix
+        "mu_c": (rand(2, D) * 0.5 + 0.25).to(dev, dtype),
+        "ck": dense((D, cfg.d_ff)),
+        "cv": dense((cfg.d_ff, D), out_scale),
+        "cr": dense((D, D)),
+    }
+
+
+def _shift(x: torch.Tensor, last=None) -> torch.Tensor:
+    """Token shift: x_{t-1} (zeros / supplied state at t=0)."""
+    pad = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def _projections(p, cfg: ModelConfig, x, x_prev):
+    """Shared by prefill and decode: r, k, v, g, logw from (B, S, D) inputs."""
+    dx = x_prev - x
+    mu = p["mu"].to(x.dtype)                        # (5, D)
+    xw, xk, xv, xr, xg = [x + dx * mu[i] for i in range(5)]
+    logw = -torch.exp(p["w0"] + (torch.tanh(xw @ p["wA"]) @ p["wB"]).float())   # ≤ 0
+    r = xr @ p["wr"]
+    k = xk @ p["wk"]
+    v = xv @ p["wv"]
+    g = F.silu(xg @ p["wg"])
+    return r, k, v, g, logw
+
+
+def _heads(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    B, S, D = t.shape
+    hs = cfg.rwkv_head_size
+    return t.reshape(B, S, D // hs, hs)
+
+
+def wkv_inputs(p, cfg: ModelConfig, x):
+    """The WKV's float32 (B, S, H, hs) heads (r, k, v, logw) of a whole
+    sequence, and the gate g."""
+    r, k, v, g, logw = _projections(p, cfg, x, _shift(x))
+    heads = tuple(_heads(cfg, t).float() for t in (r, k, v, logw))
+    return heads, g
+
+
+def time_mix_out(p, cfg: ModelConfig, x, heads, g):
+    """The time-mix output of x (B, S, D) from its WKV inputs: S is
+    zero-padded to a multiple of the chunk for the WKV and cut back."""
+    B, S, D = x.shape
+    chunk = cfg.ssm_chunk
+    pad = (-S) % chunk
+    if pad:
+        heads = tuple(F.pad(t, (0, 0, 0, 0, 0, pad)) for t in heads)
+    out = rwkv6_chunk(*heads, p["u"], chunk)
+    out = out[:, :S].reshape(B, S, D)
+    out = rmsnorm(out, p["ln_x"].float(), 1e-5)
+    return (out.to(x.dtype) * g) @ p["wo"]
+
+
+def time_mix(p, cfg: ModelConfig, x):
+    """Prefill path.  x: (B, S, D)."""
+    heads, g = wkv_inputs(p, cfg, x)
+    return time_mix_out(p, cfg, x, heads, g)
+
+
+def time_mix_step(p, cfg: ModelConfig, x, state):
+    """Decode: x (B, 1, D); state dict {S: (B, H, hs, hs), x_last: (B, D)}."""
+    B = x.shape[0]
+    r, k, v, g, logw = _projections(p, cfg, x, state["x_last"][:, None])
+    rh = _heads(cfg, r)[:, 0].float()               # (B, H, hs)
+    kh = _heads(cfg, k)[:, 0].float()
+    vh = _heads(cfg, v)[:, 0].float()
+    wh = torch.exp(_heads(cfg, logw)[:, 0])
+    S0 = state["S"]
+    kv = torch.einsum("bhk,bhd->bhkd", kh, vh)
+    out = torch.einsum("bhk,bhkd->bhd", rh, S0 + p["u"][None, :, :, None] * kv)
+    S1 = wh[..., None] * S0 + kv
+    out = out.reshape(B, 1, cfg.d_model)
+    out = rmsnorm(out, p["ln_x"].float(), 1e-5)
+    out = (out.to(x.dtype) * g) @ p["wo"]
+    return out, {"S": S1, "x_last": x[:, 0]}
+
+
+def channel_mix(p, cfg: ModelConfig, x, x_last=None):
+    xp = _shift(x, x_last)
+    dx = xp - x
+    mu = p["mu_c"].to(x.dtype)
+    xk = x + dx * mu[0]
+    xr = x + dx * mu[1]
+    k = torch.square(torch.relu(xk @ p["ck"]))
+    return torch.sigmoid(xr @ p["cr"]) * (k @ p["cv"])

@@ -49,6 +49,9 @@ def test_forbidden_pattern_catches_reference_imports():
 def test_importing_the_port_loads_neither_jax_nor_reference():
     mods = _modules()
     assert "repro_torch.core.trainer" in mods and "repro_torch.launch.serve_relational" in mods
+    for m in ("repro_torch.models.lm", "repro_torch.models.rwkv6",
+              "repro_torch.kernels.rwkv6_chunk.ops", "repro_torch.launch.serve"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,0 +1,100 @@
+"""The port's chunked RWKV-6 WKV on the CPU against the JAX reference.
+
+The port's plain version (``kernels/rwkv6_chunk/ref.py``, which its
+wrapper takes for CPU tensors) is held against the reference's Pallas
+kernel in interpret mode and against its ``models/rwkv6.rwkv_chunked``,
+on the shapes of ``tests/test_kernels.py``, and against the step-by-step
+recurrence.  Tolerance: the reference's own for these comparisons, atol
+2e-4 and rtol 2e-3 (float32 sums over chunks in another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.kernels.rwkv6_chunk.ops import rwkv6_chunk as ref_kernel
+from repro.models import Model as RefModel
+from repro.models import rwkv6 as ref_rwkv6
+from repro_torch import configs, convert
+from repro_torch.kernels.rwkv6_chunk import ops, rwkv6_chunk_ref
+from repro_torch.models import rwkv6
+
+TOL = dict(atol=2e-4, rtol=2e-3)
+
+
+def _inputs(B, S, H, hs, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, hs)).astype(np.float32) for _ in range(3))
+    logw = -rng.uniform(0.01, 2.0, (B, S, H, hs)).astype(np.float32)
+    u = rng.standard_normal((H, hs)).astype(np.float32)
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("B,S,H,hs,chunk", [(2, 64, 2, 32, 16), (1, 128, 4, 64, 16),
+                                            (3, 48, 1, 16, 8)])
+def test_plain_matches_pallas_and_reference(B, S, H, hs, chunk):
+    arrs = _inputs(B, S, H, hs, seed=B * S + hs)
+    before = ops.launches
+    got = ops.rwkv6_chunk(*map(torch.from_numpy, arrs), chunk).numpy()
+    assert ops.launches == before                     # the CPU takes the plain version
+    pallas = np.asarray(ref_kernel(*map(jnp.asarray, arrs), chunk=chunk))    # interpret mode
+    chunked = np.asarray(ref_rwkv6.rwkv_chunked(*map(jnp.asarray, arrs), chunk))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, chunked, **TOL)
+    f64 = rwkv6_chunk_ref(*map(torch.from_numpy, arrs), chunk, dtype=torch.float64)
+    assert f64.dtype == torch.float64
+    np.testing.assert_allclose(got, f64.numpy(), **TOL)
+
+
+def test_plain_equals_step_recurrence():
+    """Chunked WKV == step-by-step recurrence (the reference's own check)."""
+    B, S, H, hs = 2, 32, 3, 8
+    r, k, v, logw, u = _inputs(B, S, H, hs, seed=0)
+    got = rwkv6_chunk_ref(*map(torch.from_numpy, (r, k, v, logw, u)), 8).numpy()
+    state = np.zeros((B, H, hs, hs), np.float32)
+    w = np.exp(logw)
+    want = np.zeros((B, S, H, hs), np.float32)
+    for t in range(S):
+        kv = np.einsum("bhk,bhd->bhkd", k[:, t], v[:, t])
+        want[:, t] = np.einsum("bhk,bhkd->bhd", r[:, t], state + u[None, :, :, None] * kv)
+        state = w[:, t][..., None] * state + kv
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_time_mix_pads_a_ragged_sequence(use_kernel):
+    """S = 21 is not a multiple of the smoke chunk (8): time_mix pads it
+    for the WKV and cuts it back, as the reference does."""
+    cfg = ref_configs.get_smoke("rwkv6_1_6b").replace(dtype="float32")
+    ref_params = RefModel(cfg).init(jax.random.PRNGKey(0))
+    p_ref = jax.tree.map(lambda a: a[0], ref_params["layers"])["mix"]
+    p = convert.lm_params(ref_params, device="cpu")["layers"][0]["mix"]
+    x = np.random.default_rng(3).standard_normal((2, 21, cfg.d_model)).astype(np.float32)
+    want = np.asarray(ref_rwkv6.time_mix(p_ref, cfg, jnp.asarray(x), use_kernel=use_kernel))
+    pcfg = configs.get_smoke("rwkv6_1_6b").replace(dtype="float32")
+    got = rwkv6.time_mix(p, pcfg, torch.from_numpy(x)).numpy()
+    assert got.shape == (2, 21, cfg.d_model)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    r, k, v, logw, u = map(torch.from_numpy, _inputs(1, 32, 2, 16, seed=1))
+    with pytest.raises(TypeError):
+        ops.rwkv6_chunk(r.double(), k, v, logw, u, 8)
+    with pytest.raises(TypeError):
+        ops.rwkv6_chunk(r, k, v, logw, u.bfloat16(), 8)
+    with pytest.raises(ValueError, match="S % chunk"):
+        ops.rwkv6_chunk(r[:, :20], k[:, :20], v[:, :20], logw[:, :20], u, 8)
+    with pytest.raises(ValueError, match="hs in"):
+        ops.rwkv6_chunk(r[..., :8], k[..., :8], v[..., :8], logw[..., :8], u[:, :8], 8)
+    with pytest.raises(ValueError, match="chunk in"):
+        ops.rwkv6_chunk(r, k, v, logw, u, 4)
+    with pytest.raises(ValueError, match="u of shape"):
+        ops.rwkv6_chunk(r, k, v, logw, u[:1], 8)
+    with pytest.raises(ValueError, match="one \\(B, S, H, hs\\) shape"):
+        ops.rwkv6_chunk(r, k[:, :16], v, logw, u, 8)
+    meta = [t.to("meta") for t in (r, k, v, logw, u)]
+    with pytest.raises(RuntimeError, match="no route"):
+        ops.rwkv6_chunk(*meta, 8)
