@@ -4,8 +4,8 @@ Every ported module defines ``CONFIG`` (the full published numbers) and
 ``SMOKE`` (a reduced config of the same family for CPU tests), copied
 from the reference's ``configs/``.  ``get(name)`` returns the full
 config, ``get_smoke(name)`` the reduced one; both take the module name
-or its external id (``ALIASES``).  Only ``rwkv6_1_6b`` is ported so far;
-any other architecture raises.
+or its external id (``ALIASES``).  ``PORTED`` lists the architectures
+ported so far; any other raises.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("rwkv6_1_6b",)
+PORTED = ("rwkv6_1_6b", "tinyllama_1_1b")
 
 # canonical external ids → module names
 ALIASES = {

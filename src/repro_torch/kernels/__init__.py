@@ -13,6 +13,8 @@ loaded through ``ctypes``.
                   the coefficient-domain sketch semiring, PolyCoeff)
     rwkv6_chunk — the chunked RWKV-6 WKV with a carried hs × hs state (every
                   time-mix of an RWKV-6 prefill, ``models/rwkv6.py``)
+    flash_attention — softmax(q·kᵀ/√dh)·v, causal or not, GQA by head index
+                  (every self-attention of a dense prefill, ``models/layers.py``)
 
 ``_build.py`` compiles a ``csrc/<name>.cu`` and loads it, for each.
 """

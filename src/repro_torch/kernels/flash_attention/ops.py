@@ -1,0 +1,126 @@
+"""Wrapper of the flash_attention kernel (``csrc/flash_attention.cu``).
+
+:func:`flash_attention_gqa` takes q (B, S, N, dh) and k, v (B, S, Kh, dh)
+and returns softmax(q·kᵀ/√dh)·v as (B, S, N·dh) in q's dtype, causal or
+not, query head n reading K/V head n // (N // Kh); the reference's
+``kernels/flash_attention/ops.flash_attention_gqa`` has the same call,
+without its repeat of K/V.  CUDA tensors go to the kernel, which is
+compiled with ``nvcc`` for sm_90a at first use (``kernels/_build.py``)
+and bound through ``ctypes``; it reads the operands in place through
+their strides (a copy only where the last dimension is not contiguous or
+a stride or base is off 16 bytes).  CPU tensors go to the plain version
+in ``ref.py``.  Any other device raises, as do dtypes other than float32
+and bfloat16, operands of two dtypes or devices, shapes that do not
+match, dh outside (16, 32, 64, 128), N not a multiple of Kh, and B or
+⌈S/64⌉ above 65,535 (on the CPU too, so a shape that runs here runs on
+the card).
+
+``launches`` counts kernel launches since the last
+:func:`reset_launches`; a run reads it to show that its attention went
+through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .ref import KERNEL_TILE, flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+GRID_MAX = 65535                   # B and the query-tile count are grid dimensions
+
+launches = 0
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def build(verbose: bool = False) -> Tuple[Path, str]:
+    """Compile ``csrc/flash_attention.cu`` (see ``kernels/_build.py``);
+    returns the library's path and the compiler's messages."""
+    return _build.build("flash_attention", verbose=verbose)
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        lib.flash_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+            + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash_attention takes operands of one dtype, got q {q.dtype} "
+                            f"and {name} {x.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"flash_attention operands lie on {q.device} and {x.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention takes q (B, S, N, dh) and k, v (B, S, Kh, dh), got "
+                         f"{[tuple(x.shape) for x in (q, k, v)]}")
+    B, S, N, dh = q.shape
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != dh:
+        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    Kh = k.shape[2]
+    if dh not in HEAD_DIMS or Kh == 0 or N % Kh:
+        raise ValueError(f"flash_attention takes dh in {HEAD_DIMS} and N a multiple of Kh, "
+                         f"got dh = {dh}, N = {N}, Kh = {Kh}")
+    if B > GRID_MAX or -(-S // KERNEL_TILE) > GRID_MAX:
+        raise ValueError(f"flash_attention takes B and ceil(S / {KERNEL_TILE}) up to {GRID_MAX}, "
+                         f"got B = {B}, S = {S}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself when the kernel can read it in place (last dim contiguous,
+    16-byte base and strides), else a contiguous copy."""
+    per16 = 16 // x.element_size()
+    if (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(s % per16 == 0 for s in x.stride()[:3])):
+        return x
+    return x.contiguous()
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """softmax(q·kᵀ/√dh)·v of q (B, S, N, dh) and k, v (B, S, Kh, dh),
+    as (B, S, N·dh) in q's dtype."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: no route for device {q.device}")
+    B, S, N, dh = q.shape
+    out = torch.empty(B, S, N * dh, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    q, k, v = (_aligned(x) for x in (q, k, v))
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]] + [S * N * dh, N * dh, dh]
+    lib = _load()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, S, N, k.shape[2], dh, int(causal),
+            (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(rc).decode())
+    global launches
+    launches += 1
+    return out

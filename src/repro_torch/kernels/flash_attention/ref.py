@@ -1,0 +1,160 @@
+"""Plain PyTorch versions of the flash_attention kernel.
+
+:func:`block_attn_fwd` is the port of the reference's
+``models/layers._block_attn_fwd``, the model's own blockwise twin of the
+kernel: online softmax over (q_chunk × kv_chunk) blocks at absolute
+positions, with the reference's padding (−1 for padded queries, INT32_MAX
+for padded keys), causal and window masks at −1e30, and its dtype
+promotions (q·scale and the scores in float32; p rounded to v's dtype
+before P·V, whose blocks are summed in float32; the output divided by
+max(l, 1e-30)).  It visits every kv block and masks the ones outside a
+window, where the reference gathers only the band: the masked blocks
+add zeros, so the result is the same.
+
+:func:`flash_attention_ref` is that function at positions 0..S−1 with no
+window, at the reference's default chunks, the kernel's plain version
+(the wrapper uses it for CPU tensors).  :func:`attention_dense` is a
+dense softmax in float64, the comparison oracle on the card, and
+:func:`attention_limit` gives it with the tolerance a kernel output is
+held to.
+
+Layouts: q (B, S, N, dh), k and v (B, S, Kh, dh) with N % Kh == 0; query
+head n reads K/V head n // (N // Kh).  Outputs are (B, S, N·dh).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+INT32_MAX = 2 ** 31 - 1
+GLOBAL_WINDOW = 1 << 30            # "window" of a full-attention call
+KERNEL_TILE = 64                   # the kernel's query and key tile
+Q_CHUNK, KV_CHUNK = 512, 1024      # ModelConfig's default q_chunk and kv_chunk
+DENSE_ROWS = 512                   # queries a step of the dense oracle
+F32_RTOL = 2e-5                    # float32 kernel: |err| ≤ F32_RTOL · max|v|
+BF16_ROUND = 2.0 ** -7             # bf16 kernel: twice the bf16 unit roundoff
+
+
+def attn_mask(qp: torch.Tensor, kp: torch.Tensor, causal: bool, window) -> torch.Tensor:
+    """(B, Sq, Sk) validity mask from absolute positions (padding −1 for
+    queries, INT32_MAX for keys); ``window`` ≥ GLOBAL_WINDOW is unrestricted."""
+    qp, kp = qp.long()[:, :, None], kp.long()[:, None, :]
+    mask = (qp >= 0) & (kp >= 0) & (kp < INT32_MAX)
+    if causal:
+        mask &= qp >= kp
+    return mask & (qp - kp < window)
+
+
+def block_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                   kv_pos: torch.Tensor, causal: bool, window: Optional[int], q_chunk: int,
+                   kv_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, Sq, N, dh); k, v: (B, Sk, Kh, dh); positions (B, Sq), (B, Sk).
+    Returns (out (B, Sq, N·dh) float32 — float64 for float64 inputs —,
+    lse (B, Kh, G, Sq))."""
+    B, Sq, N, dh = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = N // Kh
+    acc_t = torch.float64 if q.dtype == torch.float64 else torch.float32
+    win = GLOBAL_WINDOW if window is None else window
+    q = (q.to(acc_t) * (1.0 / math.sqrt(dh))).reshape(B, Sq, Kh, G, dh)
+
+    nq = max(1, -(-Sq // q_chunk))
+    qc = -(-Sq // nq)
+    nk = max(1, -(-Sk // kv_chunk))
+    kc = -(-Sk // nk)
+    pad_q, pad_k = nq * qc - Sq, nk * kc - Sk
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=-1)
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad_k), value=INT32_MAX)
+    neg = torch.tensor(-1e30, dtype=acc_t, device=q.device)
+
+    outs, lses = [], []
+    for i in range(nq):
+        qi, qp = q[:, i * qc:(i + 1) * qc], q_pos[:, i * qc:(i + 1) * qc]
+        acc = torch.zeros(B, Kh, G, qc, dh, dtype=acc_t, device=q.device)
+        m = torch.full((B, Kh, G, qc), -math.inf, dtype=acc_t, device=q.device)
+        l = torch.zeros(B, Kh, G, qc, dtype=acc_t, device=q.device)
+        for j in range(nk):
+            kj, vj = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj.to(acc_t))
+            mask = attn_mask(qp, kv_pos[:, j * kc:(j + 1) * kc], causal, win)
+            s = torch.where(mask[:, None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vj.dtype), vj).to(acc_t)
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).permute(0, 3, 1, 2, 4))
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.cat(outs, 1).reshape(B, nq * qc, N * dh)[:, :Sq]
+    return out, torch.cat(lses, -1)[..., :Sq]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The kernel's function by :func:`block_attn_fwd` at positions
+    0..S−1, no window, in the reference model's default chunks (in bf16
+    each kv block's P·V is rounded to bf16, so the chunks set the
+    rounding, as in the reference); (B, S, N·dh) in q's dtype."""
+    B, S = q.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+    out, _ = block_attn_fwd(q, k, v, pos, pos, causal, None, Q_CHUNK, KV_CHUNK)
+    return out.to(q.dtype)
+
+
+def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax(q·kᵀ/√dh)·v computed densely in float64 (scores of
+    DENSE_ROWS queries of one batch row at a time against every key, K/V
+    heads repeated per group), (B, S, N·dh), and each row's ‖p‖₂ (its
+    probabilities sum to 1), (B, S, N)."""
+    rows, dt = DENSE_ROWS, torch.float64
+    B, S, N, dh = q.shape
+    G = N // k.shape[2]
+    out = torch.empty(B, S, N * dh, dtype=dt, device=q.device)
+    norms = torch.empty(B, S, N, dtype=dt, device=q.device)
+    keys = torch.arange(S, device=q.device)
+    for b in range(B):
+        kd = k[b].to(dt).transpose(0, 1).repeat_interleave(G, dim=0)         # (N, S, dh)
+        vd = v[b].to(dt).transpose(0, 1).repeat_interleave(G, dim=0)
+        for r0 in range(0, S, rows):
+            qd = q[b, r0:r0 + rows].to(dt).transpose(0, 1)                    # (N, R, dh)
+            s = qd @ kd.transpose(1, 2) / math.sqrt(dh)                      # (N, R, S)
+            if causal:
+                s = s.masked_fill(keys[None, :] > keys[r0:r0 + rows, None], -1e30)
+            p = torch.softmax(s, -1)
+            out[b, r0:r0 + rows] = (p @ vd).transpose(0, 1).reshape(-1, N * dh)
+            norms[b, r0:r0 + rows] = torch.linalg.vector_norm(p, dim=-1).T
+    return out, norms
+
+
+def attention_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float64 oracle of a kernel output in q's dtype and the largest
+    |kernel − oracle| allowed per element, with V = max|v|:
+
+    - float32: F32_RTOL · V (float32 sums of up to S terms whose weights
+      sum to 1);
+    - bfloat16: 2⁻⁷ · (|o| + ‖p‖₂ · V) for output o of a row with
+      probabilities p.  Rounding the output to bf16 moves it by 2⁻⁸·|o| at
+      most; rounding each p_j to bf16 before P·V, as the reference does,
+      adds Σ_j δ_j p_j v_j with |δ_j| ≤ 2⁻⁸, whose spread is at most
+      2⁻⁸ · ‖p‖₂ · V.  So a row that averages many keys (‖p‖₂ ≈ 1/√keys)
+      is held as tightly as its own small output, not to 2⁻⁷ · V.
+
+    Returns (oracle (B, S, N·dh), limit broadcastable to it), float64."""
+    vmax = float(v.abs().max())
+    want, norms = attention_dense(q, k, v, causal)
+    if q.dtype != torch.bfloat16:
+        return want, torch.tensor(F32_RTOL * vmax, dtype=torch.float64, device=q.device)
+    B, S, N, dh = q.shape
+    spread = norms[..., None].expand(B, S, N, dh).reshape(B, S, N * dh)
+    return want, BF16_ROUND * (want.abs() + spread * vmax)

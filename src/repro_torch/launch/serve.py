@@ -1,13 +1,19 @@
 """Batched LM serving: prefill a prompt batch, then decode N tokens greedily.
 
 The port of the reference's ``launch/serve.py`` for the ported configs
-(``rwkv6_1_6b``).  Weights are random, drawn from ``--seed``; prompts are
-token ids from numpy's ``default_rng(seed)``.  PyTorch compiles nothing
-ahead of a call, so the times printed are of the steady state: each of
-prefill and decode runs once untimed first (building the CUDA kernel on
-its first call).
+(``rwkv6_1_6b``, whose prefill runs the rwkv6_chunk kernel, and
+``tinyllama_1_1b``, whose prefill attention runs the flash_attention
+kernel).  Weights are random, drawn from ``--seed``; prompts are token
+ids from numpy's ``default_rng(seed)``.  The prefill gives a dense
+model's KV cache room for the prompt and every decode token.  PyTorch
+compiles nothing ahead of a call, so the times printed are of the steady
+state: each of prefill and decode runs once untimed first (building the
+CUDA kernel on its first call).  Without ``--full`` the arch's reduced
+(smoke) config is served.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b --full \\
+        --batch 8 --prompt-len 2048 --decode-tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b --full \\
         --batch 8 --prompt-len 1024 --decode-tokens 64
 """
@@ -46,6 +52,7 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
     batch = {"tokens": tokens.to(model.device)}
+    max_len = args.prompt_len + args.decode_tokens
 
     def decode(logits, cache, n):
         toks = torch.argmax(logits, -1)
@@ -57,12 +64,12 @@ def main(argv=None):
         return out
 
     with torch.inference_mode():
-        logits, cache = model.prefill(params, batch)          # warm-up
+        logits, cache = model.prefill(params, batch, max_len)   # warm-up
         decode(logits, cache, 1)
         _sync(model.device)
 
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, batch)
+        logits, cache = model.prefill(params, batch, max_len)
         _sync(model.device)
         t_prefill = time.perf_counter() - t0
 

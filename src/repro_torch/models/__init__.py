@@ -1,5 +1,6 @@
 """LM substrate of the port: the RWKV-6 model (``kind="rwkv"``) on the
-hand-written chunked-WKV kernel."""
+hand-written chunked-WKV kernel, and the dense GQA transformer
+(``kind="dense"``) on the hand-written flash-attention kernel."""
 from .config import ModelConfig
 from .lm import Model
 

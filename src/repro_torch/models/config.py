@@ -2,8 +2,9 @@
 
 The port's own copy of the reference's ``ModelConfig``: the same fields,
 defaults and properties, so a config carries over field for field.  The
-port runs only ``kind="rwkv"`` so far (``models/lm.py``); on the card its
-WKV takes the hand-written kernel whatever ``use_pallas`` says.
+port runs ``kind="rwkv"`` and ``kind="dense"`` so far (``models/lm.py``);
+on the card their WKV and prefill attention take the hand-written kernels
+whatever ``use_pallas`` says.
 
 ``kind`` selects the block wiring:
   dense  — decoder-only transformer (GQA)            [qwen2.5, tinyllama,

@@ -50,7 +50,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     mods = _modules()
     assert "repro_torch.core.trainer" in mods and "repro_torch.launch.serve_relational" in mods
     for m in ("repro_torch.models.lm", "repro_torch.models.rwkv6",
-              "repro_torch.kernels.rwkv6_chunk.ops", "repro_torch.launch.serve"):
+              "repro_torch.kernels.rwkv6_chunk.ops", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_attention.ops"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -141,9 +141,9 @@ def test_configs_match_reference():
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(type(ref_configs.get("rwkv6_1_6b")))]
     with pytest.raises(NotImplementedError, match="item 11"):
-        configs.get("tinyllama_1_1b")
+        configs.get("qwen2_5_32b")
     with pytest.raises(NotImplementedError, match="item 11"):
-        Model(full.replace(kind="dense"), device="cpu")
+        Model(full.replace(kind="moe"), device="cpu")
 
 
 def test_serve_cli_on_cpu(capsys):
