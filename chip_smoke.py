@@ -44,6 +44,19 @@ Phases (any failure exits non-zero):
      row; ``ref.attention_limit``).  Prints kernel, plain (the blockwise
      twin), ``scaled_dot_product_attention`` (the library call, never
      called by the port) and bound times, and the largest |err| / limit.
+     The log-sum-exp output of the training forward, at every shape,
+     within 1e-4 + 1e-5 · |lse| of a float64 log-sum-exp;
+   - the count_sketch kernel (``count_sketch.cu``), both forms (buckets and
+     signs as arrays; hashed inside the kernel, the compressor's) at the
+     reference test's (n, k) = (100, 16), (1000, 64), (5000, 256), (512,
+     128), a norm leaf (45,056, 2¹³) and the three largest TinyLlama
+     gradient leaves (253,755,392, 2²⁵), (92,274,688, 2²⁴), (66,060,288,
+     2²³): per bucket j, |kernel − float64| ≤ 2⁻²³ · m_j · W_j (m_j terms,
+     W_j = Σ|x_t| over them; the atomics add in no fixed order); the
+     unsketch within 2⁻²³ · |value| of the plain version.  Prints kernel,
+     plain (int64 hashes and a float64 ``index_add_``), ``index_add_``
+     with the buckets precomputed (the library call, never called by the
+     port) and bound times, and the unsketch's time and bound.
 2. Serve path at real size: star schema with 4,194,304 fact rows and
    4,096-row dimension tables; train 5 trees of depth 3 (sketch mode, no
    SSR), compile, ``score_grouped`` by every table, then 2,000 Zipf(1.3)
@@ -105,6 +118,27 @@ Phases (any failure exits non-zero):
    prefill and none while decoding.  Prints the same times and the
    kernel's share of the prefill.
 
+7. TinyLlama-1.1B training at its full published width and depth (bf16,
+   random weights from a seed) through ``launch/train.py``'s ``build`` and
+   ``launch/steps.make_train_step``: global batch 8 × 2,048 from the
+   synthetic pipeline, 8 microbatches, remat, count-sketch gradient
+   compression with ratio 8 and error feedback, AdamW; 4 steps after an
+   untimed warm-up step.  Gates: (a) a finite loss at every step; (b)
+   launches over the 4 steps: flash_attention 22 · 8 · 2 a step (forward
+   and remat recompute), count_sketch 12 a step (one a gradient leaf, as
+   the reference stacks them) and its unsketch 12, the other kernels 0;
+   (c) a float32 twin cut to 4 layers (full width, batch 2 × 2,048, 2
+   microbatches), one step served by the kernels and one by the plain
+   versions with the same weights, batch and hashes: loss within 1e-5
+   relative and each compressed gradient leaf within 1e-4 · max|g|.  The
+   two parameter updates are printed, not gated: AdamW's first step is
+   g/(|g| + eps), so where a compressed g is a few eps the gradients'
+   float noise moves the update by up to ~10 % of max|Δp|; (d) ``launch/train.py``'s ``main`` at the smoke
+   size on the card: 3 steps, the checkpoint restored bit for bit, one
+   resumed step.  Prints each step's ms and loss, tokens/s, the
+   compressor's ms a step (CUDA events) and the peak memory; ``--profile``
+   adds one traced step's busy/idle share and device time by kind.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the
@@ -137,6 +171,11 @@ WKV_RTOL = 2e-5                    # rwkv6_chunk: |err| ≤ WKV_RTOL · W, W the
 BF16_OPS_PER_S = 989e12            # H100 SXM published dense bf16 tensor-core rate
 LM_BAND = dict(atol=0.08, rtol=0.05)   # the reference's bf16 band (tests/test_archs.py)
 LM_F32_RTOL = 1e-4                 # float32 LM logits: |Δ| ≤ LM_F32_RTOL · max|logit|
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5    # flash lse: |err| ≤ LSE_ATOL + LSE_RTOL · |lse|
+SKETCH_ROUND = 2.0 ** -23          # count_sketch: |err_j| ≤ SKETCH_ROUND · m_j · W_j per bucket
+TRAIN_LOSS_RTOL = 1e-5             # float32 twin: kernel- vs plain-served step, loss
+TRAIN_GRAD_RTOL = 1e-4             # ... compressed gradient, of max|g| per leaf
+TRAIN_STEP_RTOL = 1e-4             # ... share of updates apart by more (printed only)
 N_KEYS = 4096                      # dimension-table key domain of the serve path
 
 
@@ -425,6 +464,16 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
         raise AssertionError(f"{name}: attention outside its limit (max |err| / limit "
                              f"{err_over_limit}, max |err| {max_abs_err}, max|v| {vmax})")
     del got, want, lim, err
+    # the log-sum-exp output of the training forward, against float64
+    out_l, lse = ops.flash_attention_gqa(q, k, v, causal, return_lse=True)
+    want_l = ref.attention_lse_dense(q, k, causal)
+    lse_err = (lse.double() - want_l).abs()
+    lse_over = float((lse_err / (LSE_ATOL + LSE_RTOL * want_l.abs())).max())
+    if not (lse_over <= 1 and torch.equal(out_l, ops.flash_attention_gqa(q, k, v, causal))):
+        raise AssertionError(f"{name}: lse outside {LSE_ATOL} + {LSE_RTOL}·|lse| (max |err| "
+                             f"{float(lse_err.max())}), or its output differs without lse")
+    lse_max_err = float(lse_err.max())
+    del out_l, lse, want_l, lse_err
 
     kernel_ms = cuda_ms(lambda: ops.flash_attention_gqa(q, k, v, causal))
     plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal), max_reps=3)
@@ -441,7 +490,9 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     rec = {"case": name, "B": B, "S": S, "N": N, "Kh": Kh, "dh": dh, "causal": causal,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max_abs_err,
-           "max_err_over_limit": err_over_limit, "max_abs_v": vmax, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "max_err_over_limit": err_over_limit, "max_abs_v": vmax,
+           "lse_max_abs_err": lse_max_err, "lse_err_over_limit": lse_over,
+           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes": nbytes, "flops": flops, "tflops_per_s": flops / kernel_ms / 1e9}
@@ -449,7 +500,7 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
         f"{rec['dtype']:<8} kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
         f"{library_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
         f"{rec['tflops_per_s']:.1f} TFLOP/s)  max_abs_err {max_abs_err:.3e}  max err/limit "
-        f"{err_over_limit:.3f}")
+        f"{err_over_limit:.3f}  lse max |err| {lse_max_err:.3e} (err/limit {lse_over:.3f})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
@@ -467,6 +518,84 @@ def phase_attn(ops, ref, dev="cuda"):
         ("smoke_2x24", 2, 24, 8, 1, 16, True, f32),
     ]
     return [attn_case(ops, ref, *c, dev=dev) for c in cases]
+
+
+def sketch_case(ops, ref, name, n, k, seed=0, dev="cuda"):
+    """One count_sketch shape: both forms (the TPU kernel's arrays, and the
+    hashed form that the compressor runs) within SKETCH_ROUND · m_j · W_j
+    of the float64 sum per bucket j (m_j terms, W_j = Σ|x_t| over them:
+    the atomics add in no fixed order), the unsketch within 2⁻²³ · |value|
+    of the plain version, and timings.  Returns the shape's record."""
+    from repro_torch.core.sketch import Hash2
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=dev)
+    h = Hash2.make(np.random.default_rng(seed), k)
+    idx = torch.arange(n, device=dev)
+    b64, signs = h.bucket(idx), h.sign(idx)
+    del idx
+    want = torch.zeros(k, dtype=torch.float64, device=dev).index_add_(0, b64,
+                                                                       x.double() * signs)
+    lim = SKETCH_ROUND * torch.bincount(b64, minlength=k).double() * torch.zeros(
+        k, dtype=torch.float64, device=dev).index_add_(0, b64, x.double().abs())
+    b32 = b64.int()
+    del b64
+    worst, outs = {}, {"hashed": ops.count_sketch_hashed(x, h),
+                       "arrays": ops.count_sketch(x, b32, signs, k)}
+    for form, got in outs.items():
+        err = (got.double() - want).abs()
+        if bool((err > lim).any()):
+            raise AssertionError(f"{name}: {form} sketch outside {SKETCH_ROUND}·m_j·W_j "
+                                 f"(max |err| {float(err.max())})")
+        worst[form] = (float(err.max()), float((err / lim.clamp(min=1e-300)).max()))
+    sk = outs["hashed"]
+    del outs, got
+    scale = k / n
+    est, state = torch.empty_like(x), torch.empty_like(x)
+    ops.unsketch(x, sk, h, scale, est=est, state=state)
+    want_e = ref.unsketch_ref(sk, h, n, scale)
+    un_err = max(float(((est - want_e).abs() > 2.0 ** -23 * want_e.abs()).sum()),
+                 float(((state - (x - want_e)).abs() > 2.0 ** -23 * (x - want_e).abs()).sum()))
+    if un_err:
+        raise AssertionError(f"{name}: unsketch off the plain version at {int(un_err)} elements")
+    un_max = float((est - want_e).abs().max())
+    del want, lim, want_e
+
+    kernel_ms = cuda_ms(lambda: ops.count_sketch_hashed(x, h))
+    arrays_ms = cuda_ms(lambda: ops.count_sketch(x, b32, signs, k))   # with its range check
+    unsketch_ms = cuda_ms(lambda: ops.unsketch(x, sk, h, scale, est=est, state=state))
+    plain_ms = cuda_ms(lambda: ref.count_sketch_op(x, h), max_reps=3)
+    # yardstick only: one PyTorch call, with the buckets precomputed
+    library_ms = cuda_ms(lambda: torch.zeros(k, device=dev).index_add_(0, b32, x * signs))
+    nbytes = 4 * n + 4 * k                     # x read once, the sketch written once
+    un_bytes = 4 * 3 * n + 4 * k               # x and sk read, est and state written
+    rec = {"case": name, "n": n, "k": k, "max_abs_err": worst["hashed"][0],
+           "max_err_over_limit": worst["hashed"][1], "arrays_max_abs_err": worst["arrays"][0],
+           "unsketch_max_abs_err": un_max, "ms": kernel_ms, "arrays_ms": arrays_ms,
+           "unsketch_ms": unsketch_ms, "unsketch_bound_ms": un_bytes / HBM_BYTES_PER_S * 1e3,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes}
+    log(f"  {name:<22} n={n} k={k} kernel_ms {kernel_ms:.4f}  arrays_ms {arrays_ms:.4f}  "
+        f"plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  bound_ms {rec['bound_ms']:.4f}  "
+        f"unsketch_ms {unsketch_ms:.4f} (bound {rec['unsketch_bound_ms']:.4f})  max_abs_err "
+        f"{worst['hashed'][0]:.3e} (err/limit {worst['hashed'][1]:.3f})")
+    del x, b32, signs, sk, est, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sketch(ops, ref, dev="cuda"):
+    cases = [
+        ("ref_test_100_16", 100, 16),                     # tests/test_kernels.py's shapes
+        ("ref_test_1000_64", 1000, 64),
+        ("ref_test_5000_256", 5000, 256),
+        ("ref_test_512_128", 512, 128),
+        ("norm_leaf", 45_056, 1 << 13),                   # TinyLlama's ln1, ln2 (22 × 2048)
+        ("mlp_leaf", 253_755_392, 1 << 25),               # w_down, w_gate, w_up
+        ("attn_q_o_leaf", 92_274_688, 1 << 24),           # wq, wo
+        ("embed_leaf", 66_060_288, 1 << 23),              # embed.tok, embed.head
+    ]
+    return [sketch_case(ops, ref, *c, dev=dev) for c in cases]
 
 
 # ------------------------------------------------------------------ phase 2 --
@@ -584,22 +713,24 @@ def phase_serve(ops, n_fact: int, dev="cuda", profile: bool = False):
     return out
 
 
-def kernel_kind(name: str, split: str = "") -> str:
-    """The class of a CUDA kernel by its name: the ``split`` kernel, a
-    library matrix product, an elementwise pass, a reduction, or other."""
-    if split and split in name:
-        return split
+def kernel_kind(name: str, split=()) -> str:
+    """The class of a CUDA kernel by its name: one of the ``split`` kernels
+    (a name or a tuple of names), a library matrix product, an elementwise
+    pass, a reduction, or other."""
+    for sp in (split,) if isinstance(split, str) else split:
+        if sp and sp in name:
+            return sp
     if any(t in name for t in ("nvjet", "gemm", "xmma", "cutlass")):
         return "gemm"
     return next((t for t in ("elementwise", "reduce") if t in name), "other")
 
 
-def profile_window(fn, split: str = "") -> dict:
+def profile_window(fn, split=()) -> dict:
     """Device busy and idle share of one call, from a torch.profiler trace:
     the union of the CUDA kernels' intervals over the host wall time of the
     call (the profiler's own host overhead counts as idle).  ``split``
-    names a kernel: its summed time comes back as ``split_ms``; ``by_kind``
-    sums the kernels' time by ``kernel_kind``."""
+    names a kernel, or a tuple of them: their summed time comes back as
+    ``split_ms``; ``by_kind`` sums the kernels' time by ``kernel_kind``."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -630,7 +761,8 @@ def profile_window(fn, split: str = "") -> dict:
             "idle_share": max(0.0, 1.0 - busy / 1e3 / wall_ms), "kernels": len(kern),
             "top": [(n[:60], round(ms, 3)) for n, ms in top],
             "by_kind": {k: round(v, 3) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
-            "split_ms": by_kind.get(split, 0.0) if split else 0.0}
+            "split_ms": sum(by_kind.get(sp, 0.0)
+                            for sp in ((split,) if isinstance(split, str) else split) if sp)}
 
 
 # ------------------------------------------------------------------ phase 3 --
@@ -1048,6 +1180,213 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     return out
 
 
+# ------------------------------------------------------------------ phase 7 --
+TRAIN_KERNELS = ("flash_attention", "hashed_kernel", "unsketch_kernel")
+
+
+def plain_attention(q, k, v, causal, return_lse):
+    """The training forward's plain version: the model's blockwise attention
+    at the config's chunks, with its log-sum-exp as the kernel gives it."""
+    from repro_torch.kernels.flash_attention.ref import KV_CHUNK, Q_CHUNK, block_attn_fwd
+
+    B, S, N, _ = q.shape
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+    out, lse = block_attn_fwd(q, k, v, pos, pos, causal, None, Q_CHUNK, KV_CHUNK)
+    return out.to(q.dtype), lse.reshape(B, N, S)
+
+
+def plain_unsketch(x, sk, h, scale=1.0, est=None, state=None):
+    """The compressor's unsketch by the plain version (``ref.unsketch_ref``)."""
+    from repro_torch.kernels.count_sketch.ref import unsketch_ref
+
+    e = unsketch_ref(sk, h, x.shape[0], scale)
+    if state is not None:
+        state.copy_(x - e)
+    return e if est is None else est.copy_(e)
+
+
+def train_twin(fops, cops, dev="cuda", n_layers=4, batch=2, seq=2048, n_micro=2):
+    """One float32 train step of TinyLlama at full width cut to ``n_layers``
+    layers, served by the kernels and then by the plain versions (the same
+    weights, batch and hashes).  Returns the comparison's record; raises
+    outside its limits (module docstring, phase 7)."""
+    from repro_torch import configs
+    from repro_torch.kernels.count_sketch import ref as cref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model, stack_layers
+    from repro_torch.optim import CountSketchCompressor, adamw, grad_compress
+    from repro_torch.tree import leaves, map_tree, paths
+
+    cfg = configs.get("tinyllama_1_1b").replace(dtype="float32", n_layers=n_layers)
+    model = Model(cfg, device=dev)
+    base = stack_layers(model.init(torch.Generator(device=dev).manual_seed(0)))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (batch, seq)))
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=5)
+
+    def run():
+        params = map_tree(torch.clone, base)
+        comp, rec = CountSketchCompressor(ratio=8), []
+
+        def compress(g):
+            comp(g)
+            rec.extend(t.clone() for t in leaves(g))
+        step = make_train_step(model, ocfg, n_micro, compressor=compress)
+        for o in (fops, cops):
+            o.reset_launches()
+        _, _, m = step(params, adamw.init(ocfg, params), {"tokens": toks.to(dev)})
+        sync(dev)
+        return float(m["loss"]), rec, params, (fops.launches, cops.launches)
+
+    loss_k, g_k, p_k, launches_k = run()
+    with swapped(fops, "flash_attention_gqa", plain_attention), \
+            swapped(grad_compress, "count_sketch_hashed", cref.count_sketch_op), \
+            swapped(grad_compress, "unsketch", plain_unsketch):
+        loss_p, g_p, p_p, launches_p = run()
+
+    if not (launches_k == (2 * n_layers * n_micro, 12) and launches_p == (0, 0)):
+        raise AssertionError(f"train twin: launches {launches_k} (kernels) and {launches_p} "
+                             f"(plain); expected ({2 * n_layers * n_micro}, 12) and (0, 0)")
+    rec = {"layers": n_layers, "batch": batch, "seq": seq, "n_micro": n_micro,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "leaves": {}}
+    ok = rec["loss_rel_diff"] <= TRAIN_LOSS_RTOL and math.isfinite(loss_k)
+    for name, gk, gp, pk, pp, p0 in zip(paths(base), g_k, g_p, leaves(p_k), leaves(p_p),
+                                        leaves(base)):
+        g_rel = float((gk - gp).abs().max() / gp.abs().max())
+        dk, dp = pk.double() - p0.double(), pp.double() - p0.double()
+        scale = float(dp.abs().max())
+        d = dk - dp
+        rec["leaves"][name] = {
+            "grad_rel": g_rel, "step_rel": float(d.abs().max()) / scale,
+            "frac_over": float((d.abs() > TRAIN_STEP_RTOL * scale).double().mean())}
+        ok &= g_rel <= TRAIN_GRAD_RTOL
+    log(f"  float32 twin ({n_layers} layers, {batch} x {seq}, n_micro {n_micro}): loss kernel "
+        f"{loss_k:.7f} plain {loss_p:.7f} (rel {rec['loss_rel_diff']:.2e}); per leaf max "
+        f"|Δg|/max|g| {max(v['grad_rel'] for v in rec['leaves'].values()):.2e}, max "
+        f"|ΔΔp|/max|Δp| {max(v['step_rel'] for v in rec['leaves'].values()):.2e}, share of "
+        f"elements over {TRAIN_STEP_RTOL}·max|Δp| "
+        f"{max(v['frac_over'] for v in rec['leaves'].values()):.2e} (printed, not gated); "
+        f"launches {launches_k}")
+    if not ok:
+        raise AssertionError(f"train twin: kernel- and plain-served steps disagree: {rec}")
+    return rec
+
+
+def train_smoke_checkpoint(dev="cuda"):
+    """``launch/train.py``'s ``main`` at the smoke size on the card: 3 steps
+    with a checkpoint, the checkpoint restored bit for bit, then a resumed
+    fourth step."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train as T
+    from repro_torch.tree import leaves
+
+    with tempfile.TemporaryDirectory() as d:
+        flags = ["--device", dev, "--compress-grads", "8", "--log-every", "1", "--ckpt-dir", d]
+        params = T.main(["--steps", "3", *flags])
+        like = T.build(T.parser().parse_args(["--steps", "3", *flags]))
+        like.pipe.stop()
+        got, _ = Checkpointer(d).restore(3, (like.params, like.opt_state))
+        if not all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(params))):
+            raise AssertionError("smoke train: checkpoint does not restore bit for bit")
+        T.main(["--steps", "4", "--resume", *flags])
+        if Checkpointer(d).latest_step() != 4:
+            raise AssertionError("smoke train: the resumed run did not checkpoint step 4")
+    log("  smoke size on the card: 3 steps through launch.train.main, checkpoint restored bit "
+        "for bit, resumed for step 4")
+
+
+def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int = 2048,
+                n_micro: int = 8, dev="cuda", profile: bool = False):
+    """TinyLlama-1.1B training at full width (phase 7 of the module
+    docstring) through ``launch/train.py``'s ``build`` (model, stacked
+    params, AdamW state, pipeline) and ``launch/steps.make_train_step``,
+    the compressor timed by CUDA events around its call."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as T
+
+    args = T.parser().parse_args(["--full", "--steps", str(steps + 1), "--batch", str(batch),
+                                  "--seq", str(seq), "--n-micro", str(n_micro),
+                                  "--compress-grads", "8", "--ckpt-every", "0", "--device", dev])
+    t0 = time.perf_counter()
+    tr = T.build(args)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg = tr.model.cfg
+    events = []
+
+    def timed(g):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        tr.compressor(g)
+        ev[1].record()
+        events.append(ev)
+        return g
+
+    step_fn = S.make_train_step(tr.model, tr.ocfg, n_micro, compressor=timed)
+    params, state = tr.params, tr.opt_state
+    try:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, tr.next_batch())           # warm-up
+        sync(dev)
+        warm_s, warm_loss = time.perf_counter() - t0, float(m["loss"])
+        events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        for o in (fops, cops, *other_ops):                                   # main path starts here
+            o.reset_launches()
+        step_s, losses, norms = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, tr.next_batch())
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        launches = {"flash_attention": fops.launches, "count_sketch": cops.launches,
+                    "count_sketch_unsketch": cops.unsketch_launches}              # ... and ends here
+        others = {o.__name__: o.launches for o in other_ops}
+        peak = torch.cuda.max_memory_allocated()
+        comp_ms = [a.elapsed_time(b) for a, b in events]
+        prof = profile_window(lambda: step_fn(params, state, tr.next_batch()),
+                              split=TRAIN_KERNELS) if profile else None
+    finally:
+        tr.pipe.stop()
+    want = {"flash_attention": 2 * cfg.n_layers * n_micro * steps, "count_sketch": 12 * steps,
+            "count_sketch_unsketch": 12 * steps}
+    if not all(math.isfinite(x) for x in losses + [warm_loss]):
+        raise AssertionError(f"train: a loss is not finite: {warm_loss}, {losses}")
+    if launches != want or any(others.values()):
+        raise AssertionError(f"train: launches {launches}, expected {want}; off the path {others}")
+    tokens = batch * seq
+    mean_s = sum(step_s) / len(step_s)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "n_micro": n_micro, "steps": steps, "compress_ratio": 8, "remat": cfg.remat,
+           "init_s": init_s, "warmup_step_s": warm_s, "step_s": step_s,
+           "step_ms_mean": mean_s * 1e3, "tokens_per_s": tokens / mean_s,
+           "loss_warmup": warm_loss, "losses": losses, "grad_norms": norms,
+           "compressor_ms": comp_ms, "peak_memory_bytes": peak,
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "compressed_bytes": tr.compressor.compressed_bytes(params)}
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, global batch {batch} x {seq}, "
+        f"n_micro {n_micro}, remat {cfg.remat}, compression 8; init {init_s:.2f}s, warm-up "
+        f"step {warm_s:.2f}s (loss {warm_loss:.4f})")
+    log(f"  steps: {', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, mean {mean_s * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s; loss {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"grad norm {', '.join(f'{x:.3f}' for x in norms)}")
+    log(f"  compressor {', '.join(f'{x:.2f}' for x in comp_ms)} ms a step (CUDA events); peak "
+        f"memory {peak / 2 ** 30:.2f} GiB; launches {launches} ({out['launches_per_step']} a "
+        f"step); sketches {out['compressed_bytes'] / 1e6:.1f} MB a step")
+    if prof is not None:
+        out["profile_step"] = prof
+        log(f"  profile one step: wall {prof['wall_ms']:.1f} ms, kernels busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f}; by kind "
+            f"{prof['by_kind']}; top {prof['top']}")
+    out["twin_f32"] = train_twin(fops, cops, dev)
+    train_smoke_checkpoint(dev)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -1056,8 +1395,9 @@ def main() -> int:
                     help="phase-4 fact rows (coefficient-domain and histogram fits)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 2, trace one more training round and one scoring "
-                         "pass per table, and in phases 5 and 6 16 decode steps, with "
-                         "torch.profiler and print the device's busy and idle share")
+                         "pass per table, in phases 5 and 6 16 decode steps, and in phase 7 "
+                         "one more train step, with torch.profiler and print the device's "
+                         "busy and idle share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an "
@@ -1065,7 +1405,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention, polymul, rwkv6_chunk, segment_sum
+    from repro_torch.kernels import (count_sketch, flash_attention, polymul, rwkv6_chunk,
+                                     segment_sum)
+    from repro_torch.kernels.count_sketch import ops as cops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.polymul import ops as pops
     from repro_torch.kernels.rwkv6_chunk import ops as wops
@@ -1083,9 +1425,9 @@ def main() -> int:
         f"{torch.cuda.get_device_capability(0)}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:          # one nvcc per source, started together
-        builds = list(pool.map(lambda m: m.build(verbose=True),
-                               (segment_sum, polymul, rwkv6_chunk, flash_attention)))
+    sources = (segment_sum, polymul, rwkv6_chunk, flash_attention, count_sketch)
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, started together
+        builds = list(pool.map(lambda m: m.build(verbose=True), sources))
     log(f"build: {', '.join(lib.name for lib, _ in builds)} in "
         f"{time.perf_counter() - t0:.2f}s")
     for _, build_log in builds:
@@ -1093,12 +1435,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    log("phase 1: segment_sum, polymul, rwkv6_chunk and flash_attention kernels vs plain "
-        "versions on the card")
+    log("phase 1: segment_sum, polymul, rwkv6_chunk, flash_attention and count_sketch kernels "
+        "vs plain versions on the card")
     shapes = phase_kernel(ops, ref)
     pshapes = phase_polymul(pops, polymul)
     wshapes = phase_wkv(wops, rwkv6_chunk)
     fshapes = phase_attn(fops, flash_attention)
+    cshapes = phase_sketch(cops, count_sketch)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
     serve = phase_serve(ops, args.n_fact, profile=args.profile)
     log(f"phase 3: paper check at {args.paper_n_fact} fact rows")
@@ -1110,21 +1453,26 @@ def main() -> int:
     lm_cfg = configs.get("rwkv6_1_6b")
     log(f"phase 5: {lm_cfg.name} serving at full width: prefill 8 x 1024, decode 64 tokens")
     from repro_torch.models import layers, rwkv6
-    lm = phase_lm(wops, (ops, pops, fops), lm_cfg,
+    lm = phase_lm(wops, (ops, pops, fops, cops), lm_cfg,
                   (rwkv6, "rwkv6_chunk", rwkv6_chunk.rwkv6_chunk_ref), profile=args.profile)
     torch.cuda.empty_cache()
     dense_cfg = configs.get("tinyllama_1_1b")
     log(f"phase 6: {dense_cfg.name} serving at full width: prefill 8 x 2048 with cache room "
         f"for 64 decode tokens, decode 64 tokens")
-    dense = phase_lm(fops, (ops, pops, wops), dense_cfg,
+    dense = phase_lm(fops, (ops, pops, wops, cops), dense_cfg,
                      (layers, "flash_attention_gqa", flash_attention.flash_attention_ref),
                      prompt=2048, max_len=2048 + 64, check_last=True, profile=args.profile,
                      oracle=flash_attention.attention_limit)
+    torch.cuda.empty_cache()
+    log(f"phase 7: {dense_cfg.name} training at full width: global batch 8 x 2048, n_micro 8, "
+        f"count-sketch compression 8, 4 steps after a warm-up step")
+    train = phase_train(fops, cops, (ops, pops, wops), profile=args.profile)
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
     whead = next(s for s in wshapes if s["case"] == "prefill_8x1024")
     fhead = next(s for s in fshapes if s["case"] == "prefill_8x2048")
+    chead = next(s for s in cshapes if s["case"] == "mlp_leaf")
     kernels = [{
         "name": "segment_sum", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_sum.cu",
@@ -1168,16 +1516,29 @@ def main() -> int:
         "bound_by": fhead["bound_by"], "library_ms": fhead["library_ms"],
         "shape": {k: fhead[k] for k in ("B", "S", "N", "Kh", "dh", "causal", "dtype")},
         "launches_by_path": {"lm_prefill": dense["launches_prefill"],
-                             "lm_decode": dense["launches_decode"]},
+                             "lm_decode": dense["launches_decode"],
+                             "lm_train_4_steps": train["launches"]["flash_attention"]},
         "shapes": fshapes,
+    }, {
+        "name": "count_sketch", "route": "cuda",
+        "source": "src/repro_torch/csrc/count_sketch.cu",
+        "replaces": "src/repro/kernels/count_sketch/count_sketch.py:45",
+        "launches": train["launches"]["count_sketch"], "max_abs_err": chead["max_abs_err"],
+        "ms": chead["ms"], "plain_ms": chead["plain_ms"], "bound_ms": chead["bound_ms"],
+        "bound_by": chead["bound_by"], "library_ms": chead["library_ms"],
+        "shape": {k: chead[k] for k in ("n", "k")},
+        "launches_by_path": {"lm_train_4_steps": train["launches"]["count_sketch"],
+                             "lm_train_4_steps_unsketch":
+                                 train["launches"]["count_sketch_unsketch"]},
+        "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
-                    "lm_dense": dense}))
+                    "lm_dense": dense, "lm_train": train}))
     log(json.dumps({"kernels": kernels}))
-    # the run drives one card, device 0
+    # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
-                                           "count": 1}}))
+                                           "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -8,11 +8,20 @@ nothing of it):
   and ``schema.label_table``/``label_column`` — the same numpy columns
   build the port's :class:`~repro_torch.core.Schema`;
 - trained trees: ``TreeArrays.feat/thr/leaf``;
-- sketch hash constants: ``TableHashes.hashes[name].a/b/a2/b2`` and ``k``
-  (uint32 words, carried as Python ints);
+- sketch hash constants: a ``Hash2``'s ``a/b/a2/b2`` and ``k`` (uint32
+  words, carried as Python ints), alone or per table of ``TableHashes``;
 - LM parameters: the ``Model.init`` pytree of nested dicts, whose
   ``layers`` entry is stacked over a leading layer axis; each leaf is
   read with ``np.asarray`` and keeps its dtype (bfloat16 bit for bit).
+  :func:`lm_stacked` keeps the reference's stacked layout (the trainer's
+  and the checkpoint's), :func:`lm_params` gives the model's per-layer
+  views of it; :func:`opt_state` carries an AdamW ``OptState``.
+
+The other way, :func:`to_numpy` turns any tree of the port's tensors
+(stacked parameters, an ``OptState``) into numpy arrays of the same
+structure, bfloat16 as ``ml_dtypes.bfloat16`` (imported there, for the
+tests: the port itself does not need it), which the reference's
+functions take.
 
 Histogram split mode carries nothing new: its cuts, bins and row lists
 are numpy functions of the same tables (``core/hist.py``), and a
@@ -28,6 +37,9 @@ import torch
 from .core.schema import Schema, Table
 from .core.sketch import Hash2, TableHashes
 from .core.tree import TreeArrays
+from .models.lm import layer_views
+from .optim.adamw import OptState
+from .tree import map_tree
 
 
 def schema(ref_schema, device="cuda") -> Schema:
@@ -46,15 +58,17 @@ def trees(ref_trees, device="cuda") -> List[TreeArrays]:
                        leaf=conv(t.leaf, np.float32)) for t in ref_trees]
 
 
+def hash2(ref_hash) -> Hash2:
+    """A sketch hash with the reference ``Hash2``'s constants."""
+    word = lambda x: int(np.asarray(x, np.uint32))
+    return Hash2(a=word(ref_hash.a), b=word(ref_hash.b), a2=word(ref_hash.a2),
+                 b2=word(ref_hash.b2), k=int(ref_hash.k))
+
+
 def table_hashes(ref_hashes) -> TableHashes:
     """Per-table sketch hashes with the reference's constants."""
-    word = lambda x: int(np.asarray(x, np.uint32))
-    return TableHashes(
-        hashes={name: Hash2(a=word(h.a), b=word(h.b), a2=word(h.a2), b2=word(h.b2),
-                            k=int(h.k))
-                for name, h in ref_hashes.hashes.items()},
-        k=int(ref_hashes.k),
-    )
+    return TableHashes(hashes={name: hash2(h) for name, h in ref_hashes.hashes.items()},
+                       k=int(ref_hashes.k))
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -72,11 +86,36 @@ def _map(fn, tree):
     return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
+def lm_stacked(ref_params, device="cuda") -> Dict[str, Any]:
+    """The reference's LM parameter pytree as tensors, layers stacked."""
+    return {k: _map(lambda x: _tensor(x, device), v) for k, v in ref_params.items()}
+
+
 def lm_params(ref_params, device="cuda") -> Dict[str, Any]:
     """The port's LM parameters from the reference's ``Model.init`` pytree:
-    the same nested dict, with ``layers`` unstacked into a list of
-    per-layer dicts (``models/lm.py``)."""
-    out = {k: _map(lambda x: _tensor(x, device), v) for k, v in ref_params.items()}
-    n_layers = len(out["layers"]["ln1"]["scale"])
-    out["layers"] = [_map(lambda t: t[i], out["layers"]) for i in range(n_layers)]
-    return out
+    the same nested dict, with ``layers`` a list of per-layer dicts of
+    views of the stacked tensors (``models/lm.py``)."""
+    return layer_views(lm_stacked(ref_params, device))
+
+
+def opt_state(ref_state, device="cuda") -> OptState:
+    """An AdamW state of the reference (``step``, ``m``, ``v``, ``master``)
+    as the port's: float32 moments in the stacked layout, the step an
+    int32 scalar on the host."""
+    master = ref_state.master
+    return OptState(step=torch.tensor(int(np.asarray(ref_state.step)), dtype=torch.int32),
+                    m=lm_stacked(ref_state.m, device), v=lm_stacked(ref_state.v, device),
+                    master=lm_stacked(master, device) if len(master) else ())
+
+
+def to_numpy(tree) -> Any:
+    """A tree of the port's tensors as numpy arrays of the same dtypes
+    (bfloat16 as ``ml_dtypes.bfloat16``), structure kept."""
+    import ml_dtypes
+
+    def conv(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy().copy()
+    return map_tree(conv, tree)

@@ -14,7 +14,10 @@
 // accumulator, rescaled by exp(m_old − m_new) as each tile arrives.
 // Masked scores are −1e30 (not −inf), as in the reference.  In bf16 the
 // probabilities are rounded to bf16 before P·V and l sums them unrounded,
-// as _block_attn_fwd does.
+// as _block_attn_fwd does.  Optionally (a non-null lse pointer) each row's
+// log-sum-exp m + log(max(l, 1e-30)) in natural log, float32 (B, N, S), the
+// residual that the training backward (ref.block_attn_bwd) recomputes the
+// probabilities from; rows past S are not written.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // (flash_attention), whose grid (B·H, q blocks, kv blocks) runs in order on
@@ -70,6 +73,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                       // (B, N, S) or null
   Strides sq, sk, sv, so;
   int S;                            // sequence length (queries and keys)
   int G;                            // query heads a K/V head
@@ -262,6 +266,7 @@ flash_attention_bf16_kernel(const Args a) {
   }
 
   bf16* O = static_cast<bf16*>(a.o) + b * a.so.b + n * a.so.h;
+  float* LSE = a.lse ? a.lse + ((long long)b * gridDim.x + n) * S : nullptr;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -269,6 +274,7 @@ flash_attention_bf16_kernel(const Args a) {
     const float den = fmaxf(l[i], 1e-30f);
     const int row = row0 + 8 * i;
     if (row < S) {
+      if (LSE && t == 0) LSE[row] = m[i] + logf(den);
       bf16* orow = O + row * a.so.s + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < DH / 8; ++dt)
@@ -399,6 +405,7 @@ flash_attention_f32_kernel(const Args a) {
   }
 
   float* O = static_cast<float*>(a.o) + b * a.so.b + n * a.so.h;
+  float* LSE = a.lse ? a.lse + ((long long)b * gridDim.x + n) * S : nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float li = l[i];
@@ -408,6 +415,7 @@ flash_attention_f32_kernel(const Args a) {
     const float den = fmaxf(li, 1e-30f);
     const int row = q0 + 4 * ty + i;
     if (row < S) {
+      if (LSE && tx == 0) LSE[row] = m[i] + logf(den);
       float* orow = O + row * a.so.s + tx;
 #pragma unroll
       for (int c = 0; c < NC; ++c) orow[8 * c] = o[i][c] / den;
@@ -449,12 +457,13 @@ extern "C" {
 
 // Returns 0 or the cudaError_t of the launch.  strides: 12 element strides,
 // (batch, sequence, head) of q, k, v and out in that order, each a multiple of
-// 16 bytes, as is every base pointer; the last dimension is contiguous.  The
+// 16 bytes, as is every base pointer; the last dimension is contiguous.  lse:
+// null, or a contiguous float32 (B, N, S) for each row's log-sum-exp.  The
 // caller checks shapes: dh in {16, 32, 64, 128}, N % Kh == 0, B and
 // ceil(S / 64) at most 65,535.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int is_bf16,
-                        long long B, long long S, long long N, long long Kh, int dh, int causal,
-                        const long long* strides, void* stream) {
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int is_bf16, long long B, long long S, long long N, long long Kh, int dh,
+                        int causal, const long long* strides, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0 || Kh <= 0 || N % Kh != 0 || B > 65535 || N > 0x7fffffffLL ||
       (S + kBM - 1) / kBM > 65535)
     return (int)cudaErrorInvalidValue;
@@ -463,6 +472,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
   a.k = k;
   a.v = v;
   a.o = out;
+  a.lse = lse;
   a.sq = {strides[0], strides[1], strides[2]};
   a.sk = {strides[3], strides[4], strides[5]};
   a.sv = {strides[6], strides[7], strides[8]};

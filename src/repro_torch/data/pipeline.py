@@ -1,0 +1,103 @@
+"""Deterministic, host-sharded, prefetching data pipeline (the port of the
+reference's ``data/pipeline.py``, numpy only).
+
+- Host sharding: each process draws only its slice of the global batch
+  (seeded by (stream seed, step, process)); restart at step N reproduces
+  the exact stream — checkpoint-resume is bitwise deterministic, and the
+  port draws the same batches as the reference for the same seed.
+- Prefetch: a background thread keeps `depth` batches ready.
+- Straggler hook: the runtime watchdog can call ``reassign(host)`` to
+  redistribute a slow host's shard (runtime/fault.py).
+
+The reference's importance sampling by example weights, and the
+relational stage that computes them (``relational_example_weights``),
+wait for a later slice.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator
+
+import numpy as np
+
+from .synthetic import SyntheticLM
+
+
+class TokenPipeline:
+    def __init__(
+        self,
+        vocab: int,
+        global_batch: int,
+        seq_len: int,
+        seed: int = 0,
+        depth: int = 2,
+        n_hosts: int = 1,
+        host_id: int = 0,
+    ):
+        self.spec = (global_batch, seq_len)
+        self.n_hosts, self.host_id = n_hosts, host_id
+        self.seed = seed
+        self.gen = SyntheticLM(vocab, seed=seed)
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._step = 0
+        self._gen = 0           # bumped on seek/reassign; stale batches dropped
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._dead_hosts: set = set()
+        self._thread.start()
+
+    # ------------------------------------------------------------ control --
+    def reassign(self, host: int):
+        """Straggler mitigation: fold a slow host's shard into the others."""
+        self._dead_hosts.add(host)
+        self._gen += 1
+
+    def seek(self, step: int):
+        """Deterministic resume: restart production at `step`."""
+        self._gen += 1
+        self._step = step
+        with self._q.mutex:
+            self._q.queue.clear()
+
+    def stop(self):
+        """End the producer thread (it exits within 0.1 s, also when the
+        queue is full) and wait for it."""
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+    # ----------------------------------------------------------- producer --
+    def _host_rows(self, step: int):
+        G = self.spec[0]
+        alive = [h for h in range(self.n_hosts) if h not in self._dead_hosts]
+        per = G // len(alive)
+        mine = alive.index(self.host_id) if self.host_id in alive else 0
+        return per, mine
+
+    def _produce(self, step: int) -> Dict[str, np.ndarray]:
+        S = self.spec[1]
+        per, mine = self._host_rows(step)
+        rng = np.random.default_rng((self.seed, step, mine))
+        return {"tokens": self.gen.batch(rng, per, S)}
+
+    def _producer(self):
+        while not self._stop.is_set():
+            gen, step = self._gen, self._step
+            b = self._produce(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((gen, step, b), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if self._step == step:    # not seeked meanwhile
+                self._step = step + 1
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self):
+        while True:
+            gen, _step, b = self._q.get()
+            if gen == self._gen:       # drop batches produced pre-seek
+                return b

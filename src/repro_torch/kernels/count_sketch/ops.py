@@ -1,0 +1,168 @@
+"""Wrapper of the count_sketch kernel (``csrc/count_sketch.cu``).
+
+- :func:`count_sketch` (x, buckets, signs, k) → (k,): the TPU kernel's
+  own call, buckets int32 in [0, k) and signs as float32 arrays;
+- :func:`count_sketch_hashed` (x, h) → (k,): the same sum with the
+  buckets and signs of a :class:`~repro_torch.core.sketch.Hash2` at t =
+  0..n−1, computed inside the kernel in 32-bit words (the gradient
+  compressor's form: no index array is stored);
+- :func:`unsketch` (x, sk, h, scale, est, state): the compressor's second
+  pass, est[t] = s(t)·sk[h(t)]·scale and, given ``state``, state[t] =
+  x[t] − est[t]; ``est`` and ``state`` may be x itself.
+
+x is a 1-D contiguous float32 tensor of fewer than 2³¹ elements; k is a
+power of two ≥ 2.  CUDA tensors go to the kernel, which is compiled with
+``nvcc`` for sm_90a at first use (``kernels/_build.py``) and bound
+through ``ctypes``; CPU tensors go to the plain versions in ``ref.py``.
+Any other device raises, as do other dtypes, shapes and sizes.
+
+The kernel adds into the sketch with atomics, so a bucket's sum order is
+not fixed and two runs may differ in the last bits; the comparison on
+the card holds each bucket j to 2⁻²³ · m_j · W_j of the float64 sum
+(m_j terms, W_j = Σ|x_t| over them).
+
+``launches`` counts sketch launches (either form) since the last
+:func:`reset_launches`, ``unsketch_launches`` the unsketch's; a run
+reads them to show that its sketches went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ...core.sketch import Hash2
+from .. import _build
+from .ref import count_sketch_op, count_sketch_ref, unsketch_ref
+
+N_MAX = 2 ** 31 - 1
+
+launches = 0
+unsketch_launches = 0
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    global launches, unsketch_launches
+    launches = unsketch_launches = 0
+
+
+def build(verbose: bool = False) -> Tuple[Path, str]:
+    """Compile ``csrc/count_sketch.cu`` (see ``kernels/_build.py``);
+    returns the library's path and the compiler's messages."""
+    return _build.build("count_sketch", verbose=verbose)
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("count_sketch")
+        P, L, U, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
+        lib.count_sketch_scatter.argtypes = [P] * 4 + [L, P]
+        lib.count_sketch_hashed.argtypes = [P, P, L] + [U] * 4 + [I, P]
+        lib.count_sketch_unsketch.argtypes = [P] * 4 + [L] + [U] * 4 + [I, ctypes.c_float, P]
+        for fn in (lib.count_sketch_scatter, lib.count_sketch_hashed, lib.count_sketch_unsketch):
+            fn.restype = I
+        lib.count_sketch_error_string.argtypes = [I]
+        lib.count_sketch_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_k(k: int) -> None:
+    if k < 2 or k & (k - 1) or k > 2 ** 31:
+        raise ValueError(f"count_sketch takes k a power of two in [2, 2^31], got {k}")
+
+
+def _check_vec(name: str, x: torch.Tensor, dtype: torch.dtype, n: Optional[int] = None,
+               device=None) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"count_sketch: {name} must be {dtype}, got {x.dtype}")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"count_sketch: {name} must be 1-D and contiguous, got shape "
+                         f"{tuple(x.shape)}")
+    if n is not None and x.shape[0] != n:
+        raise ValueError(f"count_sketch: {name} has {x.shape[0]} elements, expected {n}")
+    if not 0 < x.shape[0] <= N_MAX:
+        raise ValueError(f"count_sketch takes 1 to {N_MAX} elements, got {x.shape[0]}")
+    if device is not None and x.device != device:
+        raise ValueError(f"count_sketch: {name} lies on {x.device}, x on {device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"count_sketch: no route for device {x.device}")
+
+
+def _run(fn, *args) -> None:
+    lib = _load()
+    rc = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"count_sketch kernel launch failed ({fn}): "
+                           + lib.count_sketch_error_string(rc).decode())
+
+
+def _words(h: Hash2):
+    return h.a, h.b, h.a2, h.b2, h._shift
+
+
+def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """sketch[j] = Σ_t [buckets[t] = j] · signs[t] · x[t], (k,) float32."""
+    _check_k(k)
+    _check_vec("x", x, torch.float32)
+    n = x.shape[0]
+    _check_vec("buckets", buckets, torch.int32, n, x.device)
+    _check_vec("signs", signs, torch.float32, n, x.device)
+    lo, hi = torch.aminmax(buckets)
+    if int(lo) < 0 or int(hi) >= k:
+        raise ValueError(f"count_sketch: buckets in [{int(lo)}, {int(hi)}] outside [0, {k})")
+    if x.device.type == "cpu":
+        return count_sketch_ref(x, buckets, signs, k)
+    out = torch.zeros(k, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _run("count_sketch_scatter", x.data_ptr(), buckets.data_ptr(), signs.data_ptr(),
+             out.data_ptr(), n)
+    global launches
+    launches += 1
+    return out
+
+
+def count_sketch_hashed(x: torch.Tensor, h: Hash2) -> torch.Tensor:
+    """The sketch of x (n,) under ``h`` at t = 0..n−1, (h.k,) float32."""
+    _check_k(h.k)
+    _check_vec("x", x, torch.float32)
+    if x.device.type == "cpu":
+        return count_sketch_op(x, h)
+    out = torch.zeros(h.k, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _run("count_sketch_hashed", x.data_ptr(), out.data_ptr(), x.shape[0], *_words(h))
+    global launches
+    launches += 1
+    return out
+
+
+def unsketch(x: torch.Tensor, sk: torch.Tensor, h: Hash2, scale: float = 1.0,
+             est: Optional[torch.Tensor] = None,
+             state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """est[t] = s(t)·sk[h(t)]·scale for t < n = len(x), written into
+    ``est`` (a new tensor if None, else may be x); with ``state`` (may be
+    x), also state[t] = x[t] − est[t].  Returns est."""
+    _check_k(h.k)
+    _check_vec("x", x, torch.float32)
+    n = x.shape[0]
+    _check_vec("sk", sk, torch.float32, h.k, x.device)
+    est = torch.empty_like(x) if est is None else est
+    _check_vec("est", est, torch.float32, n, x.device)
+    if state is not None:
+        _check_vec("state", state, torch.float32, n, x.device)
+    if x.device.type == "cpu":
+        e = unsketch_ref(sk, h, n, scale)
+        if state is not None:
+            state.copy_(x - e)
+        return est.copy_(e)
+    with torch.cuda.device(x.device):
+        _run("count_sketch_unsketch", x.data_ptr(), sk.data_ptr(), est.data_ptr(),
+             0 if state is None else state.data_ptr(), n, *_words(h), float(scale))
+    global unsketch_launches
+    unsketch_launches += 1
+    return est

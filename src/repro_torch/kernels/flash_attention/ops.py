@@ -15,6 +15,14 @@ match, dh outside (16, 32, 64, 128), N not a multiple of Kh, and B or
 ⌈S/64⌉ above 65,535 (on the CPU too, so a shape that runs here runs on
 the card).
 
+With ``return_lse`` the call also returns each query row's log-sum-exp,
+float32 (B, N, S) in natural log (the kernel writes it in its epilogue;
+on the CPU it is :func:`ref.block_attn_fwd`'s).  :func:`attention_train`
+is the differentiable form that the training path calls: an
+``autograd.Function`` whose forward is this call with ``return_lse`` and
+whose backward is the plain :func:`ref.block_attn_bwd` (the reference
+has no backward kernel either: its custom VJP is plain jnp).
+
 ``launches`` counts kernel launches since the last
 :func:`reset_launches`; a run reads it to show that its attention went
 through the kernel.
@@ -28,7 +36,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import KERNEL_TILE, flash_attention_ref
+from .ref import (KERNEL_TILE, KV_CHUNK, Q_CHUNK, block_attn_bwd, block_attn_fwd,
+                  flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -54,7 +63,7 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("flash_attention")
         lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
             + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -98,29 +107,69 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, return_lse: bool = False):
     """softmax(q·kᵀ/√dh)·v of q (B, S, N, dh) and k, v (B, S, Kh, dh),
-    as (B, S, N·dh) in q's dtype."""
+    as (B, S, N·dh) in q's dtype; with ``return_lse``, (out, lse (B, N, S)
+    float32)."""
     _check(q, k, v)
+    B, S, N, dh = q.shape
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal)
+        if not return_lse:
+            return flash_attention_ref(q, k, v, causal)
+        pos = torch.arange(S, dtype=torch.int32).expand(B, S)
+        out, lse = block_attn_fwd(q, k, v, pos, pos, causal, None, Q_CHUNK, KV_CHUNK)
+        return out.to(q.dtype), lse.reshape(B, N, S)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no route for device {q.device}")
-    B, S, N, dh = q.shape
     out = torch.empty(B, S, N * dh, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, N, S, dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     q, k, v = (_aligned(x) for x in (q, k, v))
     strides = [s for x in (q, k, v) for s in x.stride()[:3]] + [S * N * dh, N * dh, dh]
     lib = _load()
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, N, k.shape[2], dh, int(causal),
+            None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N,
+            k.shape[2], dh, int(causal),
             (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     global launches
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: :func:`flash_attention_gqa` with the log-sum-exp (the
+    kernel on CUDA); backward: :func:`ref.block_attn_bwd`, which recomputes
+    the probabilities from q, k and that log-sum-exp per kv block.  Under
+    activation checkpointing the forward runs twice (the pass and the
+    recompute); nothing is kept between the two runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_chunk: int):
+        out, lse = flash_attention_gqa(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.kv_chunk = causal, kv_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        B, S, N, _ = q.shape
+        Kh = k.shape[2]
+        pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+        dq, dk, dv = block_attn_bwd(q, k, v, out, lse.reshape(B, Kh, N // Kh, S), dout, pos,
+                                    pos, ctx.causal, None, ctx.kv_chunk)
+        return dq, dk, dv, None, None
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """:func:`flash_attention_gqa` with gradients for q, k and v; the
+    backward scans kv blocks of ``kv_chunk`` keys (the model's
+    ``cfg.kv_chunk``, as the reference's custom VJP does)."""
+    return _Attention.apply(q, k, v, causal, kv_chunk)

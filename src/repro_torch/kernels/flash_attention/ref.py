@@ -11,12 +11,17 @@ max(l, 1e-30)).  It visits every kv block and masks the ones outside a
 window, where the reference gathers only the band: the masked blocks
 add zeros, so the result is the same.
 
-:func:`flash_attention_ref` is that function at positions 0..S−1 with no
+:func:`block_attn_bwd` is the port of the reference's backward
+(``_block_attn_vjp_bwd``, its global-window branch): it scans kv blocks,
+recomputes p = exp(s − lse) and accumulates dq, dk and dv in float32.
+
+:func:`flash_attention_ref` is the forward at positions 0..S−1 with no
 window, at the reference's default chunks, the kernel's plain version
 (the wrapper uses it for CPU tensors).  :func:`attention_dense` is a
 dense softmax in float64, the comparison oracle on the card, and
 :func:`attention_limit` gives it with the tolerance a kernel output is
-held to.
+held to; :func:`attention_lse_dense` is the float64 oracle of the
+kernel's log-sum-exp output.
 
 Layouts: q (B, S, N, dh), k and v (B, S, Kh, dh) with N % Kh == 0; query
 head n reads K/V head n // (N // Kh).  Outputs are (B, S, N·dh).
@@ -98,6 +103,57 @@ def block_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: tor
     return out, torch.cat(lses, -1)[..., :Sq]
 
 
+def block_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   lse: torch.Tensor, dout: torch.Tensor, q_pos: torch.Tensor,
+                   kv_pos: torch.Tensor, causal: bool, window: Optional[int],
+                   kv_chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of :func:`block_attn_fwd`'s output, given
+    its out (B, Sq, N·dh) and lse (B, Kh, G, Sq) and the cotangent dout of
+    out.  As the reference: q·scale, k, v, dout and out in float32 (float64
+    for float64 inputs), D = Σ dout·out per row, every kv block visited and
+    masked by position (no window band), the results cast back to the
+    inputs' dtypes.  Here ``out`` is the forward's output in q's dtype, where
+    the reference keeps its float32 output: in bf16, D then sees the output
+    rounded to bf16."""
+    B, Sq, N, dh = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = N // Kh
+    acc_t = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(dh)
+    win = GLOBAL_WINDOW if window is None else window
+    qg = (q.to(acc_t) * scale).reshape(B, Sq, Kh, G, dh)
+    dog = dout.to(acc_t).reshape(B, Sq, Kh, G, dh)
+    D = (dog * out.to(acc_t).reshape(B, Sq, Kh, G, dh)).sum(-1)        # (B, Sq, Kh, G)
+    Dt = D.permute(0, 2, 3, 1)[..., None]                               # (B, Kh, G, Sq, 1)
+    lse = lse.to(acc_t)[..., None]
+
+    nk = max(1, -(-Sk // kv_chunk))
+    kc = -(-Sk // nk)
+    pad_k = nk * kc - Sk
+    kf, vf = k.to(acc_t), v.to(acc_t)
+    if pad_k:
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad_k))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad_k))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad_k), value=INT32_MAX)
+    neg = torch.tensor(-1e30, dtype=acc_t, device=q.device)
+
+    dq = torch.zeros(B, Sq, Kh, G, dh, dtype=acc_t, device=q.device)
+    dks, dvs = [], []
+    for j in range(nk):
+        kj, vj = kf[:, j * kc:(j + 1) * kc], vf[:, j * kc:(j + 1) * kc]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj)
+        mask = attn_mask(q_pos, kv_pos[:, j * kc:(j + 1) * kc], causal, win)
+        p = torch.exp(torch.where(mask[:, None, None], s, neg) - lse)   # (B, Kh, G, Sq, kc)
+        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, dog))
+        ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, vj) - Dt)
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kj)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qg))             # qg pre-scaled
+    dq = (dq * scale).reshape(B, Sq, N, dh).to(q.dtype)
+    dk = torch.cat(dks, 1)[:, :Sk].to(k.dtype)
+    dv = torch.cat(dvs, 1)[:, :Sk].to(v.dtype)
+    return dq, dk, dv
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """The kernel's function by :func:`block_attn_fwd` at positions
@@ -134,6 +190,24 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out[b, r0:r0 + rows] = (p @ vd).transpose(0, 1).reshape(-1, N * dh)
             norms[b, r0:r0 + rows] = torch.linalg.vector_norm(p, dim=-1).T
     return out, norms
+
+
+def attention_lse_dense(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scores q·kᵀ/√dh in float64, (B,
+    N, S): the oracle of the kernel's ``lse`` output."""
+    rows, dt = DENSE_ROWS, torch.float64
+    B, S, N, dh = q.shape
+    G = N // k.shape[2]
+    out = torch.empty(B, N, S, dtype=dt, device=q.device)
+    keys = torch.arange(S, device=q.device)
+    for b in range(B):
+        kd = k[b].to(dt).transpose(0, 1).repeat_interleave(G, dim=0)         # (N, S, dh)
+        for r0 in range(0, S, rows):
+            s = q[b, r0:r0 + rows].to(dt).transpose(0, 1) @ kd.transpose(1, 2) / math.sqrt(dh)
+            if causal:
+                s = s.masked_fill(keys[None, :] > keys[r0:r0 + rows, None], -math.inf)
+            out[b, :, r0:r0 + rows] = torch.logsumexp(s, -1)
+    return out
 
 
 def attention_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,141 @@
+"""LM training entry point: data pipeline → microbatched train step (float32
+accumulation, optional count-sketch gradient compression, clip, AdamW)
+→ watchdog → async checkpoints → bounded retries of the gradient stage.
+
+The port of the reference's ``launch/train.py`` on one device: there is
+no mesh.  Weights are random from a seed; the data is the reference's
+synthetic token stream (``data/``), batch for batch the same ids.  On
+the card every training attention runs the flash_attention kernel (its
+forward, twice a block with remat) and every compressed gradient leaf
+the count_sketch kernel.  Without ``--full`` the arch's reduced (smoke)
+config is trained.  ``--resume`` restores the newest checkpoint and
+seeks the pipeline to its step.  A failed gradient stage is run again
+(it changes no state); a failure in the compressor or the optimizer,
+which update the state in place, ends the run, and ``--resume`` goes on
+from the newest checkpoint.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 --compress-grads 8
+    PYTHONPATH=src python -m repro_torch.launch.train --full --steps 5 --batch 8 --seq 2048 \\
+        --n-micro 8 --compress-grads 8 --ckpt-every 0
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import tempfile
+import time
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.data import TokenPipeline
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import Model, stack_layers
+from repro_torch.optim import CountSketchCompressor, adamw
+from repro_torch.runtime.fault import StepWatchdog, run_with_retries
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Everything one run holds: the model, its stacked parameters and
+    optimizer state, the step function, the compressor and the pipeline."""
+    model: Model
+    ocfg: adamw.AdamWConfig
+    params: Dict[str, Any]
+    opt_state: adamw.OptState
+    step_fn: Any
+    compressor: Any
+    pipe: TokenPipeline
+
+    def next_batch(self) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.model.device) for k, v in next(self.pipe).items()}
+
+    def step(self, batch, on_failure=None) -> Dict[str, torch.Tensor]:
+        """One train step on ``batch``.  The gradient stage is retried on
+        failure; the compressor and AdamW, which update the state in place,
+        are not: a failure there raises."""
+        dev = self.model.device
+
+        def grads(params, b):
+            out = self.step_fn.grads(params, b)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return out
+        g, loss = run_with_retries(grads, self.params, batch, on_failure=on_failure)
+        self.params, self.opt_state, metrics = self.step_fn.update(
+            self.params, self.opt_state, g, loss)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return metrics
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="tinyllama_1_1b")
+    ap.add_argument("--full", action="store_true", help="the full published config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--n-micro", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--compress-grads", type=int, default=0,
+                    help="count-sketch ratio (0 = off)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def build(args) -> Trainer:
+    """The run that ``args`` describes, before its first step (the
+    pipeline's thread is running: ``trainer.pipe.stop()`` ends it)."""
+    cfg = (configs.get if args.full else configs.get_smoke)(args.arch)
+    model = Model(cfg, device=args.device)
+    ocfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
+    compressor = (CountSketchCompressor(ratio=args.compress_grads)
+                  if args.compress_grads else None)
+    params = stack_layers(model.init(torch.Generator(device=model.device).manual_seed(0)))
+    return Trainer(model, ocfg, params, adamw.init(ocfg, params),
+                   make_train_step(model, ocfg, args.n_micro, compressor=compressor),
+                   compressor, TokenPipeline(cfg.vocab, args.batch, args.seq, seed=1))
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    tr = build(args)
+    ckpt = Checkpointer(args.ckpt_dir)
+    start = 0
+    if args.resume and ckpt.latest_step() is not None:
+        start = ckpt.latest_step()
+        tr.params, tr.opt_state = ckpt.restore(start, (tr.params, tr.opt_state))
+        tr.pipe.seek(start)
+        print(f"resumed from step {start}")
+    wd = StepWatchdog(on_straggler=lambda s, dt, ema: print(
+        f"[watchdog] straggler step {s}: {dt:.2f}s vs ema {ema:.2f}s"))
+
+    t_start = time.time()
+    try:
+        for step in range(start, args.steps):
+            batch = tr.next_batch()
+            with wd.time_step(step):
+                metrics = tr.step(batch, on_failure=lambda a, e: print(f"[retry {a}] {e}"))
+            if step % args.log_every == 0 or step == args.steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                print(json.dumps({"step": step, **{k: round(v, 4) for k, v in m.items()}}))
+            if args.ckpt_every and step and step % args.ckpt_every == 0:
+                ckpt.save(step, (tr.params, tr.opt_state))
+        ckpt.save(args.steps, (tr.params, tr.opt_state), blocking=True)
+        print(f"done in {time.time() - t_start:.1f}s; straggler steps: {wd.straggler_steps}")
+    finally:
+        tr.pipe.stop()
+    return tr.params
+
+
+if __name__ == "__main__":
+    main()

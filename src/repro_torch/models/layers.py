@@ -2,8 +2,7 @@
 RMS norm, RoPE, GQA attention (prefill and decode), the MLPs, token
 embedding, logits and the padded-vocab mask.
 
-The port of the reference's ``models/layers.py`` (forward only: the
-attention's custom VJP waits for training).  Weights are plain tensors in
+The port of the reference's ``models/layers.py``.  Weights are plain tensors in
 dicts, laid out as the reference's (a (d_in, d_out) matrix is applied as
 ``x @ w``), and the casts follow the reference: RoPE in float32 cast
 back, attention scores in float32, probabilities rounded to v's dtype
@@ -12,8 +11,12 @@ before P·V.
 The prefill's attention (causal self-attention with no window at
 positions 0..S−1) goes to ``kernels/flash_attention``: the hand-written
 CUDA kernel for a CUDA tensor, its plain version (the port of the
-reference's blockwise ``_block_attn``) for a CPU tensor.  Windowed and
-cross-attention wait for the configs that use them (ROADMAP §1 item 11).
+reference's blockwise ``_block_attn``) for a CPU tensor.  Where a
+gradient is wanted (training), the attention is the kernel's
+``attention_train``, whose backward is the port of the reference's
+custom VJP.  Everything here is differentiable and updates nothing in
+place.  Windowed and cross-attention wait for the configs that use them
+(ROADMAP §1 item 11).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention_gqa
+from ..kernels.flash_attention import attention_train, flash_attention_gqa
+from ..kernels.flash_attention.ref import KV_CHUNK
 from .config import ModelConfig
 
 
@@ -87,10 +91,14 @@ def attention_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v.reshape(B, S, Kh, dh)
 
 
-def attend(p, q, k, v, causal: bool = True):
-    """Self-attention of q over k, v at positions 0..S−1 (a prefill),
-    projected by ``wo``: the reference's ``attention`` after
-    :func:`attention_qkv`, through the flash_attention kernel."""
+def attend(p, q, k, v, causal: bool = True, kv_chunk: int = KV_CHUNK):
+    """Self-attention of q over k, v at positions 0..S−1 (a prefill or a
+    training step), projected by ``wo``: the reference's ``attention``
+    after :func:`attention_qkv`, through the flash_attention kernel.  With
+    gradients on and an input that wants one, the attention carries the
+    backward (over kv blocks of ``kv_chunk`` keys)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return attention_train(q, k, v, causal, kv_chunk) @ p["wo"]
     return flash_attention_gqa(q, k, v, causal) @ p["wo"]
 
 

@@ -1,5 +1,5 @@
 """LM facade of the port: init / prefill / decode, for ``kind="rwkv"``
-and ``kind="dense"``.
+and ``kind="dense"``, and the training loss for ``kind="dense"``.
 
 The port of the reference's ``models/lm.py`` for the RWKV-6 block and
 the dense (GQA transformer) block.  The reference stacks each parameter
@@ -11,8 +11,11 @@ raise.
 
 Parameters: ``{"embed": {"tok", "head"}, "layers": [...], "ln_f"}``, a
 layer ``{"ln1", "ln2", "mix"}`` (rwkv) or ``{"ln1", "ln2", "attn",
-"mlp"}`` (dense).  Decode cache: ``{"layers": [...], "pos" (B,) int32}``,
-a layer
+"mlp"}`` (dense).  :func:`stack_layers` gives the reference's layout, the
+layers as one dict of tensors stacked over a leading layer axis (the
+trainer's and the checkpoint's), and :func:`layer_views` the list of
+per-layer views of such stacked tensors.  Decode cache: ``{"layers":
+[...], "pos" (B,) int32}``, a layer
 - rwkv: ``{"S" (B, H, hs, hs) float32, "x_last_tm", "x_last_cm" (B, D)
   in the model dtype}``, the two ``x_last`` the *normed* inputs of the
   time mix and the channel mix at the last position;
@@ -31,6 +34,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.schema import resolve_device
 from . import layers as L
@@ -73,6 +77,27 @@ def _rwkv_final_state(r, k, v, logw):
     return torch.einsum("bshk,bshd->bhkd", kW, v)
 
 
+def stack_layers(params) -> Dict[str, Any]:
+    """``params`` with its per-layer list stacked into one dict of
+    tensors of a leading layer axis (new tensors)."""
+    def stack(items):
+        first = items[0]
+        if isinstance(first, dict):
+            return {k: stack([it[k] for it in items]) for k in first}
+        return torch.stack(items)
+    return {**params, "layers": stack(params["layers"])}
+
+
+def layer_views(params) -> Dict[str, Any]:
+    """``params`` in the stacked layout with its layers as a list of
+    per-layer dicts of views (``t[i]``): writing the stacked tensors
+    updates the views."""
+    def pick(t, i):
+        return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+    n = params["layers"]["ln1"]["scale"].shape[0]          # every block kind has ln1
+    return {**params, "layers": [pick(params["layers"], i) for i in range(n)]}
+
+
 class Model:
     """One LM config on one device (``"cuda"`` unless the caller asks for
     the CPU; a CUDA device on a host without one raises)."""
@@ -92,6 +117,52 @@ class Model:
             "layers": [init_block(gen, cfg, dt, dev) for _ in range(cfg.n_layers)],
             "ln_f": L.init_rmsnorm(cfg.d_model, dt, dev),
         }
+
+    # -------------------------------------------------------------- loss --
+    def loss(self, params, batch):
+        """Next-token cross-entropy of a dense model, the reference's
+        ``Model.loss``: (ce + 1e-4 · z-loss + aux, {"ce", "aux", "tokens"}),
+        over ``batch["tokens"]`` (B, S) with an optional ``loss_mask``.
+        Each block runs under activation checkpointing when ``cfg.remat``
+        (the reference's ``jax.checkpoint``), so its attention's forward
+        runs twice a backward pass."""
+        cfg = self.cfg
+        if cfg.kind != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: training a {cfg.kind!r} model is not ported yet; the rwkv6_chunk "
+                f"kernel has no backward (ROADMAP §1 item 11)")
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
+        h = L.embed(params["embed"], tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=self.device).repeat(B, 1)
+        for p in params["layers"]:
+            if cfg.remat:
+                h = torch.utils.checkpoint.checkpoint(self._block_train, p, h, positions,
+                                                      use_reentrant=False)
+            else:
+                h = self._block_train(p, h, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
+        logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h[:, :-1]).float())
+        targets = tokens[:, 1:]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(targets.shape, dtype=torch.float32, device=self.device) if mask is None
+                else torch.as_tensor(mask).to(self.device)[:, :targets.shape[1]].float())
+        lse = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = ((lse - gold) * mask).sum() / denom
+        zloss = 1e-4 * torch.square(lse * mask).sum() / denom
+        return loss + zloss + aux, {"ce": loss, "aux": aux, "tokens": denom}
+
+    def _block_train(self, p, x, positions):
+        """One dense block of the training forward (no cache)."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
+        x = x + L.attend(p["attn"], q, k, v, kv_chunk=cfg.kv_chunk)
+        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+        return x + L.mlp(p["mlp"], cfg, h2)
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, params, batch, max_len: Optional[int] = None):

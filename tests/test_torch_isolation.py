@@ -51,7 +51,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     assert "repro_torch.core.trainer" in mods and "repro_torch.launch.serve_relational" in mods
     for m in ("repro_torch.models.lm", "repro_torch.models.rwkv6",
               "repro_torch.kernels.rwkv6_chunk.ops", "repro_torch.launch.serve",
-              "repro_torch.kernels.flash_attention.ops"):
+              "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.count_sketch.ops",
+              "repro_torch.optim.adamw", "repro_torch.optim.grad_compress",
+              "repro_torch.data.pipeline", "repro_torch.data.synthetic",
+              "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+              "repro_torch.launch.steps"):
         assert m in mods
     code = (
         "import importlib, sys\n"
