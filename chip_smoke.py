@@ -43,9 +43,14 @@ Phases (any failure exits non-zero):
      probabilities' rounding before P·V, which spreads as ‖p‖₂ over a
      row; ``ref.attention_limit``).  Prints kernel, plain (the blockwise
      twin), ``scaled_dot_product_attention`` (the library call, never
-     called by the port) and bound times, and the largest |err| / limit.
-     The log-sum-exp output of the training forward, at every shape,
-     within 1e-4 + 1e-5 · |lse| of a float64 log-sum-exp;
+     called by the port) and bound times, the kernel's and the library's
+     TFLOP/s and their ratio, and the largest |err| / limit.  The
+     log-sum-exp output of the training forward, at every shape, within
+     1e-4 + 1e-5 · |lse| of a float64 log-sum-exp.  Before the cases, the
+     built library's SASS (``cuobjdump``, found beside ``nvcc`` or in
+     Triton's package): per bf16 kernel the count of HGMMA (wgmma),
+     UTMALDG (TMA loads) and SYNCS (mbarrier) instructions and its shared
+     memory, failing if one has no HGMMA or no UTMALDG;
    - the count_sketch kernel (``count_sketch.cu``), both forms (buckets and
      signs as arrays; hashed inside the kernel, the compressor's) at the
      reference test's (n, k) = (100, 16), (1000, 64), (5000, 256), (512,
@@ -141,8 +146,11 @@ Phases (any failure exits non-zero):
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
-``{"ok": true, "device": {...}}``.  Needs a CUDA device and the
-repository's ``src/`` beside it.
+``{"ok": true, "device": {...}}``.  A failure ends the run where it
+happens.  ``--decode-band`` runs, instead of the phases, a study of phase
+6's bf16 gate (c) on three prompt seeds (``decode_band_study``), the source
+of the readings that PERF.md gives for it; it gates nothing.  Needs a CUDA
+device and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
@@ -152,6 +160,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -495,15 +504,55 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": nbytes, "flops": flops, "tflops_per_s": flops / kernel_ms / 1e9}
+           "bytes": nbytes, "flops": flops, "tflops_per_s": flops / kernel_ms / 1e9,
+           "library_tflops_per_s": flops / library_ms / 1e9,
+           "ms_over_library_ms": kernel_ms / library_ms}
     log(f"  {name:<22} B={B} S={S} N={N} Kh={Kh} dh={dh} {'causal' if causal else 'full'} "
         f"{rec['dtype']:<8} kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
         f"{library_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
-        f"{rec['tflops_per_s']:.1f} TFLOP/s)  max_abs_err {max_abs_err:.3e}  max err/limit "
-        f"{err_over_limit:.3f}  lse max |err| {lse_max_err:.3e} (err/limit {lse_over:.3f})")
+        f"{rec['tflops_per_s']:.1f} TFLOP/s, library {rec['library_tflops_per_s']:.1f}; "
+        f"kernel/library {rec['ms_over_library_ms']:.3f})  max_abs_err {max_abs_err:.3e}  "
+        f"max err/limit {err_over_limit:.3f}  lse max |err| {lse_max_err:.3e} (err/limit "
+        f"{lse_over:.3f})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")   # wgmma, TMA tile loads, mbarrier operations
+
+
+def attention_sass(ops, lib) -> dict:
+    """The design of the built flash_attention library, read from its SASS
+    (``cuobjdump``): per bf16 kernel (dh, causal) the count of each of
+    SASS_OPS, and its dynamic shared memory.  Fails if a bf16 kernel has no
+    HGMMA or no UTMALDG."""
+    from repro_torch.kernels import _build
+
+    sass = subprocess.run([_build.cuobjdump(), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_attention_bf16_kernelILi(\d+)ELb(\d)", line)
+            kernel = (f"bf16 dh {m.group(1)} {'causal' if m.group(2) == '1' else 'full'}"
+                      if m else None)
+            if kernel:
+                counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+                counts[kernel]["smem_bytes"] = ops.bf16_smem_bytes(int(m.group(1)))
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if kernel and op:
+            for name in SASS_OPS:
+                counts[kernel][name] += op.group(1).startswith(name)
+    if len(counts) != 8:
+        raise AssertionError(f"flash_attention: {len(counts)} bf16 kernels in the SASS, not 8")
+    for kernel, c in counts.items():
+        log(f"  flash_attention SASS {kernel}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+        if not (c["HGMMA"] and c["UTMALDG"]):
+            raise AssertionError(f"flash_attention {kernel}: no wgmma (HGMMA) or no TMA load "
+                                 f"(UTMALDG) in its SASS")
+    return counts
 
 
 def phase_attn(ops, ref, dev="cuda"):
@@ -1111,6 +1160,8 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
                 first32 = dec32
             nxt32 = torch.argmax(dec32, -1)
         diff_c = maxdiff(first_decode, longer)
+        band_c = float(((first_decode[:, :V].float() - longer[:, :V].float()).abs()
+                        / (LM_BAND["atol"] + LM_BAND["rtol"] * longer[:, :V].float().abs())).max())
         diffs_c32, lims_c32 = {}, {}
         for t, dl in {1: first32, steps32: dec32}.items():
             lt, _ = m32.prefill(p32, {"tokens": torch.cat([tokens, torch.stack(ids32[:t], 1)],
@@ -1120,14 +1171,16 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         log(f"  max |Δlogit|: kernel vs plain {kname} {diff_b:.4f} bf16 (the bf16 model vs its "
             f"f32 twin: {noise:.4f}), {diff_b32:.3e} f32 (limit {lim_b32:.3e}); decode vs "
             f"prefill(S + 1) {diff_c:.4f} bf16 (band atol {LM_BAND['atol']}, rtol "
-            f"{LM_BAND['rtol']}), f32 " + ", ".join(
+            f"{LM_BAND['rtol']}: worst |Δ| / (atol + rtol·|logit|) {band_c:.4f}), "
+            f"f32 " + ", ".join(
                 f"t = {t}: {diffs_c32[t]:.3e} (limit {lims_c32[t]:.3e})" for t in diffs_c32))
         if not (diff_b32 <= lim_b32 and torch.equal(l32.argmax(-1), plain32.argmax(-1))
                 and bf16_ok):
             raise AssertionError(f"lm: kernel and plain {kname} disagree inside the model")
         if not (torch.allclose(first_decode[:, :V], longer[:, :V], **LM_BAND)
                 and all(diffs_c32[t] <= lims_c32[t] for t in diffs_c32)):
-            raise AssertionError("lm: decode after prefill(S) is off prefill(S + t)")
+            raise AssertionError(f"lm ({cfg.name}): decode after prefill(S) is off prefill(S + t) "
+                                 f"(bf16 worst |Δ| / band {band_c:.4f})")
         del m32, p32, c32, c, l32, plain32, dec32, first32
 
         prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, max_len),
@@ -1153,7 +1206,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
            "max_diff_kernel_vs_plain": diff_b, "max_diff_kernel_vs_plain_f32": diff_b32,
            "max_diff_bf16_vs_f32": noise, "max_diff_plain_bf16_vs_f32": noise_plain,
            "layer_err_over_limit": layer_err,
-           "max_diff_decode_vs_prefill": diff_c,
+           "max_diff_decode_vs_prefill": diff_c, "decode_vs_prefill_band_ratio": band_c,
            "max_diff_decode_vs_prefill_f32": diff_c32,
            "max_diff_decode_vs_prefill_f32_by_step": diffs_c32,
            "sample": seqs[0, :16].tolist()}
@@ -1178,6 +1231,91 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
             f"share {decode_prof['idle_share']:.3f}; by kind {decode_prof['by_kind']}; top "
             f"{decode_prof['top']}")
     return out
+
+
+def rounded_decode_attention(rounding: str):
+    """A stand-in for ``models.layers.decode_attention`` that rounds as
+    ``rounding`` says, where the port's decode step runs in float32:
+    "reference", the reference's roundings (the scores, the probabilities
+    and the unnormalised P·V to the cache's dtype); "probabilities", the
+    prefill kernel's (the probabilities alone, before P·V)."""
+    from repro_torch.models import layers
+
+    def attention(p, cfg, x, cache_k, cache_v, kpos, pos):
+        B, N, Kh, dh = x.shape[0], cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        q, k, v = layers.attention_qkv(p, cfg, x, pos[:, None])
+        valid = (kpos >= 0) & (kpos < pos[:, None])
+        up = (lambda t: t) if rounding == "reference" else (lambda t: t.float())
+        qg = q.reshape(B, Kh, N // Kh, dh)
+        s = torch.einsum("bhgd,bshd->bhgs", up(qg), up(cache_k)).float() / math.sqrt(dh)
+        s_self = torch.einsum("bhgd,bshd->bhgs", up(qg), up(k)).float() / math.sqrt(dh)
+        s = torch.where(valid[:, None, None], s, torch.tensor(-1e30, device=s.device))
+        m = torch.maximum(s.amax(-1), s_self[..., 0])
+        p_cache, p_self = torch.exp(s - m[..., None]), torch.exp(s_self[..., 0] - m)
+        denom = p_cache.sum(-1) + p_self
+        if rounding != "reference":
+            p_self = p_self.to(cache_v.dtype).float()
+        out = torch.einsum("bhgs,bshd->bhgd", up(p_cache.to(cache_v.dtype)), up(cache_v)).float()
+        out = out + p_self[..., None] * v[:, 0, :, None].float()
+        return ((out / denom[..., None]).reshape(B, 1, N * dh).to(x.dtype) @ p["wo"], k, v)
+
+    return attention
+
+
+def decode_band_study(seeds=(0, 1, 2), batch: int = 8, prompt: int = 2048, decode_room: int = 64,
+                      dev="cuda"):
+    """Gate (c)'s bf16 half in phase 6 (decode after prefill(S) against
+    prefill(S + 1) within the reference's band) on more prompts: the
+    TinyLlama model of phase 6 with its prefill attention the kernel or the
+    plain blockwise version (the reference's semantics) patched in, and its
+    decode attention the port's ("port", float32) or one of
+    :func:`rounded_decode_attention`'s; for each numpy prompt seed the worst
+    |Δ| / (atol + rtol · |logit|), the logits past 1 and 0.9 of the band,
+    and the max and mean |Δ|.  A study of how far the band sits from the
+    model's bf16 noise; it gates nothing, and goes once the gate is
+    restated."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import Model, layers
+
+    cfg = configs.get("tinyllama_1_1b")
+    V = cfg.vocab
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    plain = lambda q, k, v, causal=True: flash_attention_ref(q, k, v, causal)
+    rows = []
+    for name in ("kernel", "plain"):
+        for rounding in ("port", "reference", "probabilities"):
+            with contextlib.ExitStack() as patches:
+                if name == "plain":
+                    patches.enter_context(swapped(layers, "flash_attention_gqa", plain))
+                if rounding != "port":
+                    patches.enter_context(swapped(layers, "decode_attention",
+                                                  rounded_decode_attention(rounding)))
+                for seed in seeds:
+                    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+                        0, cfg.vocab, (batch, prompt))).to(dev)
+                    with torch.inference_mode():
+                        logits, cache = model.prefill(params, {"tokens": tokens},
+                                                      prompt + decode_room)
+                        nxt = torch.argmax(logits, -1)
+                        first, _ = model.decode_step(params, cache, nxt)
+                        longer, _ = model.prefill(
+                            params, {"tokens": torch.cat([tokens, nxt[:, None]], 1)})
+                    a, b = first[:, :V].float(), longer[:, :V].float()
+                    d = (a - b).abs()
+                    r = d / (LM_BAND["atol"] + LM_BAND["rtol"] * b.abs())
+                    rec = {"attention": name, "decode": rounding, "seed": seed,
+                           "worst_over_band": float(r.max()), "over_band": int((r > 1).sum()),
+                           "over_0.9_band": int((r > 0.9).sum()),
+                           "max_abs_diff": float(d.max()), "mean_abs_diff": float(d.mean())}
+                    rows.append(rec)
+                    log(f"  decode vs prefill(S + 1), {name} prefill attention, {rounding} "
+                        f"decode attention, prompt seed {seed}: worst |Δ| / band "
+                        f"{rec['worst_over_band']:.4f}, {rec['over_band']} logits past the band "
+                        f"and {rec['over_0.9_band']} past 0.9 of it (of {r.numel():,}), max |Δ| "
+                        f"{rec['max_abs_diff']:.4f}, mean |Δ| {rec['mean_abs_diff']:.5f}")
+    return rows
 
 
 # ------------------------------------------------------------------ phase 7 --
@@ -1287,9 +1425,12 @@ def train_smoke_checkpoint(dev="cuda"):
         params = T.main(["--steps", "3", *flags])
         like = T.build(T.parser().parse_args(["--steps", "3", *flags]))
         like.pipe.stop()
-        got, _ = Checkpointer(d).restore(3, (like.params, like.opt_state))
-        if not all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(params))):
+        got = Checkpointer(d).restore(3, like.state())   # params, OptState, compressor state
+        if not all(torch.equal(a, b) for a, b in zip(leaves(got[0]), leaves(params))):
             raise AssertionError("smoke train: checkpoint does not restore bit for bit")
+        if int(got[2]["round"]) != 3:
+            raise AssertionError("smoke train: the checkpoint holds compressor round "
+                                 f"{int(got[2]['round'])}, not 3")
         T.main(["--steps", "4", "--resume", *flags])
         if Checkpointer(d).latest_step() != 4:
             raise AssertionError("smoke train: the resumed run did not checkpoint step 4")
@@ -1398,6 +1539,10 @@ def main() -> int:
                          "pass per table, in phases 5 and 6 16 decode steps, and in phase 7 "
                          "one more train step, with torch.profiler and print the device's "
                          "busy and idle share")
+    ap.add_argument("--decode-band", action="store_true",
+                    help="instead of the phases: build the kernels and study phase 6's bf16 "
+                         "decode-vs-prefill band on prompt seeds 0, 1, 2 for the kernel and "
+                         "the plain prefill attention and three decode attentions")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an "
@@ -1435,11 +1580,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
+    if args.decode_band:
+        log(json.dumps({"decode_band": decode_band_study()}))
+        return 0
+
     log("phase 1: segment_sum, polymul, rwkv6_chunk, flash_attention and count_sketch kernels "
         "vs plain versions on the card")
     shapes = phase_kernel(ops, ref)
     pshapes = phase_polymul(pops, polymul)
     wshapes = phase_wkv(wops, rwkv6_chunk)
+    fsass = attention_sass(fops, builds[sources.index(flash_attention)][0])
     fshapes = phase_attn(fops, flash_attention)
     cshapes = phase_sketch(cops, count_sketch)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
@@ -1518,6 +1668,7 @@ def main() -> int:
         "launches_by_path": {"lm_prefill": dense["launches_prefill"],
                              "lm_decode": dense["launches_decode"],
                              "lm_train_4_steps": train["launches"]["flash_attention"]},
+        "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
         "name": "count_sketch", "route": "cuda",

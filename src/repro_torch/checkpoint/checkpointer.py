@@ -33,7 +33,7 @@ from ..tree import leaves, paths, unflatten
 
 
 def _to_storable(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = t.detach().to("cpu", copy=True)     # a copy on the CPU too: the trainer updates in place
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()

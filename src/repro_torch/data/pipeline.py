@@ -42,6 +42,7 @@ class TokenPipeline:
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._step = 0
         self._gen = 0           # bumped on seek/reassign; stale batches dropped
+        self._lock = threading.Lock()   # (gen, step) change together
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._dead_hosts: set = set()
@@ -50,15 +51,17 @@ class TokenPipeline:
     # ------------------------------------------------------------ control --
     def reassign(self, host: int):
         """Straggler mitigation: fold a slow host's shard into the others."""
-        self._dead_hosts.add(host)
-        self._gen += 1
+        with self._lock:
+            self._dead_hosts.add(host)
+            self._gen += 1
 
     def seek(self, step: int):
         """Deterministic resume: restart production at `step`."""
-        self._gen += 1
-        self._step = step
-        with self._q.mutex:
-            self._q.queue.clear()
+        with self._lock:
+            self._gen += 1
+            self._step = step
+            with self._q.mutex:
+                self._q.queue.clear()
 
     def stop(self):
         """End the producer thread (it exits within 0.1 s, also when the
@@ -82,7 +85,8 @@ class TokenPipeline:
 
     def _producer(self):
         while not self._stop.is_set():
-            gen, step = self._gen, self._step
+            with self._lock:
+                gen, step = self._gen, self._step
             b = self._produce(step)
             while not self._stop.is_set():
                 try:
@@ -90,8 +94,13 @@ class TokenPipeline:
                     break
                 except queue.Full:
                     continue
-            if self._step == step:    # not seeked meanwhile
-                self._step = step + 1
+            with self._lock:
+                # Advance only if no seek or reassignment came meanwhile: a
+                # stale batch is dropped and its step produced again under the
+                # new generation (comparing steps instead would skip a step
+                # when a seek targets the step in flight).
+                if self._gen == gen:
+                    self._step = step + 1
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self

@@ -2,7 +2,8 @@
 
 Each kernel is a plain-C source compiled by ``nvcc`` for sm_90a into
 ``src/repro_torch/_build/<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source never loads a stale library.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale library.
 The library is loaded with ``ctypes``; the kernel's wrapper declares
 its functions' argument types.  Nothing here runs at import: a kernel is
 built the first time its wrapper launches it, or by ``build``.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -34,14 +36,29 @@ def nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def cuobjdump() -> str:
+    """The toolkit's ``cuobjdump`` (beside ``nvcc``), else the one Triton's
+    package carries; raises if neither exists."""
+    cands = [Path(nvcc()).parent / "cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    for cand in cands:
+        if os.access(cand, os.X_OK):
+            return str(cand)
+    raise RuntimeError(f"cuobjdump not found (looked at {', '.join(map(str, cands))})")
+
+
 def build(name: str, verbose: bool = False) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` into a shared library (cached by the
-    hash of source and flags); returns its path and the compiler's
-    messages (the ``-Xptxas -v`` register and spill report when
+    hash of source, headers and flags); returns its path and the
+    compiler's messages (the ``-Xptxas -v`` register and spill report when
     ``verbose``, which always recompiles)."""
     path = CSRC_DIR / f"{name}.cu"
-    src = path.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(path.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    tag = hashlib.sha1(digest.digest() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"{name}-{tag}.so"
     if lib.exists() and not verbose:
         return lib, ""

@@ -7,12 +7,15 @@ not, query head n reading K/V head n // (N // Kh); the reference's
 without its repeat of K/V.  CUDA tensors go to the kernel, which is
 compiled with ``nvcc`` for sm_90a at first use (``kernels/_build.py``)
 and bound through ``ctypes``; it reads the operands in place through
-their strides (a copy only where the last dimension is not contiguous or
-a stride or base is off 16 bytes).  CPU tensors go to the plain version
-in ``ref.py``.  Any other device raises, as do dtypes other than float32
-and bfloat16, operands of two dtypes or devices, shapes that do not
-match, dh outside (16, 32, 64, 128), N not a multiple of Kh, and B or
-⌈S/64⌉ above 65,535 (on the CPU too, so a shape that runs here runs on
+their strides (a copy only where the last dimension is not contiguous,
+the base is off 16 bytes, or a dimension longer than 1 has a stride that
+is 0 or off 16 bytes: the bf16 kernel's TMA tensor maps take none of
+these).  CPU tensors go to the plain version in ``ref.py``.  Any other
+device raises, as do dtypes other than float32 and bfloat16, operands of
+two dtypes or devices, shapes that do not match, dh outside (16, 32, 64,
+128), N not a multiple of Kh, and B or the query-tile count ⌈S / tile⌉
+above 65,535, the tile 128 rows in bf16 and 64 in float32
+(``ref.KERNEL_TILE``; on the CPU too, so a shape that runs here runs on
 the card).
 
 With ``return_lse`` the call also returns each query row's log-sum-exp,
@@ -66,10 +69,26 @@ def _load() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
             + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_bf16_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_bf16_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def bf16_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory of the bf16 kernel at head width ``dh``."""
+    return _load().flash_attention_bf16_smem_bytes(dh)
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
+    building a Stream object, whose 8–12 µs are on a short call's path.  A
+    private binding, checked against torch 2.11 and 2.13;
+    ``tests/test_torch_flash_attention_cuda.py`` holds it to the public form."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -91,17 +110,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if dh not in HEAD_DIMS or Kh == 0 or N % Kh:
         raise ValueError(f"flash_attention takes dh in {HEAD_DIMS} and N a multiple of Kh, "
                          f"got dh = {dh}, N = {N}, Kh = {Kh}")
-    if B > GRID_MAX or -(-S // KERNEL_TILE) > GRID_MAX:
-        raise ValueError(f"flash_attention takes B and ceil(S / {KERNEL_TILE}) up to {GRID_MAX}, "
-                         f"got B = {B}, S = {S}")
+    tile = KERNEL_TILE[q.dtype]
+    if B > GRID_MAX or -(-S // tile) > GRID_MAX:
+        raise ValueError(f"flash_attention takes B and ceil(S / {tile}) up to {GRID_MAX} in "
+                         f"{q.dtype}, got B = {B}, S = {S}")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """x itself when the kernel can read it in place (last dim contiguous,
-    16-byte base and strides), else a contiguous copy."""
+    a 16-byte base, and every stride of a dimension longer than 1 a
+    positive multiple of 16 bytes), else a contiguous copy."""
     per16 = 16 // x.element_size()
     if (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all(s % per16 == 0 for s in x.stride()[:3])):
+            and all(n == 1 or (s > 0 and s % per16 == 0)
+                    for s, n in zip(x.stride()[:3], x.shape[:3]))):
         return x
     return x.contiguous()
 
@@ -132,8 +154,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N,
-            k.shape[2], dh, int(causal),
-            (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream().cuda_stream)
+            k.shape[2], dh, int(causal), (ctypes.c_longlong * 12)(*strides),
+            _raw_stream(q.device))
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())

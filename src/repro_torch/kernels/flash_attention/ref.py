@@ -35,7 +35,7 @@ import torch
 
 INT32_MAX = 2 ** 31 - 1
 GLOBAL_WINDOW = 1 << 30            # "window" of a full-attention call
-KERNEL_TILE = 64                   # the kernel's query and key tile
+KERNEL_TILE = {torch.float32: 64, torch.bfloat16: 128}   # the kernel's query tile, by dtype
 Q_CHUNK, KV_CHUNK = 512, 1024      # ModelConfig's default q_chunk and kv_chunk
 DENSE_ROWS = 512                   # queries a step of the dense oracle
 F32_RTOL = 2e-5                    # float32 kernel: |err| ≤ F32_RTOL · max|v|

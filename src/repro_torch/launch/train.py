@@ -8,8 +8,13 @@ synthetic token stream (``data/``), batch for batch the same ids.  On
 the card every training attention runs the flash_attention kernel (its
 forward, twice a block with remat) and every compressed gradient leaf
 the count_sketch kernel.  Without ``--full`` the arch's reduced (smoke)
-config is trained.  ``--resume`` restores the newest checkpoint and
-seeks the pipeline to its step.  A failed gradient stage is run again
+config is trained.  A checkpoint is labelled by the number of updates it
+holds, and holds the compressor's round and error feedback beside the
+parameters and AdamW's state; ``--resume`` restores the newest one and
+goes on from its label, the pipeline sought there, so a resumed run ends
+bit for bit where an uninterrupted one does.  (The reference labels an
+intermediate save one update short and keeps no compressor state:
+ROADMAP §3.)  A failed gradient stage is run again
 (it changes no state); a failure in the compressor or the optimizer,
 which update the state in place, ends the run, and ``--resume`` goes on
 from the newest checkpoint.
@@ -50,6 +55,18 @@ class Trainer:
     step_fn: Any
     compressor: Any
     pipe: TokenPipeline
+
+    def state(self) -> tuple:
+        """The checkpoint's tree: (params, OptState), and the compressor's
+        :meth:`~CountSketchCompressor.state_tree` when it compresses."""
+        held = (self.params, self.opt_state)
+        return held if self.compressor is None else (
+            *held, self.compressor.state_tree(self.params))
+
+    def load_state(self, tree: tuple) -> None:
+        self.params, self.opt_state = tree[0], tree[1]
+        if self.compressor is not None:
+            self.compressor.load_state_tree(tree[2])
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.model.device) for k, v in next(self.pipe).items()}
@@ -112,8 +129,8 @@ def main(argv=None):
     ckpt = Checkpointer(args.ckpt_dir)
     start = 0
     if args.resume and ckpt.latest_step() is not None:
-        start = ckpt.latest_step()
-        tr.params, tr.opt_state = ckpt.restore(start, (tr.params, tr.opt_state))
+        start = ckpt.latest_step()              # the updates it holds: the next step's index
+        tr.load_state(ckpt.restore(start, tr.state()))
         tr.pipe.seek(start)
         print(f"resumed from step {start}")
     wd = StepWatchdog(on_straggler=lambda s, dt, ema: print(
@@ -128,9 +145,10 @@ def main(argv=None):
             if step % args.log_every == 0 or step == args.steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 print(json.dumps({"step": step, **{k: round(v, 4) for k, v in m.items()}}))
-            if args.ckpt_every and step and step % args.ckpt_every == 0:
-                ckpt.save(step, (tr.params, tr.opt_state))
-        ckpt.save(args.steps, (tr.params, tr.opt_state), blocking=True)
+            done = step + 1                     # updates the state now holds
+            if args.ckpt_every and done % args.ckpt_every == 0 and done < args.steps:
+                ckpt.save(done, tr.state())
+        ckpt.save(args.steps, tr.state(), blocking=True)
         print(f"done in {time.time() - t_start:.1f}s; straggler steps: {wd.straggler_steps}")
     finally:
         tr.pipe.stop()

@@ -4,9 +4,10 @@ embedding, logits and the padded-vocab mask.
 
 The port of the reference's ``models/layers.py``.  Weights are plain tensors in
 dicts, laid out as the reference's (a (d_in, d_out) matrix is applied as
-``x @ w``), and the casts follow the reference: RoPE in float32 cast
-back, attention scores in float32, probabilities rounded to v's dtype
-before P·V.
+``x @ w``), and the casts follow the reference (RoPE in float32 cast
+back, the prefill's attention scores in float32 and its probabilities
+rounded to v's dtype before P·V) except in the decode step's attention,
+which runs in float32 throughout (see :func:`decode_attention`).
 
 The prefill's attention (causal self-attention with no window at
 positions 0..S−1) goes to ``kernels/flash_attention``: the hand-written
@@ -107,22 +108,29 @@ def decode_attention(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos):
 
     kpos: (B, S_max) the absolute position in each cache slot (−1 =
     empty); pos: (B,) the current position.  Returns (out, new k entry,
-    new v entry); the caller updates the cache."""
+    new v entry); the caller updates the cache.
+
+    The scores, the probabilities and P·V are float32 whatever the cache's
+    dtype.  The reference rounds the scores, the probabilities and the
+    unnormalised P·V to a bf16 cache's dtype here, three roundings that
+    the prefill's kernel does not make at all or makes elsewhere, and
+    which moved a bf16 decode step further from the prefill of the same
+    tokens (PERF.md §6)."""
     B, S, _ = x.shape
     assert S == 1
     N, Kh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q, k, v = attention_qkv(p, cfg, x, pos[:, None])
     valid = (kpos >= 0) & (kpos < pos[:, None])
     G = N // Kh
-    qg = q.reshape(B, Kh, G, dh)
-    s = torch.einsum("bhgd,bshd->bhgs", qg, cache_k).float() / math.sqrt(dh)
-    s_self = torch.einsum("bhgd,bshd->bhgs", qg, k).float() / math.sqrt(dh)   # the token itself
+    qg = q.reshape(B, Kh, G, dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, cache_k.float()) / math.sqrt(dh)
+    s_self = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(dh)   # the token itself
     s = torch.where(valid[:, None, None], s, torch.tensor(-1e30, device=s.device))
     m = torch.maximum(s.amax(-1), s_self[..., 0])
     p_cache = torch.exp(s - m[..., None])
     p_self = torch.exp(s_self[..., 0] - m)
     denom = p_cache.sum(-1) + p_self
-    out = torch.einsum("bhgs,bshd->bhgd", p_cache.to(cache_v.dtype), cache_v).float()
+    out = torch.einsum("bhgs,bshd->bhgd", p_cache, cache_v.float())
     out = out + p_self[..., None] * v[:, 0, :, None].float()
     out = (out / denom[..., None]).reshape(B, 1, N * dh)
     return out.to(x.dtype) @ p["wo"], k, v

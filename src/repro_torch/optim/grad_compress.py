@@ -85,6 +85,22 @@ class CountSketchCompressor:
         self._round += 1
         return grads
 
+    def state_tree(self, params) -> dict:
+        """What a checkpoint keeps of the compressor: the round (it seeds the
+        hashes) and the error-feedback buffers, one float32 vector a leaf of
+        ``params`` (zero before the first round; absent without error
+        feedback)."""
+        if self._state is None:
+            self._state = [torch.zeros(p.numel(), dtype=torch.float32, device=p.device)
+                           if self.error_feedback else None for p in leaves(params)]
+        return {"round": torch.tensor(self._round, dtype=torch.int64),
+                "error": list(self._state)}
+
+    def load_state_tree(self, tree: dict) -> None:
+        """Take the round and the buffers of :meth:`state_tree`'s tree."""
+        self._round = int(tree["round"])
+        self._state = list(tree["error"])
+
     def compressed_bytes(self, grads) -> int:
         total = 0
         for leaf in leaves(grads):

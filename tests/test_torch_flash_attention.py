@@ -189,6 +189,36 @@ def test_decode_attention_matches_reference(bias):
         _close(g.numpy(), wv, F32_LAYER * np.abs(np.asarray(wv)).max(), what)
 
 
+def test_decode_attention_runs_in_float32_on_a_bf16_cache():
+    """With a bf16 cache the decode step's attention rounds only its output
+    (to bf16): against a float64 softmax over the same bf16 q, k and v it is
+    within 2⁻⁸ of each output plus float32 sums (1e-6 · max|v|).  The
+    reference's roundings of the scores, probabilities and unnormalised P·V
+    (``repro.models.layers.decode_attention``) miss this."""
+    _, cfg = _cfg(qkv_bias=True, dtype="bfloat16")
+    B, Smax, N, Kh, dh = 3, 40, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    assert N * dh == cfg.d_model
+    w = {k: _t(v, torch.bfloat16) for k, v in _attn_weights(cfg, 12).items()}
+    w["wo"] = torch.eye(N * dh, dtype=torch.bfloat16)             # the attention's output itself
+    rng = np.random.default_rng(13)
+    x = _t(rng.standard_normal((B, 1, cfg.d_model)), torch.bfloat16)
+    ck, cv = (_t(3 * rng.standard_normal((B, Smax, Kh, dh)), torch.bfloat16) for _ in range(2))
+    kpos = torch.arange(Smax).repeat(B, 1)
+    kpos[:, 30:] = -1
+    pos = torch.tensor([30, 21, 9])
+    got = L.decode_attention(w, cfg, x, ck, cv, kpos, pos)[0]
+    q, k, v = L.attention_qkv(w, cfg, x, pos[:, None])
+    keys = torch.cat([ck, k], 1).double()
+    vals = torch.cat([cv, v], 1).double()
+    valid = torch.cat([(kpos >= 0) & (kpos < pos[:, None]), torch.ones(B, 1, dtype=torch.bool)], 1)
+    qg = q.double().reshape(B, Kh, N // Kh, dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, keys) / dh ** 0.5
+    p = torch.softmax(s.masked_fill(~valid[:, None, None], -torch.inf), -1)
+    want = torch.einsum("bhgs,bshd->bhgd", p, vals).reshape(B, 1, N * dh)
+    err = (got.double() - want).abs()
+    assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * vals.abs().max()).all()), float(err.max())
+
+
 def test_attention_routes():
     """The prefill's attention takes the kernel's wrapper (which has no
     route for a meta tensor); a windowed config is refused where the model
@@ -244,3 +274,45 @@ def test_wrapper_refuses_unsupported_shapes_on_cpu():
         ops.flash_attention_gqa(*(torch.zeros(1, 8, 2, 16, dtype=torch.float16),) * 3)
     with pytest.raises(ValueError, match="65535"):
         ops.flash_attention_gqa(*(torch.zeros(65536, 1, 1, 16),) * 3)
+
+
+def test_query_tile_is_per_dtype_and_bounds_the_grid_on_cpu():
+    """The query tile that the wrapper checks the grid with is the kernel's
+    for that dtype (128 rows in bf16, 64 in float32), so a shape refused
+    on the card is refused here too; expanded operands cost no memory and
+    ``_check`` runs before any arithmetic."""
+    assert ref.KERNEL_TILE == {torch.float32: 64, torch.bfloat16: 128}
+
+    def qkv(S, dtype):
+        return [torch.zeros(1, 1, h, 16, dtype=dtype).expand(1, S, h, 16) for h in (2, 1, 1)]
+    ops._check(*qkv(65535 * 64, torch.float32))
+    with pytest.raises(ValueError, match=r"ceil\(S / 64\)"):
+        ops._check(*qkv(65535 * 64 + 1, torch.float32))
+    ops._check(*qkv(65535 * 64 + 1, torch.bfloat16))
+    ops._check(*qkv(65535 * 128, torch.bfloat16))
+    with pytest.raises(ValueError, match=r"ceil\(S / 128\)"):
+        ops._check(*qkv(65535 * 128 + 1, torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_aligned_copies_only_what_the_kernel_cannot_read_in_place(dtype):
+    """``_aligned`` hands the kernel an operand in place when its last
+    dimension is contiguous, its base and strides are 16-byte multiples and
+    no dimension longer than 1 has stride 0 (what the bf16 kernel's TMA
+    tensor maps take); otherwise a contiguous copy with the same values."""
+    B, S, N, Kh, dh = 2, 40, 4, 2, 16
+    fused = torch.randn(B, S, N + 2 * Kh, dh).to(dtype)
+    single = torch.randn(S * dh).to(dtype)
+    in_place = [fused,
+                fused[:, :, :N],                             # views of a fused projection
+                fused[:, :, N:N + Kh],
+                single.as_strided((1, S, 1, dh), (7, dh, 3, 1))]   # extent-1 dims: any stride
+    copied = [fused.transpose(1, 3),                         # last dim not contiguous
+              torch.randn(B, S, N, dh + 1).to(dtype)[..., 1:],   # base off 16 bytes
+              torch.randn(B, S, N, dh + 2).to(dtype)[..., :dh],  # row strides off 16 bytes
+              torch.randn(B, 1, N, dh).to(dtype).expand(B, S, N, dh)]   # stride 0
+    for x in in_place:
+        assert ops._aligned(x) is x
+    for x in copied:
+        y = ops._aligned(x)
+        assert y is not x and y.is_contiguous() and torch.equal(y, x)

@@ -16,6 +16,8 @@ Tolerances against a dense softmax in float64 over the same inputs
   reference rounds them, whose sum over a row spreads as ‖p‖₂ · V, with a
   factor 2 to spare.  A late causal row that averages many keys is held
   to about its own output's size, not to 2⁻⁷ · V.
+The log-sum-exp output within 1e-4 + 1e-5 · |lse| of a float64 one (its
+float32 sums and the base-2 exponent's rounding).
 Where the scores are large (``test_large_scores_stay_finite``), the
 float32 sum of a score is itself off by about an ulp of C = max_ij Σ_d
 |q_id k_jd| / √dh, and an error δ in the scores moves the output by up
@@ -27,8 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_limit, flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_limit, attention_lse_dense,
+                                                      flash_attention_ref)
 
 
 @pytest.fixture
@@ -123,3 +127,60 @@ def test_kernel_refuses_unsupported(dev):
         ops.flash_attention_gqa(q[:, :, :3], k, v)
     with pytest.raises(ValueError):                                   # Sk != Sq
         ops.flash_attention_gqa(q, k[:, :16], v[:, :16])
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S", [1000, 200, 24, 1])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_bf16_kernel_on_fused_qkv_views(dev, dh, causal, S, G):
+    """The bf16 kernel (TMA loads, wgmma, 128-row tiles) at every head width,
+    causal and full, S ragged against the tile (1000, 200) and shorter than
+    it (24, 1), G ∈ {1, 4, 8}, with q, k and v strided views of one fused
+    (B, S, N + 2Kh, dh) projection: within ``ref.attention_limit`` of a
+    float64 softmax, the lse within 1e-4 + 1e-5 · |lse|, two runs bit-equal
+    and equal to the run on contiguous copies."""
+    B, Kh = 2, 2
+    N = G * Kh
+    rng = np.random.default_rng(1000 * dh + 10 * S + G)
+    fused = torch.from_numpy(rng.standard_normal((B, S, N + 2 * Kh, dh), dtype=np.float32))
+    fused = fused.to(dev, torch.bfloat16)
+    q, k, v = fused[:, :, :N], fused[:, :, N:N + Kh], fused[:, :, N + Kh:]
+    out, lse = ops.flash_attention_gqa(q, k, v, causal, return_lse=True)
+    out2, lse2 = ops.flash_attention_gqa(q, k, v, causal, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out, ops.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                                    v.contiguous(), causal))
+    _within(out, q, k, v, causal)
+    want = attention_lse_dense(q, k, causal)
+    assert float(((lse.double() - want).abs() / (1e-4 + 1e-5 * want.abs())).max()) <= 1
+
+
+def test_raw_stream_is_the_current_stream(dev):
+    """The wrapper's stream handle is the public current stream's, on the
+    default stream and on a side stream, and a launch on the side stream
+    gives the default stream's result."""
+    d = torch.device(dev, torch.cuda.current_device())
+    assert ops._raw_stream(d) == torch.cuda.current_stream(d).cuda_stream
+    q, k, v = _inputs(2, 200, 8, 2, 64, torch.bfloat16, 5, dev)
+    want = ops.flash_attention_gqa(q, k, v, True)
+    side = torch.cuda.Stream(d)
+    side.wait_stream(torch.cuda.current_stream(d))
+    with torch.cuda.stream(side):
+        assert ops._raw_stream(d) == side.cuda_stream
+        got = ops.flash_attention_gqa(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_spin_limit_build_gives_the_same_bits(dev, monkeypatch):
+    """The debug build whose barrier waits trap after SM90_SPIN_LIMIT polls
+    (``csrc/sm90.cuh``) compiles, launches and gives the default build's
+    bits."""
+    q, k, v = _inputs(2, 300, 8, 2, 128, torch.bfloat16, 9, dev)
+    want = ops.flash_attention_gqa(q, k, v, True)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DSM90_SPIN_LIMIT=4194304",))
+    monkeypatch.setattr(ops, "_lib", None)
+    got = ops.flash_attention_gqa(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

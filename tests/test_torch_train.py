@@ -28,7 +28,9 @@ Tolerances (float32 sums in other orders; measured ~1.5e-7 and ~3e-6):
   the gradients' 1e-6-relative agreement moves the step by up to 1 % of
   lr (about 15 of 65,536 elements a leaf at these defaults).
 """
+import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -472,6 +474,40 @@ def test_train_cli_runs_on_the_cpu_and_resumes(tmp_path):
                  "--ckpt-dir", ck, tmp=tmp_path)
     assert out.returncode == 0, out.stderr
     assert "resumed from step 3" in out.stdout and '"step": 3' in out.stdout
+
+
+def test_train_cli_resumes_bit_for_bit_from_an_intermediate_checkpoint(tmp_path):
+    """A run resumed from the intermediate checkpoint of an uninterrupted one
+    (4 steps, a save every 2) ends bit for bit where that run ends:
+    parameters, AdamW's state and the compressor's round and error feedback,
+    with the same losses on the way."""
+    flags = ["--device", "cpu", "--steps", "4", "--ckpt-every", "2", "--compress-grads", "8",
+             "--log-every", "1"]
+    whole, part = tmp_path / "whole", tmp_path / "part"
+    out = _train(*flags, "--ckpt-dir", str(whole), tmp=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert sorted(Checkpointer(str(whole)).all_steps()) == [2, 4]
+    part.mkdir()
+    shutil.copytree(whole / "step_2", part / "step_2")
+    (part / "LATEST").write_text("2")
+    resumed = _train(*flags, "--resume", "--ckpt-dir", str(part), tmp=tmp_path)
+    assert resumed.returncode == 0, resumed.stderr
+    assert "resumed from step 2" in resumed.stdout
+
+    def logged(o):
+        return [json.loads(l) for l in o.stdout.splitlines() if l.startswith("{")]
+    assert [m["step"] for m in logged(resumed)] == [2, 3]
+    assert logged(resumed) == logged(out)[2:]
+    a, b = whole / "step_4", part / "step_4"
+    manifest = json.loads((a / "manifest.json").read_text())
+    assert manifest == json.loads((b / "manifest.json").read_text())
+    assert ", 2.error.0, " in manifest["treedef"]                 # the compressor's state
+    assert manifest["treedef"].endswith(", 2.round")
+    rounds = np.load(a / f"leaf_{manifest['n_leaves'] - 1}.npy")
+    assert int(rounds) == 4
+    for i in range(manifest["n_leaves"]):
+        x, y = np.load(a / f"leaf_{i}.npy"), np.load(b / f"leaf_{i}.npy")
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), i
 
 
 def test_train_cli_asks_for_cuda_by_default(tmp_path):
