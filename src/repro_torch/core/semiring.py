@@ -154,9 +154,10 @@ class PolyCoeff(_ModuleSemiring):
     """Polynomials mod z^k, coefficient representation (paper §3).
 
     ⊗ = circular convolution through ``kernels/polymul``: on CUDA
-    tensors the hand-written kernel (the direct k-term sum per
-    coefficient, 2 ≤ k ≤ 1024); on CPU tensors its plain version, real
-    FFTs (O(k log k)).  ``k`` must be even.
+    tensors the hand-written kernel (the k products of every
+    coefficient, on the tensor cores for k a multiple of 16 up to 128 and
+    for 256, 512 and 1024, else on the FMA pipe; 2 ≤ k ≤ 1024); on CPU tensors its plain version, real FFTs
+    (O(k log k)).  ``k`` must be even.
     """
 
     k: int = 64

@@ -3,7 +3,9 @@
 :func:`poly_mul` takes two real coefficient tensors (..., k) and returns
 their circular product mod z^k over the last axis; leading dims
 broadcast, as in the reference's ``poly_mul_op``.  CUDA tensors go to
-the kernel, which is compiled with ``nvcc`` for sm_90a at first use
+the kernel (a block-Toeplitz product on the tensor cores for k a
+multiple of 16 up to 128 and for 256, 512 and 1024, the direct form on
+the FMA pipe for other k; see the source's note), which is compiled with ``nvcc`` for sm_90a at first use
 (``kernels/_build.py``) and bound through ``ctypes``; CPU tensors go to
 the plain version in ``ref.py``.  Any other device raises, as do k
 outside 2..1024, a dtype other than float32/bfloat16 and operands of two
@@ -63,14 +65,19 @@ def _load() -> ctypes.CDLL:
 
 
 def _operand(x: torch.Tensor, shape: torch.Size) -> Tuple[torch.Tensor, int]:
-    """``x`` as contiguous rows and its row period against ``shape``."""
+    """``x`` as contiguous rows, 16-byte aligned (the kernel copies rows in
+    16-byte pieces), and its row period against ``shape``."""
     lead = (1,) * (len(shape) - x.dim()) + tuple(x.shape)
+    rows, period = None, math.prod(shape[:-1])
     for p in range(len(shape)):             # x is (1, …, 1, *shape[p:])?
         if lead[p:] == tuple(shape[p:]):
-            return x.contiguous(), math.prod(shape[p:-1])
+            rows, period = x.contiguous(), math.prod(shape[p:-1])
+            break
         if lead[p] != 1:
             break
-    return x.expand(shape).contiguous(), math.prod(shape[:-1])   # broadcast elsewhere
+    if rows is None:                        # broadcast elsewhere
+        rows = x.expand(shape).contiguous()
+    return (rows.clone() if rows.data_ptr() % 16 else rows), period
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:

@@ -88,3 +88,28 @@ def test_kernel_rejects_what_it_does_not_take(dev):
                      torch.zeros(2, 8, dtype=torch.bfloat16, device=dev))
     with pytest.raises(ValueError):
         ops.poly_mul(torch.zeros(2, 8, device=dev), torch.zeros(2, 8))
+
+
+@pytest.mark.parametrize("k", [2, 6, 8, 16, 48, 64, 144, 250, 256, 512, 768, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_both_paths_broadcast_monomials_and_rerun(dev, k, dtype):
+    """The tensor-core path (k a multiple of 16 up to 128, and 256, 512
+    and 1024: each of its four m-tile counts) and the direct path (other
+    k, multiples of 16 such as 144 and 768 too): fit B's broadcast form, a (1, n, k) factor against (K, n, k)
+    messages, within the limit of the plain version; monomial ⊗ monomial
+    exactly zero off its one coefficient; two runs bit-equal."""
+    K, n = 3, 300
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a = torch.randn((1, n, k), generator=gen, device=dev).to(dtype)
+    b = torch.randn((K, n, k), generator=gen, device=dev).to(dtype)
+    got = ops.poly_mul(a, b)
+    assert got.shape == (K, n, k) and got.dtype == dtype
+    assert torch.equal(got, ops.poly_mul(a, b))
+    _within(got, a.expand_as(b), b)
+    ma = torch.zeros((4, k), device=dev, dtype=dtype)
+    mb = torch.zeros((4, k), device=dev, dtype=dtype)
+    ma[:, 1], mb[:, k - 1] = 1.5, -2.25                        # z · z^(k−1) = z^k ≡ 1
+    mono = ops.poly_mul(ma, mb)
+    want = torch.zeros_like(mono)
+    want[:, 0] = -3.375
+    assert torch.equal(mono, want)

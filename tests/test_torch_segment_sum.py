@@ -15,7 +15,8 @@ from repro.core import semiring as rsem
 from repro.kernels.segment_sum.ops import segment_sum_op
 
 from repro_torch.core import semiring as psem
-from repro_torch.kernels.segment_sum import Segments, segment_sum, segment_sum_ref
+from repro_torch.kernels.segment_sum import (ITEM_ROWS, Segments, WorkPlan, segment_sum,
+                                             segment_sum_ref)
 
 
 def _ids(rng, n, keys, empty):
@@ -195,3 +196,104 @@ def test_tiled_key_column_reads_untiled_rows():
         _check(got.numpy(), want, integer)
     with pytest.raises(ValueError, match="does not fit"):
         segment_sum(torch.zeros(1, d * n, C), seg)
+
+
+# ------------------------------------------------------------ work plan --
+
+L = ITEM_ROWS
+
+
+def _plan_ids(case, rng):
+    """(ids, n_keys, row_period) of one key-set shape of the plan tests."""
+    if case == "uniform":
+        return rng.integers(0, 64, 6000), 64, None
+    if case == "zipf":                         # key 0 holds ~2.5× L entries
+        return np.minimum(rng.zipf(1.3, 40000) - 1, 99), 100, None
+    if case == "one_key":
+        return np.full(3 * L + 5, 2), 5, None
+    if case in ("run_L-1", "run_L", "run_L+1"):
+        length = L + {"run_L-1": -1, "run_L": 0, "run_L+1": 1}[case]
+        return np.concatenate([np.full(length, 1), rng.integers(2, 6, 300)]), 7, None
+    if case == "half_empty":
+        return 2 * rng.integers(0, 20, 5 * L), 41, None
+    if case == "tiled":                        # the histogram sweep's key column
+        n, nb = 2 * L + 100, 3
+        ids = (rng.integers(0, nb, (2, n)) + np.arange(2)[:, None] * nb).reshape(-1)
+        return ids, 2 * nb, n
+    raise ValueError(case)
+
+
+def _two_pass(x, seg):
+    """The kernel's two passes over the plan in float64: each item's
+    entries summed, an unsplit key's sum written, a split key's
+    partials summed in item order."""
+    plan = seg.plan
+    beg, key = plan.item_offsets.numpy(), plan.item_key.numpy()
+    rows = x[seg.order.numpy()]
+    out = np.zeros((seg.n_keys, x.shape[1]))
+    part = np.zeros((plan.n_slots, x.shape[1]))
+    for i, slot in enumerate(plan.item_slot.numpy()):
+        s = rows[beg[i]:beg[i + 1]].sum(0)
+        if slot < 0:
+            out[key[i]] = s
+        else:
+            part[slot] = s
+    so = plan.split_offsets.numpy()
+    for j, k in enumerate(plan.split_key.numpy()):
+        acc = np.zeros(x.shape[1])
+        for s in range(so[j], so[j + 1]):
+            acc = acc + part[s]
+        out[k] = acc
+    return out
+
+
+@pytest.mark.parametrize("case", ["uniform", "zipf", "one_key", "run_L-1", "run_L", "run_L+1",
+                                  "half_empty", "tiled"])
+def test_work_plan_covers_the_csr_and_sums_it(case):
+    """The plan of ops.ITEM_ROWS-entry items covers every CSR entry once,
+    each item within one key and at most L entries long; a key is split
+    exactly when it holds more than L entries; and the two passes over
+    the plan give segment_sum_ref's and the Pallas kernel's sums, exactly
+    on integer values."""
+    rng = np.random.default_rng(len(case))
+    ids, keys, period = _plan_ids(case, rng)
+    seg = Segments.from_ids(ids, keys, "cpu", row_period=period)
+    plan, off = seg.plan, seg.offsets.numpy().astype(np.int64)
+    assert plan.rows == L
+    io, ik = plan.item_offsets.numpy(), plan.item_key.numpy()
+    assert io[0] == 0 and io[-1] == len(ids) and np.all(np.diff(io) >= 0)   # each entry once
+    assert np.all(np.diff(io) <= L)
+    assert np.all(off[ik] <= io[:-1]) and np.all(io[1:] <= off[ik + 1])      # within one key
+    lens = np.diff(off)
+    assert np.array_equal(np.bincount(ik, minlength=keys), np.maximum(1, -(-lens // L)))
+    split = np.flatnonzero(lens > L)
+    assert plan.split_key.numpy().tolist() == split.tolist()
+    slots = plan.item_slot.numpy()
+    assert np.array_equal(slots >= 0, np.isin(ik, split))
+    assert sorted(slots[slots >= 0].tolist()) == list(range(plan.n_slots))
+    if case == "run_L":
+        assert plan.n_split == 0
+    if case in ("run_L+1", "one_key", "zipf"):
+        assert plan.n_split >= 1
+
+    n = seg.n_rows
+    x = rng.integers(-3, 4, (n, 5)).astype(np.float32)
+    got = _two_pass(x.astype(np.float64), seg)
+    ref = segment_sum_ref(torch.from_numpy(x)[None], seg.order, seg.offsets, torch.float64)[0]
+    np.testing.assert_array_equal(got, ref.numpy())
+    tiled = np.tile(x, (len(ids) // n, 1))
+    pallas = segment_sum_op(jnp.asarray(tiled), jnp.asarray(ids, jnp.int32), keys,
+                            interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+def test_work_plan_of_small_items():
+    """A plan with a small L: items, slots and split keys by hand."""
+    plan = WorkPlan.from_offsets(np.array([0, 2, 3, 3, 9, 9, 9]), 2, "cpu")
+    assert plan.item_offsets.tolist() == [0, 2, 3, 3, 5, 7, 9, 9, 9]
+    assert plan.item_key.tolist() == [0, 1, 2, 3, 3, 3, 4, 5]
+    assert plan.item_slot.tolist() == [-1, -1, -1, 0, 1, 2, -1, -1]
+    assert plan.split_key.tolist() == [3] and plan.split_offsets.tolist() == [0, 3]
+    assert plan.n_slots == 3
+    with pytest.raises(ValueError):
+        WorkPlan.from_offsets(np.array([0, 1]), 0, "cpu")

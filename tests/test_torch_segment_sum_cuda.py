@@ -67,3 +67,38 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     cpu_seg = ops.Segments.from_ids(np.array([0, 1, 1]), 2, "cpu")
     with pytest.raises(ValueError):
         ops.segment_sum(torch.zeros(1, 3, 2, device=dev), cpu_seg)
+
+
+@pytest.mark.parametrize("C", [3, 40])
+@pytest.mark.parametrize("case", ["zipf", "one_key", "run_L-1", "run_L", "run_L+1"])
+def test_kernel_splits_long_keys(dev, case, C):
+    """Keys longer than ops.ITEM_ROWS entries, cut into work items whose
+    partials a second pass sums: exact on integers, bit-equal across two
+    runs, within 1e-5·Σ|v| on floats, one launch counted a call."""
+    L = ops.ITEM_ROWS
+    rng = np.random.default_rng(C + len(case))
+    if case == "zipf":
+        keys, ids = 257, np.minimum(rng.zipf(1.3, 200_000) - 1, 256)
+    elif case == "one_key":
+        keys, ids = 3, np.full(3 * L + 5, 1)
+    else:
+        length = L + {"run_L-1": -1, "run_L": 0, "run_L+1": 1}[case]
+        keys, ids = 9, np.concatenate([np.full(length, 4), rng.integers(5, 9, 500)])
+    seg = ops.Segments.from_ids(ids, keys, dev)
+    assert (seg.plan.n_split > 0) == (case in ("zipf", "one_key", "run_L+1"))
+    for dtype in (torch.float32, torch.bfloat16):
+        ints = torch.from_numpy(rng.integers(-3, 4, (2, len(ids), C)).astype(np.float32))
+        ints = ints.to(dev, dtype)
+        before = ops.launches
+        got = ops.segment_sum(ints, seg)
+        torch.cuda.synchronize()
+        assert ops.launches == before + 1
+        assert torch.equal(got.double(), segment_sum_ref(ints, seg.order, seg.offsets,
+                                                         torch.float64))
+        vals = torch.from_numpy(rng.standard_normal((2, len(ids), C)).astype(np.float32))
+        vals = vals.to(dev, dtype)
+        got = ops.segment_sum(vals, seg)
+        assert torch.equal(got, ops.segment_sum(vals, seg))
+        want = segment_sum_ref(vals, seg.order, seg.offsets, torch.float64)
+        mag = segment_sum_ref(vals.abs(), seg.order, seg.offsets, torch.float64)
+        assert bool(((got.double() - want).abs() <= 1e-5 * mag + 1e-30).all())
