@@ -29,12 +29,20 @@ Phases (any failure exits non-zero):
      card) and bound times, and the largest |err| / limit;
    - the rwkv6_chunk kernel (``rwkv6_chunk.cu``) against its plain version
      in float64 at the RWKV-6 prefill's shape (8, 1024, 32, 64, c 16), one
-     long prompt (1, 4096, 32, 64, 16) and the reference test's
-     (2, 64, 2, 32, 16) and (3, 48, 1, 16, 8), on numpy-seeded inputs
-     (standard-normal r, k, v, u; log-decays uniform in [−2, −0.01]):
-     |kernel − plain_f64| ≤ 2e-5 · W per element, W the plain WKV of |r|,
-     |k|, |v|, |u| with the same decays.  Prints kernel, plain (float32)
-     and bound times; no single PyTorch call computes the WKV;
+     long prompt (1, 4096, 32, 64, 16), one prompt of the prefill's length
+     (1, 1024, 32, 64, 16) and the reference test's (2, 64, 2, 32, 16) and
+     (3, 48, 1, 16, 8), on numpy-seeded inputs (standard-normal r, k, v,
+     u; log-decays uniform in [−2, −0.01]): |kernel − plain_f64| ≤ 2e-5 · W
+     per element, W the plain WKV of |r|, |k|, |v|, |u| with the same
+     decays, and the terminal state within 2e-5 per entry of the state of
+     |k| and |v| with the same decays; output and state bit-equal on a
+     second run.  Prints the sequence segments the wrapper chose, kernel
+     (and, where it cut the sequence, the same call in one walk), plain
+     (float32) and bound times; no single PyTorch call computes the WKV.
+     Then every (hs, c) in one walk and in 4 segments with log-decays of
+     −3.3 to −3.7 a token at c 16 (twice that at c 8), which put every
+     chunk's cumulative decay just above the −60 where the factored form
+     ends, held to the same gates; prints the largest err/W;
    - the flash_attention kernel (``flash_attention.cu``) against a dense
      softmax in float64 over the same inputs at the TinyLlama prefill's
      shape (B 8, S 2048, 32 query heads, 4 K/V heads, dh 64, causal) in
@@ -59,14 +67,19 @@ Phases (any failure exits non-zero):
    - the count_sketch kernel (``count_sketch.cu``), both forms (buckets and
      signs as arrays; hashed inside the kernel, the compressor's) at the
      reference test's (n, k) = (100, 16), (1000, 64), (5000, 256), (512,
-     128), a norm leaf (45,056, 2¹³) and the three largest TinyLlama
-     gradient leaves (253,755,392, 2²⁵), (92,274,688, 2²⁴), (66,060,288,
-     2²³): per bucket j, |kernel − float64| ≤ 2⁻²³ · m_j · W_j (m_j terms,
-     W_j = Σ|x_t| over them; the atomics add in no fixed order); the
-     unsketch within 2⁻²³ · |value| of the plain version.  Prints kernel,
-     plain (int64 hashes and a float64 ``index_add_``), ``index_add_``
-     with the buckets precomputed (the library call, never called by the
-     port) and bound times, and the unsketch's time and bound.
+     128) and at every TinyLlama gradient leaf that the compressor
+     sketches: ln_f (2,048, 2⁹), ln1/ln2 (45,056, 2¹³), w_down/w_gate/w_up
+     (253,755,392, 2²⁵), wq/wo (92,274,688, 2²⁴), embed (66,060,288, 2²³)
+     and wk/wv (11,534,336, 2²¹): per bucket j, |kernel − float64| ≤ 2⁻²³ ·
+     m_j · W_j (m_j terms, W_j = Σ|x_t| over them; the atomics add in no
+     fixed order), the route the plan did not take (bins or slabs, at the
+     large leaves) too; the unsketch within 2⁻²³ · |value| of the plain
+     version.  Prints the route, kernel (and the other route's), plain
+     (int64 hashes and a float64 ``index_add_``), ``index_add_`` with the
+     buckets precomputed (the library call, never called by the port) and
+     bound times, and the unsketch's time, its library call's
+     (``index_select`` of the sketch by the precomputed buckets, times the
+     signs and the scale) and its bound.
 2. Serve path at real size: star schema with 4,194,304 fact rows and
    4,096-row dimension tables; train 5 trees of depth 3 (sketch mode, no
    SSR), compile, ``score_grouped`` by every table, then 2,000 Zipf(1.3)
@@ -91,7 +104,8 @@ Phases (any failure exits non-zero):
 5. RWKV-6 1.6B serving at its full published width (24 layers, d_model
    2048, 32 heads of 64, d_ff 7168, vocab 65,536, bf16) with random weights
    from a ``torch.Generator`` seed: prefill 8 prompts of 1,024 numpy-seeded
-   token ids, then greedy-decode 64 tokens, after one untimed warm-up.
+   token ids (each layer's WKV state for the cache comes out of the
+   kernel's call), then greedy-decode 64 tokens, after one untimed warm-up.
    Gates: (a) finite logits, padded ids masked; (b) the prefill's
    last-position logits with the plain WKV patched in (the module's
    function, by this script) against the kernel's: in a float32 twin of
@@ -149,8 +163,9 @@ Phases (any failure exits non-zero):
    float noise moves the update by up to ~10 % of max|Δp|; (d) ``launch/train.py``'s ``main`` at the smoke
    size on the card: 3 steps, the checkpoint restored bit for bit, one
    resumed step.  Prints each step's ms and loss, tokens/s, the
-   compressor's ms a step (CUDA events) and the peak memory; ``--profile``
-   adds one traced step's busy/idle share and device time by kind.
+   compressor's ms a step (CUDA events) and the peak memory (allocated and
+   reserved); ``--profile`` adds one traced step's busy/idle share and
+   device time by kind.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -430,40 +445,54 @@ def wkv_flops(B: int, S: int, H: int, hs: int, c: int) -> int:
 
 
 def wkv_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda"):
-    """One rwkv6_chunk shape: the kernel within WKV_RTOL · W of the plain
-    version in float64, determinism, and timings.  Returns the shape's record."""
+    """One rwkv6_chunk shape: the kernel's output and terminal state within
+    WKV_RTOL · W of the plain version in float64 (W the output, or the
+    state, of |r|, |k|, |v|, |u| with the same decays), both bit-equal on a
+    second run, and timings.  Returns the shape's record."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, S, H, hs), dtype=np.float32) for _ in range(3))
     logw = -rng.uniform(0.01, 2.0, (B, S, H, hs)).astype(np.float32)
     u = rng.standard_normal((H, hs), dtype=np.float32)
     args = [torch.from_numpy(x).to(dev) for x in (r, k, v, logw, u)]
-    got = ops.rwkv6_chunk(*args, c)
-    if not torch.equal(got, ops.rwkv6_chunk(*args, c)):
+    got, st = ops.rwkv6_chunk(*args, c, return_state=True)
+    got2, st2 = ops.rwkv6_chunk(*args, c, return_state=True)
+    if not (torch.equal(got, got2) and torch.equal(st, st2)):
         raise AssertionError(f"{name}: two runs of the kernel differ")
-    want = ref.rwkv6_chunk_ref(*args, c, torch.float64)
-    mag = ref.rwkv6_chunk_ref(args[0].abs(), args[1].abs(), args[2].abs(), args[3],
-                              args[4].abs(), c, torch.float64)
-    err = (got.double() - want).abs()
-    if bool((err > WKV_RTOL * mag).any()):
+    del got2, st2
+    want, want_st = ref.rwkv6_chunk_ref(*args, c, torch.float64, return_state=True)
+    mag, mag_st = ref.rwkv6_chunk_ref(args[0].abs(), args[1].abs(), args[2].abs(), args[3],
+                                      args[4].abs(), c, torch.float64, return_state=True)
+    err, st_err = (got.double() - want).abs(), (st.double() - want_st).abs()
+    if bool((err > WKV_RTOL * mag).any()) or bool((st_err > WKV_RTOL * mag_st).any()):
         raise AssertionError(f"{name}: WKV outside {WKV_RTOL}·W (max |err|/W "
-                             f"{float((err / mag).max())})")
+                             f"{float((err / mag).max())}, state "
+                             f"{float((st_err / mag_st).max())})")
     max_abs_err, max_rel_err = float(err.max()), float((err / mag).max())
-    del got, want, mag, err
+    st_abs_err, st_rel_err = float(st_err.max()), float((st_err / mag_st).max())
+    del got, st, want, want_st, mag, mag_st, err, st_err
 
-    kernel_ms = cuda_ms(lambda: ops.rwkv6_chunk(*args, c))
-    plain_ms = cuda_ms(lambda: ref.rwkv6_chunk_ref(*args, c), max_reps=3)
-    nbytes = 4 * (5 * B * S * H * hs + H * hs)  # r, k, v, logw, u read once, out written once
+    segs = ops.segments(B, H, S // c)
+    kernel_ms = cuda_ms(lambda: ops.rwkv6_chunk(*args, c, return_state=True))
+    # the same call in one walk (one segment), where the plan cuts the sequence
+    one_walk_ms = (cuda_ms(lambda: ops._launch(args, c, 1, True)) if segs > 1
+                   else kernel_ms)
+    plain_ms = cuda_ms(lambda: ref.rwkv6_chunk_ref(*args, c, return_state=True), max_reps=3)
+    # r, k, v, logw, u read once; the output and the state written once
+    nbytes = 4 * (5 * B * S * H * hs + H * hs + B * H * hs * hs)
     flops = wkv_flops(B, S, H, hs, c)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
-    rec = {"case": name, "B": B, "S": S, "H": H, "hs": hs, "chunk": c,
-           "max_abs_err": max_abs_err, "max_err_over_w": max_rel_err, "ms": kernel_ms,
+    rec = {"case": name, "B": B, "S": S, "H": H, "hs": hs, "chunk": c, "segments": segs,
+           "max_abs_err": max_abs_err, "max_err_over_w": max_rel_err,
+           "state_max_abs_err": st_abs_err, "state_max_err_over_w": st_rel_err,
+           "ms": kernel_ms, "one_walk_ms": one_walk_ms,
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes": nbytes, "flops": flops}
-    log(f"  {name:<22} B={B} S={S} H={H} hs={hs} c={c} kernel_ms {kernel_ms:.4f}  "
-        f"plain_ms {plain_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
-        f"{flops:.3e} flops = {ops_ms:.4f} ms)  max_abs_err {max_abs_err:.3e}  "
-        f"max err/W {max_rel_err:.3e}")
+    log(f"  {name:<22} B={B} S={S} H={H} hs={hs} c={c} segments {segs} kernel_ms "
+        f"{kernel_ms:.4f} (one walk {one_walk_ms:.4f})  plain_ms {plain_ms:.4f}  bound_ms "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}; {flops:.3e} flops = {ops_ms:.4f} ms)  "
+        f"max_abs_err {max_abs_err:.3e}  max err/W {max_rel_err:.3e}  state max_abs_err "
+        f"{st_abs_err:.3e}  max err/W {st_rel_err:.3e}")
     del args
     torch.cuda.empty_cache()
     return rec
@@ -473,10 +502,44 @@ def phase_wkv(ops, ref, dev="cuda"):
     cases = [
         ("prefill_8x1024", 8, 1024, 32, 64, 16),        # phase 5's prefill
         ("long_1x4096", 1, 4096, 32, 64, 16),
+        ("one_1x1024", 1, 1024, 32, 64, 16),            # one prompt of the prefill's length
         ("ref_test_hs32", 2, 64, 2, 32, 16),             # tests/test_kernels.py's off shapes
         ("ref_test_hs16_c8", 3, 48, 1, 16, 8),
     ]
     return [wkv_case(ops, ref, *c, dev=dev) for c in cases]
+
+
+def wkv_strong_decay(ops, ref, dev="cuda"):
+    """rwkv6_chunk where its factored decays are largest: every (hs, c) at
+    (1, 16·c, 2, hs), in one walk and in 4 segments, with log-decays that
+    put each chunk's cumulative decay in [−59.2, −52.8].  Output and state
+    within WKV_RTOL · W of the plain version in float64; returns the
+    largest err/W of each."""
+    worst = {"max_err_over_w": 0.0, "state_max_err_over_w": 0.0}
+    for hs in (16, 32, 64):
+        for c in (8, 16):
+            rng = np.random.default_rng(hs + c)
+            S = 16 * c
+            r, k, v = (rng.standard_normal((1, S, 2, hs), dtype=np.float32) for _ in range(3))
+            logw = (-rng.uniform(3.3, 3.7, (1, S, 2, hs)) * (16 / c)).astype(np.float32)
+            u = rng.standard_normal((2, hs), dtype=np.float32)
+            args = [torch.from_numpy(x).to(dev) for x in (r, k, v, logw, u)]
+            want, want_st = ref.rwkv6_chunk_ref(*args, c, torch.float64, return_state=True)
+            mag, mag_st = ref.rwkv6_chunk_ref(args[0].abs(), args[1].abs(), args[2].abs(),
+                                              args[3], args[4].abs(), c, torch.float64,
+                                              return_state=True)
+            for segs in (1, 4):
+                got, st = ops._launch(args, c, segs, True)
+                e = float(((got.double() - want).abs() / mag).max())
+                es = float(((st.double() - want_st).abs() / mag_st).max())
+                log(f"  strong_decay hs={hs} c={c} segments {segs}  max err/W {e:.3e}  state "
+                    f"max err/W {es:.3e}")
+                if not (e <= WKV_RTOL and es <= WKV_RTOL):
+                    raise AssertionError(f"strong decay hs {hs} c {c} segments {segs}: WKV "
+                                         f"outside {WKV_RTOL}·W ({e}, state {es})")
+                worst = {"max_err_over_w": max(worst["max_err_over_w"], e),
+                         "state_max_err_over_w": max(worst["state_max_err_over_w"], es)}
+    return worst
 
 
 def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"):
@@ -633,26 +696,43 @@ def sketch_case(ops, ref, name, n, k, seed=0, dev="cuda"):
     if un_err:
         raise AssertionError(f"{name}: unsketch off the plain version at {int(un_err)} elements")
     un_max = float((est - want_e).abs().max())
+
+    # the route the plan did not take, where there is one (phase 1 keeps its time)
+    route = ops.plan(n, k)
+    alt = (ops.Plan("slabs", slabs=max(1, k // ops.SLAB_BUCKETS)) if route.route == "bins"
+           else ops.Plan("bins") if ops.BIN_BUCKETS < k <= ops.BINS_MAX_K else None)
+    if alt is not None:
+        err = (ops._hashed(x, h, alt).double() - want).abs()
+        if bool((err > lim).any()):
+            raise AssertionError(f"{name}: the {alt.route} route outside {SKETCH_ROUND}·m_j·W_j")
+        del err
     del want, lim, want_e
 
     kernel_ms = cuda_ms(lambda: ops.count_sketch_hashed(x, h))
+    alt_ms = cuda_ms(lambda: ops._hashed(x, h, alt)) if alt is not None else None
     arrays_ms = cuda_ms(lambda: ops.count_sketch(x, b32, signs, k))   # with its range check
     unsketch_ms = cuda_ms(lambda: ops.unsketch(x, sk, h, scale, est=est, state=state))
     plain_ms = cuda_ms(lambda: ref.count_sketch_op(x, h), max_reps=3)
-    # yardstick only: one PyTorch call, with the buckets precomputed
+    # yardsticks only: one PyTorch call each, with the buckets precomputed
     library_ms = cuda_ms(lambda: torch.zeros(k, device=dev).index_add_(0, b32, x * signs))
+    un_library_ms = cuda_ms(lambda: torch.index_select(sk, 0, b32) * signs * scale)
     nbytes = 4 * n + 4 * k                     # x read once, the sketch written once
     un_bytes = 4 * 3 * n + 4 * k               # x and sk read, est and state written
-    rec = {"case": name, "n": n, "k": k, "max_abs_err": worst["hashed"][0],
+    rec = {"case": name, "n": n, "k": k, "route": route.route, "slabs": route.slabs,
+           "max_abs_err": worst["hashed"][0],
            "max_err_over_limit": worst["hashed"][1], "arrays_max_abs_err": worst["arrays"][0],
            "unsketch_max_abs_err": un_max, "ms": kernel_ms, "arrays_ms": arrays_ms,
+           "alt_route": None if alt is None else alt.route, "alt_ms": alt_ms,
            "unsketch_ms": unsketch_ms, "unsketch_bound_ms": un_bytes / HBM_BYTES_PER_S * 1e3,
+           "unsketch_library_ms": un_library_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes}
-    log(f"  {name:<22} n={n} k={k} kernel_ms {kernel_ms:.4f}  arrays_ms {arrays_ms:.4f}  "
-        f"plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  bound_ms {rec['bound_ms']:.4f}  "
-        f"unsketch_ms {unsketch_ms:.4f} (bound {rec['unsketch_bound_ms']:.4f})  max_abs_err "
-        f"{worst['hashed'][0]:.3e} (err/limit {worst['hashed'][1]:.3f})")
+    alt_txt = "" if alt is None else f" ({alt.route} route {alt_ms:.4f})"
+    log(f"  {name:<22} n={n} k={k} {route.route} kernel_ms {kernel_ms:.4f}{alt_txt}  arrays_ms "
+        f"{arrays_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  bound_ms "
+        f"{rec['bound_ms']:.4f}  unsketch_ms {unsketch_ms:.4f} (library {un_library_ms:.4f}, "
+        f"bound {rec['unsketch_bound_ms']:.4f})  max_abs_err {worst['hashed'][0]:.3e} "
+        f"(err/limit {worst['hashed'][1]:.3f})")
     del x, b32, signs, sk, est, state
     torch.cuda.empty_cache()
     return rec
@@ -664,10 +744,12 @@ def phase_sketch(ops, ref, dev="cuda"):
         ("ref_test_1000_64", 1000, 64),
         ("ref_test_5000_256", 5000, 256),
         ("ref_test_512_128", 512, 128),
+        ("ln_f_leaf", 2_048, 1 << 9),                     # TinyLlama's ln_f
         ("norm_leaf", 45_056, 1 << 13),                   # TinyLlama's ln1, ln2 (22 × 2048)
         ("mlp_leaf", 253_755_392, 1 << 25),               # w_down, w_gate, w_up
         ("attn_q_o_leaf", 92_274_688, 1 << 24),           # wq, wo
         ("embed_leaf", 66_060_288, 1 << 23),              # embed.tok, embed.head
+        ("attn_k_v_leaf", 11_534_336, 1 << 21),           # wk, wv (22 × 2048 × 256)
     ]
     return [sketch_case(ops, ref, *c, dev=dev) for c in cases]
 
@@ -1269,7 +1351,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
 
 
 # ------------------------------------------------------------------ phase 7 --
-TRAIN_KERNELS = ("flash_attention", "hashed_kernel", "unsketch_kernel")
+TRAIN_KERNELS = ("flash_attention", "count_sketch_", "unsketch_kernel")
 
 
 def plain_attention(q, k, v, causal, return_lse):
@@ -1438,6 +1520,7 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
                     "count_sketch_unsketch": cops.unsketch_launches}              # ... and ends here
         others = {o.__name__: o.launches for o in other_ops}
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()   # the caching allocator's too
         comp_ms = [a.elapsed_time(b) for a, b in events]
         prof = profile_window(lambda: step_fn(params, state, tr.next_batch()),
                               split=TRAIN_KERNELS) if profile else None
@@ -1457,6 +1540,7 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
            "step_ms_mean": mean_s * 1e3, "tokens_per_s": tokens / mean_s,
            "loss_warmup": warm_loss, "losses": losses, "grad_norms": norms,
            "compressor_ms": comp_ms, "peak_memory_bytes": peak,
+           "peak_reserved_bytes": peak_reserved,
            "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
            "compressed_bytes": tr.compressor.compressed_bytes(params)}
     log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, global batch {batch} x {seq}, "
@@ -1466,7 +1550,7 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
         f"{out['tokens_per_s']:.0f} tokens/s; loss {', '.join(f'{x:.4f}' for x in losses)}; "
         f"grad norm {', '.join(f'{x:.3f}' for x in norms)}")
     log(f"  compressor {', '.join(f'{x:.2f}' for x in comp_ms)} ms a step (CUDA events); peak "
-        f"memory {peak / 2 ** 30:.2f} GiB; launches {launches} ({out['launches_per_step']} a "
+        f"memory {peak / 2 ** 30:.2f} GiB allocated, {peak_reserved / 2 ** 30:.2f} reserved; launches {launches} ({out['launches_per_step']} a "
         f"step); sketches {out['compressed_bytes'] / 1e6:.1f} MB a step")
     if prof is not None:
         out["profile_step"] = prof
@@ -1531,6 +1615,7 @@ def main() -> int:
     shapes = phase_kernel(ops, ref)
     pshapes = phase_polymul(pops, polymul)
     wshapes = phase_wkv(wops, rwkv6_chunk)
+    wstrong = wkv_strong_decay(wops, rwkv6_chunk)
     fsass = attention_sass(fops, builds[sources.index(flash_attention)][0])
     fshapes = phase_attn(fops, flash_attention)
     cshapes = phase_sketch(cops, count_sketch)
@@ -1598,6 +1683,7 @@ def main() -> int:
         "shape": {k: whead[k] for k in ("B", "S", "H", "hs", "chunk")},
         "launches_by_path": {"lm_prefill": lm["launches_prefill"],
                              "lm_decode": lm["launches_decode"]},
+        "strong_decay": wstrong,
         "shapes": wshapes,
     }, {
         "name": "flash_attention", "route": "cuda",

@@ -16,18 +16,31 @@ power of two ≥ 2.  CUDA tensors go to the kernel, which is compiled with
 through ``ctypes``; CPU tensors go to the plain versions in ``ref.py``.
 Any other device raises, as do other dtypes, shapes and sizes.
 
-The kernel adds into the sketch with atomics, so a bucket's sum order is
-not fixed and two runs may differ in the last bits; the comparison on
-the card holds each bucket j to 2⁻²³ · m_j · W_j of the float64 sum
-(m_j terms, W_j = Σ|x_t| over them).
+:func:`plan` picks the kernel's route by the sketch's size (the source's
+header says why): a sketch of at most ``SMEM_MAX_K`` buckets is summed in
+shared memory, one block a tile of ``SMEM_TILE`` elements or more, and
+written whole (no memset), by one block or as partials that a second
+launch sums in block order; the hashed form of ``BINS_MIN_K`` to
+``BINS_MAX_K`` buckets partitions its elements by bin of ``BIN_BUCKETS``
+buckets into 8n bytes of scratch and sums each bin in shared memory;
+any other sketch is cut into slabs of at most ``SLAB_BUCKETS`` buckets
+that L2 holds, walked slab by slab.
 
-``launches`` counts sketch launches (either form) since the last
+Every route adds with atomics, so a bucket's sum order is not fixed and
+two runs may differ in the last bits; the comparison on the card holds
+each bucket j to 2⁻²³ · m_j · W_j of the float64 sum (m_j terms, W_j =
+Σ|x_t| over them).
+
+``launches`` counts sketch calls (either form; a call on the partials
+route launches two kernels, one on the bins route four) since the last
 :func:`reset_launches`, ``unsketch_launches`` the unsketch's; a run
 reads them to show that its sketches went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -38,10 +51,51 @@ from .. import _build
 from .ref import count_sketch_op, count_sketch_ref, unsketch_ref
 
 N_MAX = 2 ** 31 - 1
+SMEM_MAX_K = 1 << 14          # buckets of a block's shared-memory sketch (64 KiB)
+SMEM_TILE = 1 << 16           # least elements a block of the shared-memory route sums
+SMEM_MAX_PARTS = 264          # most partial sketches (two blocks of 1,024 threads an SM)
+SLAB_BUCKETS = 1 << 23        # most buckets of a slab (32 MiB of the 50 MB L2)
+BIN_BUCKETS = 1 << 15         # buckets of a bin of the bins route (128 KiB of shared memory)
+BINS_MIN_K, BINS_MAX_K = 1 << 23, 1 << 25   # the bins route's k (at least 256 bins, at most 1,024)
 
 launches = 0
 unsketch_launches = 0
 _lib: Optional[ctypes.CDLL] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's route for n elements into k buckets: "smem" sums in
+    shared memory, ``parts`` blocks of ``tile`` elements (with parts > 1
+    into a parts × k scratch of partials); "slabs" adds into a zeroed
+    sketch in ``slabs`` slab-major passes; "bins" (the hashed form only)
+    partitions the elements by bin of ``BIN_BUCKETS`` into a scratch of
+    pairs and sums each bin in shared memory."""
+    route: str
+    tile: int = 0
+    parts: int = 1
+    slabs: int = 1
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, k: int, hashed: bool = True) -> Plan:
+    """The route for a sketch of n elements into k buckets."""
+    if k <= SMEM_MAX_K:
+        parts = min(SMEM_MAX_PARTS, -(-n // SMEM_TILE))
+        return Plan("smem", tile=-(-n // parts), parts=parts)
+    if hashed and BINS_MIN_K <= k <= BINS_MAX_K:
+        return Plan("bins")
+    return Plan("slabs", slabs=max(1, k // SLAB_BUCKETS))
+
+
+def scratch_words(p: Plan, n: int, k: int) -> int:
+    """32-bit words of scratch a call on plan ``p`` allocates: the partial
+    sketches, or the pairs and the bins' counts, starts and cursors."""
+    if p.route == "smem":
+        return p.parts * k if p.parts > 1 else 0
+    if p.route == "bins":
+        return 2 * n + 3 * (k // BIN_BUCKETS) + 1
+    return 0
 
 
 def reset_launches() -> None:
@@ -60,10 +114,12 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("count_sketch")
         P, L, U, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
-        lib.count_sketch_scatter.argtypes = [P] * 4 + [L, P]
-        lib.count_sketch_hashed.argtypes = [P, P, L] + [U] * 4 + [I, P]
+        lib.count_sketch_scatter.argtypes = [P] * 5 + [L, I, L, I, I, P]
+        lib.count_sketch_hashed.argtypes = [P] * 3 + [L] + [U] * 4 + [I, L, I, I, P]
+        lib.count_sketch_hashed_bins.argtypes = [P] * 3 + [L] + [U] * 4 + [I, P]
         lib.count_sketch_unsketch.argtypes = [P] * 4 + [L] + [U] * 4 + [I, ctypes.c_float, P]
-        for fn in (lib.count_sketch_scatter, lib.count_sketch_hashed, lib.count_sketch_unsketch):
+        for fn in (lib.count_sketch_scatter, lib.count_sketch_hashed,
+                   lib.count_sketch_hashed_bins, lib.count_sketch_unsketch):
             fn.restype = I
         lib.count_sketch_error_string.argtypes = [I]
         lib.count_sketch_error_string.restype = ctypes.c_char_p
@@ -93,9 +149,10 @@ def _check_vec(name: str, x: torch.Tensor, dtype: torch.dtype, n: Optional[int] 
         raise RuntimeError(f"count_sketch: no route for device {x.device}")
 
 
-def _run(fn, *args) -> None:
+def _run(fn: str, device: torch.device, *args) -> None:
     lib = _load()
-    rc = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    with _build.on_device(device):
+        rc = getattr(lib, fn)(*args, _build.raw_stream(device))
     if rc != 0:
         raise RuntimeError(f"count_sketch kernel launch failed ({fn}): "
                            + lib.count_sketch_error_string(rc).decode())
@@ -103,6 +160,39 @@ def _run(fn, *args) -> None:
 
 def _words(h: Hash2):
     return h.a, h.b, h.a2, h.b2, h._shift
+
+
+def _outputs(x: torch.Tensor, n: int, k: int, p: Plan):
+    """The sketch (zeroed only on the slab route, which adds into it) and
+    the route's scratch (None when it needs none)."""
+    if p.route == "slabs":
+        out = torch.zeros(k, dtype=torch.float32, device=x.device)
+    else:
+        out = torch.empty(k, dtype=torch.float32, device=x.device)
+    m = scratch_words(p, n, k)
+    scratch = torch.empty(m, dtype=torch.int32, device=x.device) if m else None
+    return out, scratch
+
+
+def _route(p: Plan, k: int):
+    """The C interface's (tile, parts, slab_shift) of an smem or slab plan."""
+    return p.tile, p.parts, k.bit_length() - 1 - (p.slabs.bit_length() - 1)
+
+
+def _hashed(x: torch.Tensor, h: Hash2, p: Plan) -> torch.Tensor:
+    """The hashed sketch on the card, on plan ``p``."""
+    n = x.shape[0]
+    out, scratch = _outputs(x, n, h.k, p)
+    ptr = 0 if scratch is None else scratch.data_ptr()
+    if p.route == "bins":
+        _run("count_sketch_hashed_bins", x.device, x.data_ptr(), out.data_ptr(), ptr, n,
+             *_words(h))
+    else:
+        _run("count_sketch_hashed", x.device, x.data_ptr(), out.data_ptr(), ptr, n, *_words(h),
+             *_route(p, h.k))
+    global launches
+    launches += 1
+    return out
 
 
 def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
@@ -118,10 +208,11 @@ def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
         raise ValueError(f"count_sketch: buckets in [{int(lo)}, {int(hi)}] outside [0, {k})")
     if x.device.type == "cpu":
         return count_sketch_ref(x, buckets, signs, k)
-    out = torch.zeros(k, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _run("count_sketch_scatter", x.data_ptr(), buckets.data_ptr(), signs.data_ptr(),
-             out.data_ptr(), n)
+    p = plan(n, k, hashed=False)
+    out, scratch = _outputs(x, n, k, p)
+    _run("count_sketch_scatter", x.device, x.data_ptr(), buckets.data_ptr(), signs.data_ptr(),
+         out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n,
+         33 - k.bit_length(), *_route(p, k))
     global launches
     launches += 1
     return out
@@ -133,12 +224,7 @@ def count_sketch_hashed(x: torch.Tensor, h: Hash2) -> torch.Tensor:
     _check_vec("x", x, torch.float32)
     if x.device.type == "cpu":
         return count_sketch_op(x, h)
-    out = torch.zeros(h.k, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _run("count_sketch_hashed", x.data_ptr(), out.data_ptr(), x.shape[0], *_words(h))
-    global launches
-    launches += 1
-    return out
+    return _hashed(x, h, plan(x.shape[0], h.k))
 
 
 def unsketch(x: torch.Tensor, sk: torch.Tensor, h: Hash2, scale: float = 1.0,
@@ -160,9 +246,8 @@ def unsketch(x: torch.Tensor, sk: torch.Tensor, h: Hash2, scale: float = 1.0,
         if state is not None:
             state.copy_(x - e)
         return est.copy_(e)
-    with torch.cuda.device(x.device):
-        _run("count_sketch_unsketch", x.data_ptr(), sk.data_ptr(), est.data_ptr(),
-             0 if state is None else state.data_ptr(), n, *_words(h), float(scale))
+    _run("count_sketch_unsketch", x.device, x.data_ptr(), sk.data_ptr(), est.data_ptr(),
+         0 if state is None else state.data_ptr(), n, *_words(h), float(scale))
     global unsketch_launches
     unsketch_launches += 1
     return est

@@ -82,15 +82,6 @@ def bf16_smem_bytes(dh: int) -> int:
     return _load().flash_attention_bf16_smem_bytes(dh)
 
 
-def _raw_stream(device: torch.device) -> int:
-    """The handle of ``device``'s current CUDA stream, as
-    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
-    building a Stream object, whose 8–12 µs are on a short call's path.  A
-    private binding, checked against torch 2.11 and 2.13;
-    ``tests/test_torch_flash_attention_cuda.py`` holds it to the public form."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, x in (("k", k), ("v", v)):
         if x.dtype != q.dtype:
@@ -155,7 +146,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N,
             k.shape[2], dh, int(causal), (ctypes.c_longlong * 12)(*strides),
-            _raw_stream(q.device))
+            _build.raw_stream(q.device))
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())

@@ -4,16 +4,25 @@
 and u of shape (H, hs), all float32, and returns the chunked RWKV-6 WKV
 (B, S, H, hs) in float32, with a zero state at the start of each
 sequence; the reference's ``kernels/rwkv6_chunk/ops.rwkv6_chunk`` has
-the same call.  CUDA tensors go to the kernel, which is compiled with
-``nvcc`` for sm_90a at first use (``kernels/_build.py``) and bound
-through ``ctypes``; CPU tensors go to the plain version in ``ref.py``.
+the same call.  With ``return_state=True`` it also returns the state
+after the last token, (B, H, hs, hs) float32 with S[b, h, key, value]:
+the prefill's cache, written by the kernel (its plain version returns
+the state its loop carries).  CUDA tensors go to the kernel, which is
+compiled with ``nvcc`` for sm_90a at first use (``kernels/_build.py``)
+and bound through ``ctypes``; CPU tensors go to the plain version in
+``ref.py``.
 Any other device raises, as do a dtype other than float32, S not a
 multiple of ``chunk``, and a head size or chunk the kernel does not
 take (on the CPU too, so a shape that runs here runs on the card).
 
-``launches`` counts kernel launches since the last
-:func:`reset_launches`; a run reads it to show that its WKV went through
-the kernel.
+For a small batch the kernel cuts each sequence into :func:`segments`:
+a first launch walks every segment but the last for its state alone,
+and a second walks them all, each from the state the earlier segments
+give it, so that the serial walk is shorter and the card fuller.
+
+``launches`` counts kernel calls (one a call, whether it launches once
+or, with segments, twice) since the last :func:`reset_launches`; a run
+reads it to show that its WKV went through the kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +37,9 @@ from .ref import rwkv6_chunk_ref
 
 HEAD_SIZES = (16, 32, 64)
 CHUNKS = (8, 16)
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+MAX_SEGMENTS = 8
+MIN_SEGMENT = 8               # chunks
 
 launches = 0
 _lib: Optional[ctypes.CDLL] = None
@@ -48,8 +60,8 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("rwkv6_chunk")
-        lib.rwkv6_chunk_f32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
-                                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.rwkv6_chunk_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3
+                                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.rwkv6_chunk_f32.restype = ctypes.c_int
         lib.rwkv6_chunk_error_string.argtypes = [ctypes.c_int]
         lib.rwkv6_chunk_error_string.restype = ctypes.c_char_p
@@ -77,27 +89,58 @@ def _check(r, k, v, logw, u, chunk: int) -> None:
                          f"chunk = {chunk}")
 
 
-def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
-                u: torch.Tensor, chunk: int = 16) -> torch.Tensor:
-    """The chunked WKV (B, S, H, hs) of r, k, v, logw (B, S, H, hs) and
-    the bonus u (H, hs), float32."""
-    _check(r, k, v, logw, u, chunk)
-    if r.device.type == "cpu":
-        return rwkv6_chunk_ref(r, k, v, logw, u, chunk)
-    if r.device.type != "cuda":
-        raise RuntimeError(f"rwkv6_chunk: no route for device {r.device}")
+def segments(B: int, H: int, n_chunks: int) -> int:
+    """Sequence segments of the kernel's walk: the most, a power of two up
+    to ``MAX_SEGMENTS``, that keep B·H·segments blocks within two an SM and
+    every segment at least ``MIN_SEGMENT`` chunks long (1: one walk)."""
+    p = 1
+    while (2 * p <= MAX_SEGMENTS and B * H * 2 * p <= 2 * SMS
+           and n_chunks // (2 * p) >= MIN_SEGMENT):
+        p *= 2
+    return p
+
+
+def _launch(args, chunk: int, n_seg: int, return_state: bool):
+    """The kernel on contiguous CUDA (r, k, v, logw, u) in ``n_seg``
+    sequence segments: the output and, if asked, the terminal state."""
+    r = args[0]
     B, S, H, hs = r.shape
-    out = torch.empty_like(r, memory_format=torch.contiguous_format)
-    if out.numel() == 0:
-        return out
-    args = [x.contiguous() for x in (r, k, v, logw, u)]   # read in place when contiguous
+    dev = r.device
+    out = torch.empty_like(r)
+    state = torch.empty(B, H, hs, hs, dtype=torch.float32, device=dev) if return_state else None
+    U = D = None
+    if n_seg > 1:
+        U = torch.empty(B, H, n_seg - 1, hs, hs, dtype=torch.float32, device=dev)
+        D = torch.empty(B, H, n_seg - 1, hs, dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _load()
-    with torch.cuda.device(r.device):
-        rc = lib.rwkv6_chunk_f32(*(x.data_ptr() for x in args), out.data_ptr(), B, S, H, hs,
-                                 chunk, torch.cuda.current_stream().cuda_stream)
+    with _build.on_device(dev):
+        rc = lib.rwkv6_chunk_f32(*(x.data_ptr() for x in args), out.data_ptr(), ptr(state),
+                                 ptr(U), ptr(D), B, S, H, hs, chunk, n_seg,
+                                 _build.raw_stream(dev))
     if rc != 0:
         raise RuntimeError("rwkv6_chunk kernel launch failed: "
                            + lib.rwkv6_chunk_error_string(rc).decode())
     global launches
     launches += 1
-    return out
+    return out, state
+
+
+def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+                u: torch.Tensor, chunk: int = 16, return_state: bool = False):
+    """The chunked WKV (B, S, H, hs) of r, k, v, logw (B, S, H, hs) and
+    the bonus u (H, hs), float32; with ``return_state``, (out, state),
+    state (B, H, hs, hs) after the last token."""
+    _check(r, k, v, logw, u, chunk)
+    if r.device.type == "cpu":
+        return rwkv6_chunk_ref(r, k, v, logw, u, chunk, return_state=return_state)
+    if r.device.type != "cuda":
+        raise RuntimeError(f"rwkv6_chunk: no route for device {r.device}")
+    B, S, H, hs = r.shape
+    if r.numel() == 0:
+        out = torch.empty_like(r, memory_format=torch.contiguous_format)
+        state = torch.zeros(B, H, hs, hs, dtype=torch.float32, device=r.device)
+        return (out, state) if return_state else out
+    args = [x.contiguous() for x in (r, k, v, logw, u)]   # read in place when contiguous
+    out, state = _launch(args, chunk, segments(B, H, S // chunk), return_state)
+    return (out, state) if return_state else out

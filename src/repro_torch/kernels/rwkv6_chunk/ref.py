@@ -6,7 +6,8 @@ every exponent clipped to [−60, 0]) plus the bonus u on its diagonal;
 across chunks an hs × hs state per (batch, head), carried by a Python
 loop over the chunks.  The wrapper uses it for CPU tensors.  With
 ``dtype=torch.float64`` it computes in float64, which makes it the
-comparison oracle on the card.
+comparison oracle on the card.  With ``return_state=True`` it also
+returns the state its loop carries after the last chunk, (B, H, hs, hs).
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ import torch
 
 def rwkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
                     u: torch.Tensor, chunk: int,
-                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    dtype: Optional[torch.dtype] = None, return_state: bool = False):
     """r, k, v, logw (≤ 0): (B, S, H, hs); u: (H, hs); S % chunk == 0.
     Returns the (B, S, H, hs) output in ``dtype`` (default: r's dtype),
-    with a zero state at the start of each sequence."""
+    with a zero state at the start of each sequence, and with
+    ``return_state`` also the state after the last token, (B, H, hs, hs)
+    as S[b, h, key, value]."""
     work = dtype or r.dtype
     B, S, H, hs = r.shape
     nc = S // chunk
@@ -47,4 +50,5 @@ def rwkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: tor
         state = torch.exp(cum[:, :, -1, :])[..., None] * state + torch.einsum(
             "bhjk,bhjd->bhkd", kW, vv)
         outs.append(out)
-    return torch.stack(outs, 0).permute(1, 0, 3, 2, 4).reshape(B, S, H, hs)
+    out = torch.stack(outs, 0).permute(1, 0, 3, 2, 4).reshape(B, S, H, hs)
+    return (out, state) if return_state else out

@@ -69,14 +69,6 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, devic
     return p
 
 
-def _rwkv_final_state(r, k, v, logw):
-    """Terminal WKV state after a full sequence (B,S,H,hs)→(B,H,hs,hs)."""
-    cum = torch.cumsum(logw, dim=1)
-    total = cum[:, -1:]
-    kW = k * torch.exp(torch.clamp(total - cum, -60.0, 0.0))
-    return torch.einsum("bshk,bshd->bhkd", kW, v)
-
-
 def stack_layers(params) -> Dict[str, Any]:
     """``params`` with its per-layer list stacked into one dict of
     tensors of a leading layer axis (new tensors)."""
@@ -189,13 +181,14 @@ class Model:
         return L.mask_pad_logits(cfg, logits), cache
 
     def _prefill_rwkv(self, p, x):
-        """One block: the WKV heads are computed once, for the kernel and
-        for the terminal state (the reference reruns the projections)."""
+        """One block: the WKV call gives the output and the terminal state
+        (the reference reruns the projections and takes the state in a
+        second pass over the sequence)."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         heads, g = RWKV.wkv_inputs(p["mix"], cfg, h)
-        x = x + RWKV.time_mix_out(p["mix"], cfg, h, heads, g)
-        S_fin = _rwkv_final_state(*heads)
+        tm, S_fin = RWKV.time_mix_out(p["mix"], cfg, h, heads, g, return_state=True)
+        x = x + tm
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
         x = x + RWKV.channel_mix(p["mix"], cfg, h2)
         return x, {"S": S_fin, "x_last_tm": h[:, -1], "x_last_cm": h2[:, -1]}

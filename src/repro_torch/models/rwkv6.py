@@ -90,18 +90,23 @@ def wkv_inputs(p, cfg: ModelConfig, x):
     return heads, g
 
 
-def time_mix_out(p, cfg: ModelConfig, x, heads, g):
+def time_mix_out(p, cfg: ModelConfig, x, heads, g, return_state: bool = False):
     """The time-mix output of x (B, S, D) from its WKV inputs: S is
-    zero-padded to a multiple of the chunk for the WKV and cut back."""
+    zero-padded to a multiple of the chunk for the WKV and cut back.  With
+    ``return_state``, also the WKV state after token S, (B, H, hs, hs)
+    float32, from the same call: a padded token has logw = 0 and k = 0, so
+    it decays nothing and adds nothing."""
     B, S, D = x.shape
     chunk = cfg.ssm_chunk
     pad = (-S) % chunk
     if pad:
         heads = tuple(F.pad(t, (0, 0, 0, 0, 0, pad)) for t in heads)
-    out = rwkv6_chunk(*heads, p["u"], chunk)
+    wkv = rwkv6_chunk(*heads, p["u"], chunk, return_state=return_state)
+    out, state = wkv if return_state else (wkv, None)
     out = out[:, :S].reshape(B, S, D)
     out = rmsnorm(out, p["ln_x"].float(), 1e-5)
-    return (out.to(x.dtype) * g) @ p["wo"]
+    out = (out.to(x.dtype) * g) @ p["wo"]
+    return (out, state) if return_state else out
 
 
 def time_mix(p, cfg: ModelConfig, x):

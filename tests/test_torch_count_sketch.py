@@ -122,3 +122,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         count_sketch(torch.ones(2, 4), b, s, 4)
     with pytest.raises(ValueError):
         count_sketch(x, b[:4], s[:4], 4)
+
+
+# (n, k, hashed) → the route, its partial sketches and slabs, and the scratch it allocates
+PLANS = [
+    ((2_048, 1 << 9, True), ("smem", 1, 1, 0)),                 # ln_f: one block, no memset
+    ((45_056, 1 << 13, True), ("smem", 1, 1, 0)),               # ln1, ln2
+    (((1 << 20) + 3, 1 << 12, True), ("smem", 17, 1, 17 << 12)),    # partials, summed in order
+    ((2 ** 31 - 1, 16, True), ("smem", 264, 1, 264 * 16)),      # at most SMEM_MAX_PARTS
+    (((1 << 20) + 3, 1 << 15, True), ("slabs", 1, 1, 0)),
+    ((11_534_336, 1 << 21, True), ("slabs", 1, 1, 0)),          # wk, wv: the sketch fits L2
+    ((66_060_288, 1 << 23, True), ("bins", 1, 1, 2 * 66_060_288 + 3 * 256 + 1)),
+    ((92_274_688, 1 << 24, True), ("bins", 1, 1, 2 * 92_274_688 + 3 * 512 + 1)),
+    ((253_755_392, 1 << 25, True), ("bins", 1, 1, 2 * 253_755_392 + 3 * 1024 + 1)),
+    ((253_755_392, 1 << 25, False), ("slabs", 1, 4, 0)),        # the arrays form: no bins
+    ((1 << 27, 1 << 26, True), ("slabs", 1, 8, 0)),             # past the bins' 1,024
+]
+
+
+@pytest.mark.parametrize("args,want", PLANS)
+def test_plan_routes_by_sketch_size(args, want):
+    from repro_torch.kernels.count_sketch import ops
+    n, k, hashed = args
+    p = ops.plan(n, k, hashed)
+    assert (p.route, p.parts, p.slabs, ops.scratch_words(p, n, k)) == want
+    if p.route == "smem":                          # the blocks' tiles cover x, none empty
+        assert p.parts * p.tile >= n > (p.parts - 1) * p.tile
+        assert p.parts == min(ops.SMEM_MAX_PARTS, -(-n // ops.SMEM_TILE))   # tiles ~SMEM_TILE
+    else:                                          # the C interface's slab shift: 2^shift a slab
+        assert ops._route(p, k)[2] == (k // p.slabs).bit_length() - 1
+        assert k // p.slabs <= ops.SLAB_BUCKETS or p.route == "bins"
+
+
+def test_plan_takes_every_leaf_of_the_compressor():
+    """Every sketch size the compressor makes for TinyLlama's twelve
+    leaves has a route, and only the norm leaves take shared memory."""
+    from repro_torch.kernels.count_sketch import ops
+    from repro_torch.optim.grad_compress import CountSketchCompressor
+    comp = CountSketchCompressor(ratio=8)
+    leaves = {"ln_f": 2_048, "ln": 45_056, "wk": 11_534_336, "embed": 66_060_288,
+              "wq": 92_274_688, "mlp": 253_755_392}
+    routes = {name: ops.plan(n, comp.sketch_size(n)).route for name, n in leaves.items()}
+    assert routes == {"ln_f": "smem", "ln": "smem", "wk": "slabs", "embed": "bins",
+                      "wq": "bins", "mlp": "bins"}

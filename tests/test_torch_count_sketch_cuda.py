@@ -6,8 +6,8 @@ without the shared fixtures:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_count_sketch_cuda.py
 
-The kernel adds with atomics, so a bucket's float32 sum runs in no fixed
-order.  Each bucket j is held to 2⁻²³ · m_j · W_j of the float64 sum,
+Every route of the kernel (``ops.plan``: shared memory, bins, slabs)
+adds with atomics, so a bucket's float32 sum runs in no fixed order.  Each bucket j is held to 2⁻²³ · m_j · W_j of the float64 sum,
 m_j its count of terms and W_j = Σ|x_t| over them (each of the m_j − 1
 float32 additions rounds by at most 2⁻²⁴ of a partial sum ≤ W_j, doubled
 to spare).  The unsketch does the reference's two float32 products in
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core.sketch import Hash2
+from repro_torch.kernels import _build
 from repro_torch.kernels.count_sketch import ops
 from repro_torch.kernels.count_sketch.ref import count_sketch_op, count_sketch_ref, unsketch_ref
 
@@ -116,3 +117,65 @@ def test_wrapper_rejects_mixed_devices_and_dtypes(dev):
         ops.count_sketch_hashed(x.half(), Hash2.make(np.random.default_rng(0), 8))
     with pytest.raises(ValueError):
         ops.count_sketch_hashed(torch.ones(4, 4, device=dev), Hash2.make(np.random.default_rng(0), 8))
+
+
+# each route at a k on each side of its crossover, the path's largest leaves included
+ROUTES = [(45_056, 1 << 13, "smem"), ((1 << 20) + 3, 1 << 14, "smem"),
+          ((1 << 20) + 3, 1 << 15, "slabs"), (11_534_336, 1 << 21, "slabs"),
+          ((1 << 22) + 9, 1 << 22, "slabs"), ((1 << 23) + 7, 1 << 23, "bins"),
+          (253_755_392, 1 << 25, "bins")]
+
+
+@pytest.mark.parametrize("n,k,route", ROUTES)
+def test_each_route_within_its_limit(dev, n, k, route):
+    x, h, b, s = _case(n, k, n % 1000 + k, dev)
+    assert ops.plan(n, k).route == route
+    ops.reset_launches()
+    _within(ops.count_sketch_hashed(x, h), x, b, s, k)
+    assert ops.launches == 1                            # one a call, whatever the route launches
+    if route == "smem":                                 # the arrays form takes the same route
+        _within(ops.count_sketch(x, b, s, k), x, b, s, k)
+
+
+@pytest.mark.parametrize("n,k,plan", [
+    (11_534_336, 1 << 21, ops.Plan("bins")),
+    (253_755_392, 1 << 25, ops.Plan("slabs", slabs=4)),
+    (253_755_392, 1 << 25, ops.Plan("slabs", slabs=8)),
+    ((1 << 20) + 3, 1 << 12, ops.Plan("smem", tile=1 << 15, parts=33))])
+def test_the_routes_not_taken_are_right_too(dev, n, k, plan):
+    """The routes the plan passes over at these sizes (chip_smoke.py times
+    them beside the chosen one) give the same sums."""
+    x, h, b, s = _case(n, k, 17, dev)
+    _within(ops._hashed(x, h, plan), x, b, s, k)
+
+
+def test_raw_stream_is_the_current_stream(dev):
+    """The wrapper's stream handle is the public current stream's, and a
+    sketch on a side stream equals the default stream's."""
+    d = torch.device(dev, torch.cuda.current_device())
+    assert _build.raw_stream(d) == torch.cuda.current_stream(d).cuda_stream
+    x, h, b, s = _case(45_056, 1 << 13, 3, dev)
+    want = ops.count_sketch_hashed(x, h)
+    side = torch.cuda.Stream(d)
+    side.wait_stream(torch.cuda.current_stream(d))
+    with torch.cuda.stream(side):
+        assert _build.raw_stream(d) == side.cuda_stream
+        got = ops.count_sketch_hashed(x, h)
+    torch.cuda.synchronize()
+    _within(got, x, b, s, h.k)
+    _within(want, x, b, s, h.k)
+
+
+def test_small_k_route_launches_no_memset(dev):
+    """On the shared-memory route one block writes every bucket: the call
+    launches the sketch kernel alone, no zero fill and no second kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, h, _, _ = _case(45_056, 1 << 13, 4, dev)
+    ops.count_sketch_hashed(x, h)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.count_sketch_hashed(x, h)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "count_sketch_smem_kernel" in names[0], names

@@ -161,13 +161,13 @@ def test_raw_stream_is_the_current_stream(dev):
     default stream and on a side stream, and a launch on the side stream
     gives the default stream's result."""
     d = torch.device(dev, torch.cuda.current_device())
-    assert ops._raw_stream(d) == torch.cuda.current_stream(d).cuda_stream
+    assert _build.raw_stream(d) == torch.cuda.current_stream(d).cuda_stream
     q, k, v = _inputs(2, 200, 8, 2, 64, torch.bfloat16, 5, dev)
     want = ops.flash_attention_gqa(q, k, v, True)
     side = torch.cuda.Stream(d)
     side.wait_stream(torch.cuda.current_stream(d))
     with torch.cuda.stream(side):
-        assert ops._raw_stream(d) == side.cuda_stream
+        assert _build.raw_stream(d) == side.cuda_stream
         got = ops.flash_attention_gqa(q, k, v, True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
