@@ -167,6 +167,46 @@ Phases (any failure exits non-zero):
    reserved); ``--profile`` adds one traced step's busy/idle share and
    device time by kind.
 
+8. Incremental maintenance and warm-start retraining, every refreshed
+   message a segment-⊕ kernel launch; it runs right after phase 4, on
+   the models phases 2 and 4 leave resident, which are freed before
+   phase 5.  (a) Phase 2's schema and trees
+   (not built or trained again) in a ``MaintainedScorer`` with a
+   ``WalWriter`` (fsync every 8 appends) in a temporary directory; 32
+   delta batches in ``delta_stream``'s mix, drawn with vectorised numpy:
+   6 ops a batch, each on a table drawn uniformly, an insert with p 0.35,
+   a delete with p 0.3, else an update, each op a block of rows: on
+   ``fact`` 4,096 inserts (keys from the live dimension keys, 1 % newly
+   minted), 1,024 deletes or 1,024 feature updates; on a dimension table
+   4 inserts (keys the fact table minted, then fresh ones), 4 deletes or
+   16 feature updates; batch 17 also inserts 2,048 rows into dim0, which
+   must double its capacity.  After each batch
+   ``grouped_cached("fact")`` and ``grouped_cached("dim0")``; prints the
+   batch's ops, apply, refresh and CSR-rebuild ms (host clock after a
+   synchronise), the CSRs built, the edges re-emitted against a full pass
+   and the launches, and p50/p99 over the batches.  Gates: after batches
+   16 and 32 the recompute oracle of both roots (one effective schema
+   each time) bit-equal to the maintained
+   scores; during the refreshes segment_sum launches equal to the edges
+   the counter records, and more than 0; a snapshot pinned after batch
+   19 scores bit-equal to its pin after batch 24; 2,000 Zipf(1.3) row
+   requests through the service over the published scorer, each equal to
+   ``grouped_cached``'s mean for its row; ``recover_scorer`` from the
+   checkpoint of batch 16 and the closed log reaches version 32,
+   bit-equal to the live scorer (prints its seconds, the records
+   replayed and the log's bytes).  (b) Phase 4's schema: an
+   ``IncrementalBooster`` of 3 sketch-mode trees of depth 3, then 4
+   ``drift_stream`` batches of 16,384 rows, each followed by a refit of
+   one tree: the new tree matches a scratch ``Booster`` on the effective
+   schema warm-started from the same trees (``feat`` equal, ``thr`` within
+   1e-6, leaves within rtol 1e-4 and atol 1e-5), with fewer edges, and
+   the refit's segment_sum launches equal its edges, more than 0 in all.
+   Prints refit and scratch seconds (the scratch's effective schema and
+   split plans included, and printed apart), the edge ratio and the mask
+   signatures' host ms.  No other kernel launches in phase 8.
+   ``--profile`` adds one more batch's apply and refresh and one more
+   refit, traced, after the gates.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  A failure ends the run where it
@@ -178,6 +218,7 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -866,7 +907,7 @@ def phase_serve(ops, n_fact: int, dev="cuda", profile: bool = False):
             log(f"  profile {k}: wall {v['wall_ms']:.1f} ms, kernels busy "
                 f"{v['device_busy_ms']:.1f} ms, idle share {v['idle_share']:.3f}; "
                 f"top {v['top']}")
-    return out
+    return out, schema, trees
 
 
 def kernel_kind(name: str, split=()) -> str:
@@ -1104,7 +1145,7 @@ def phase_coeff_hist(pops, sops, n_fact: int, dev="cuda"):
             f"{prof['device_busy_ms']:.1f} ms (polymul {prof['split_ms']:.1f} ms, rest "
             f"{prof['device_busy_ms'] - prof['split_ms']:.1f} ms), idle share "
             f"{prof['idle_share']:.3f}; top {prof['top']}")
-    return out
+    return out, sch
 
 
 # ------------------------------------------------------------------ phase 5 --
@@ -1562,6 +1603,338 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
     return out
 
 
+# ------------------------------------------------------------------ phase 8 --
+MAINTAIN_ROOTS = ("fact", "dim0")
+MAINTAIN_BATCHES = 32
+# relational/generators.delta_stream's batch mix: MIX_OPS ops a batch, each
+# on a table drawn uniformly, an insert with p 0.35, a delete with p 0.3, else
+# an update; at phase 2's scale each op moves a block of rows
+MIX_OPS, MIX_P_INSERT, MIX_P_DELETE = 6, 0.35, 0.3
+MAINTAIN_BLOCKS = {"fact": {"ins": 4096, "del": 1024, "upd": 1024},
+                   "dim": {"ins": 4, "del": 4, "upd": 16}}
+
+
+def pctl(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+class KeyMint:
+    """Fresh join keys for the maintenance stream: ``new()`` mints past
+    every key seen; fact rows take them first, and the dimension table
+    inserts rows for them later (``pending``), so dangling fact rows
+    come to join."""
+
+    def __init__(self, schema):
+        self.next = {c: int(schema.table(f"dim{i}").col(c).max()) + 1
+                     for i, c in enumerate(("k0", "k1"))}
+        self.pending = {c: [] for c in self.next}
+
+    def new(self, col: str, n: int) -> np.ndarray:
+        out = np.arange(self.next[col], self.next[col] + n, dtype=np.int64)
+        self.next[col] += n
+        return out
+
+
+def draw_mix(rng, names) -> dict:
+    """delta_stream's draw of one batch's ops: {table: {kind: ops}}."""
+    mix = {n: {"ins": 0, "del": 0, "upd": 0} for n in names}
+    for t, r in zip(rng.integers(len(names), size=MIX_OPS), rng.random(MIX_OPS)):
+        kind = "ins" if r < MIX_P_INSERT else "del" if r < MIX_P_INSERT + MIX_P_DELETE else "upd"
+        mix[names[t]][kind] += 1
+    return mix
+
+
+def maintain_batch(rng, ms, mint, blocks=MAINTAIN_BLOCKS, grow_rows=0):
+    """One batch of phase 8(a) and its mix, drawn with vectorised numpy
+    from the live slots: ``draw_mix``'s ops, each a block of rows
+    (``blocks``).  Fact inserts take keys from the live dimension keys (1 %
+    of them freshly minted); a dimension table's inserts take the keys the
+    fact table minted, then fresh ones; deletes and updates hit distinct
+    live rows; ``grow_rows`` more inserts into dim0."""
+    from repro_torch.incremental import TableDelta
+
+    mix = draw_mix(rng, ["fact", "dim0", "dim1"])
+    mix["dim0"]["grow"] = grow_rows
+    batch = []
+    for name, ops in mix.items():
+        dt = ms.tables[name]
+        blk = blocks["fact" if name == "fact" else "dim"]
+        n_ins = ops["ins"] * blk["ins"] + ops.get("grow", 0)
+        n_del, n_upd = ops["del"] * blk["del"], ops["upd"] * blk["upd"]
+        if not n_ins + n_del + n_upd:
+            continue
+        live = dt.live_slots()
+        pick = live[rng.choice(len(live), n_del + n_upd, replace=False)]
+        ins = None
+        if n_ins and name == "fact":
+            ins = {}
+            for i, c in enumerate(("k0", "k1")):
+                dim = ms.tables[f"dim{i}"]
+                keys = dim.columns[c][dim.live_slots()][rng.integers(0, dim.n_live, n_ins)]
+                fresh = rng.random(n_ins) < 0.01
+                keys[fresh] = mint.new(c, int(fresh.sum()))
+                mint.pending[c].extend(keys[fresh].tolist())
+                ins[c] = keys.astype(dt.columns[c].dtype)
+        elif n_ins:
+            c = "k0" if name == "dim0" else "k1"
+            owed, mint.pending[c] = mint.pending[c][:n_ins], mint.pending[c][n_ins:]
+            ins = {c: np.concatenate([np.asarray(owed, np.int64),
+                                      mint.new(c, n_ins - len(owed))]).astype(dt.columns[c].dtype)}
+        feats = [f for f in dt.columns if f not in ("k0", "k1")]
+        if ins is not None:
+            ins.update({f: rng.standard_normal(n_ins).astype(dt.columns[f].dtype) for f in feats})
+        upd_feats = [f for f in feats if f != "y"]
+        batch.append(TableDelta(
+            name, inserts=ins, deletes=pick[:n_del] if n_del else None,
+            updates=(pick[n_del:], {f: rng.standard_normal(n_upd).astype(np.float32)
+                                    for f in upd_feats}) if n_upd else None))
+    return batch, mix
+
+
+def audit_maintained(ms, roots, tag):
+    """One effective schema (a pinned snapshot's), the recompute oracle
+    of every root from it, bit-equal to the maintained scores."""
+    t0 = time.perf_counter()
+    snap = ms.snapshot(roots, pin_oracle=True)
+    worst = 0.0
+    for r in roots:
+        for got, want in zip(ms.grouped_cached(r), snap.recompute_oracle(r)):
+            worst = max(worst, float((got - want).abs().max()))
+    if worst != 0.0:
+        raise AssertionError(f"maintain: {tag} audit max|diff| {worst}, wants 0.0")
+    return time.perf_counter() - t0
+
+
+async def serve_maintained(ms, root, n_requests=2000, zipf=1.3):
+    """Zipf row requests through the service over the published scorer;
+    every answer must be grouped_cached's mean for its row."""
+    from repro_torch.serving import ModelRegistry, RelationalScoringService
+
+    registry = ModelRegistry()
+    registry.publish(ms)
+    svc = RelationalScoringService(registry, root, max_batch=64, max_wait_ms=1.0,
+                                   cache_size=4096)
+    n = ms.n_rows(root)
+    ids = np.minimum(np.random.default_rng(2).zipf(zipf, n_requests) - 1, n - 1)
+    await svc.start()
+    t0 = time.perf_counter()
+    got = []
+    for chunk in np.array_split(ids, max(1, n_requests // 256)):
+        got += await svc.score_many(chunk.tolist())
+    dt = time.perf_counter() - t0
+    await svc.stop()
+    tot, cnt = ms.grouped_cached(root)
+    want = (tot / torch.clamp(cnt, min=1.0))[torch.from_numpy(ids).to(tot.device)].cpu().numpy()
+    bad = int(np.sum(np.asarray(got, np.float32) != want))
+    if bad:
+        raise AssertionError(f"maintain: {bad} of {n_requests} service answers differ from "
+                             f"grouped_cached's means")
+    snap = svc.stats_snapshot()
+    return {"requests": n_requests, "qps": n_requests / dt, "p50_ms": snap["latency_ms"]["p50"],
+            "p99_ms": snap["latency_ms"]["p99"], "cache_hit_rate": snap["cache_hit_rate"]}
+
+
+def phase_maintain(ops, schema, trees, dev="cuda", profile=False, blocks=MAINTAIN_BLOCKS):
+    """Phase 8(a): maintenance at phase 2's scale on phase 2's schema and
+    trees (module docstring)."""
+    import os
+    import tempfile
+
+    from repro_torch.core import QueryCounter
+    from repro_torch.incremental import MaintainedScorer
+    from repro_torch.incremental.recover import recover_scorer, save_checkpoint
+    from repro_torch.incremental.wal import WalWriter, wal_path
+    from repro_torch.serving import compile_ensemble
+
+    roots, n_batches = MAINTAIN_ROOTS, MAINTAIN_BATCHES
+    counter = QueryCounter()
+    t0 = time.perf_counter()
+    ms = MaintainedScorer(compile_ensemble(schema, trees), counter=counter)
+    for r in roots:
+        ms.grouped_cached(r)                              # the first, full passes
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    full = sum(len(schema.join_tree(r).edges) for r in roots)
+    csr_sides = len({(frozenset((e.child, e.parent)), e.child)      # the CSRs jt() keeps
+                     for r in roots for e in schema.join_tree(r).edges})
+    rng = np.random.default_rng(8)
+    mint = KeyMint(schema)
+    rec = {k: [] for k in ("apply_ms", "csr_ms", "csr_builds", "refresh_ms", "edges",
+                           "launches", "mix")}
+    out = {"n_fact": schema.table("fact").n_rows, "batches": n_batches, "roots": list(roots),
+           "setup_s": setup_s, "full_pass_edges": full, "per_batch": rec}
+    with tempfile.TemporaryDirectory() as tmp:
+        wal_dir, ckpt_dir = os.path.join(tmp, "wal"), os.path.join(tmp, "ckpt")
+        wal = WalWriter(wal_dir, sync_every=8).attach(ms.state)
+        snap = pin = None
+        for b in range(1, n_batches + 1):
+            cap0 = ms.tables["dim0"].capacity
+            batch, mix = maintain_batch(rng, ms, mint, blocks, grow_rows=2048 if b == 17 else 0)
+            rec["mix"].append({t: {k: n for k, n in o.items() if n}       # tables it touched
+                               for t, o in mix.items() if any(o.values())})
+            t0 = time.perf_counter()
+            ms.apply(batch)
+            sync(dev)
+            rec["apply_ms"].append((time.perf_counter() - t0) * 1e3)
+            if b == 17 and not ms.tables["dim0"].capacity >= 2 * cap0:
+                raise AssertionError(f"maintain: dim0 capacity {cap0} → "
+                                     f"{ms.tables['dim0'].capacity}, expected it doubled")
+            e0, csr0, builds0 = counter.edges, ms.state.csr_s, ms.state.csr_builds
+            ops.reset_launches()                           # the refresh starts here
+            t0 = time.perf_counter()
+            for r in roots:
+                ms.grouped_cached(r)
+            sync(dev)
+            rec["refresh_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append(ops.launches)           # ... and ends here
+            rec["edges"].append(counter.edges - e0)
+            rec["csr_ms"].append((ms.state.csr_s - csr0) * 1e3)
+            rec["csr_builds"].append(ms.state.csr_builds - builds0)
+            log(f"  batch {b:>2}: apply {rec['apply_ms'][-1]:7.2f} ms, refresh "
+                f"{rec['refresh_ms'][-1]:7.2f} ms (CSR {rec['csr_ms'][-1]:6.2f}, "
+                f"{rec['csr_builds'][-1]} built), edges {rec['edges'][-1]}/{full}, segment_sum "
+                f"launches {rec['launches'][-1]}; ops {rec['mix'][-1]}")
+            if b in (16, n_batches):
+                out[f"audit_{b}_s"] = audit_maintained(ms, roots, f"batch {b}")
+            if b == 16:
+                save_checkpoint(ms.state, ckpt_dir)
+            if b == 19:                                    # pinned before batch 20
+                snap = ms.snapshot(roots)
+                pin = {r: [t.clone() for t in snap.grouped_cached(r)] for r in roots}
+            if b == 24:
+                for r in roots:
+                    if not all(torch.equal(a, p) for a, p in zip(snap.score_grouped(r), pin[r])):
+                        raise AssertionError(f"maintain: the snapshot of version 19 scores "
+                                             f"{r} differently after batch 24")
+                snap = pin = None
+        wal.close()
+        out["wal_bytes"] = os.path.getsize(wal_path(wal_dir))
+        if rec["launches"] != rec["edges"] or not sum(rec["launches"]) > 0:
+            raise AssertionError(f"maintain: refresh launches {rec['launches']} against the "
+                                 f"counter's edges {rec['edges']}")
+        out["service"] = asyncio.run(serve_maintained(ms, "fact"))
+        t0 = time.perf_counter()
+        ms2, rep = recover_scorer(compile_ensemble(schema, trees), wal_dir, ckpt_dir,
+                                  counter=QueryCounter())
+        for r in roots:
+            if not all(torch.equal(a, b) for a, b in zip(ms2.grouped_cached(r),
+                                                          ms.grouped_cached(r))):
+                raise AssertionError(f"maintain: the recovered scorer differs on {r}")
+        sync(dev)
+        out["recovery_s"] = time.perf_counter() - t0
+    if not (rep.recovered_lsn == ms2.data_version == n_batches and rep.checkpoint_lsn == 16):
+        raise AssertionError(f"maintain: recovered {rep}, data_version {ms2.data_version}")
+    if profile:                           # the recovered scorer takes one more batch
+        batch, _ = maintain_batch(rng, ms2, mint, blocks)
+        out["profile_apply"] = profile_window(lambda: ms2.apply(batch))
+        out["profile_refresh"] = profile_window(lambda: [ms2.grouped_cached(r) for r in roots])
+        for k in ("profile_apply", "profile_refresh"):
+            v = out[k]
+            log(f"  {k}: wall {v['wall_ms']:.1f} ms, kernels busy {v['device_busy_ms']:.1f} "
+                f"ms, idle share {v['idle_share']:.3f}; by kind {v['by_kind']}")
+    out.update(recovered_lsn=rep.recovered_lsn, replayed=rep.replayed,
+               launches=sum(rec["launches"]), edges=sum(rec["edges"]),
+               full_edges=full * n_batches, csr_builds=sum(rec["csr_builds"]),
+               csr_builds_full=csr_sides * n_batches,
+               refreshes_by_edges={e: rec["edges"].count(e) for e in sorted(set(rec["edges"]))},
+               clean_tables=sum(len(ms.tables) - len(m) for m in rec["mix"]),
+               capacities={t: dt.capacity for t, dt in ms.tables.items()})
+    for k in ("apply_ms", "csr_ms", "refresh_ms"):
+        out[k] = {"p50": pctl(rec[k], 50), "p99": pctl(rec[k], 99)}
+    log(f"  maintain: setup {setup_s:.2f}s; over {n_batches} batches apply p50 "
+        f"{out['apply_ms']['p50']:.2f} / p99 {out['apply_ms']['p99']:.2f} ms, refresh p50 "
+        f"{out['refresh_ms']['p50']:.2f} / p99 {out['refresh_ms']['p99']:.2f} ms, CSR rebuild "
+        f"p50 {out['csr_ms']['p50']:.2f} / p99 {out['csr_ms']['p99']:.2f} ms; edges "
+        f"{out['edges']} of {out['full_edges']} full-pass (refreshes by edges "
+        f"{out['refreshes_by_edges']}), CSRs built {out['csr_builds']} of "
+        f"{out['csr_builds_full']}, {out['clean_tables']} of {len(ms.tables) * n_batches} "
+        f"tables untouched by their batch, segment_sum launches {out['launches']}; audits "
+        f"{out['audit_16_s']:.2f}s and {out[f'audit_{n_batches}_s']:.2f}s bit-equal; snapshot "
+        f"of version 19 bit-equal after batch 24")
+    log(f"  maintain: service {out['service']['requests']} Zipf(1.3) requests, "
+        f"{out['service']['qps']:.0f} QPS, p50 {out['service']['p50_ms']:.2f} / p99 "
+        f"{out['service']['p99_ms']:.2f} ms, every answer grouped_cached's; recovery "
+        f"{out['recovery_s']:.2f}s (checkpoint 16 + {rep.replayed} replayed, WAL "
+        f"{out['wal_bytes']} bytes) bit-equal to the live scorer")
+    return out
+
+
+def phase_retrain(ops, schema, n_batches=4, rows_per_batch=16384, dev="cuda", profile=False):
+    """Phase 8(b): warm-start refits at phase 4's scale on phase 4's
+    schema (module docstring)."""
+    from repro_torch.core import BoostConfig, Booster
+    from repro_torch.incremental import IncrementalBooster
+    from repro_torch.relational.generators import drift_stream
+
+    cfg = BoostConfig(n_trees=3, depth=3, mode="sketch", ssr_mode="off")
+    t0 = time.perf_counter()
+    ib = IncrementalBooster(schema, cfg)
+    sync(dev)
+    out = {"n_fact": schema.table("fact").n_rows, "setup_s": time.perf_counter() - t0,
+           "refits": []}
+    t0 = time.perf_counter()
+    ib.fit()
+    sync(dev)
+    out["fit_s"] = time.perf_counter() - t0
+    launches = 0
+    for b, batch in enumerate(drift_stream(schema, ib.live_rows, seed=9, n_batches=n_batches,
+                                           rows_per_batch=rows_per_batch)):
+        frozen = list(ib.trees)
+        sig0 = ib.engine.signature_s
+        ops.reset_launches()                               # the refit starts here
+        t0 = time.perf_counter()
+        rep = ib.refit(deltas=batch, n_new_trees=1, drift_threshold=-math.inf)
+        sync(dev)
+        refit_s = time.perf_counter() - t0
+        refit_launches = ops.launches                      # ... and ends here
+        launches += refit_launches
+        if refit_launches != rep.edges:
+            raise AssertionError(f"retrain: refit {b} launched segment_sum {refit_launches} "
+                                 f"times for {rep.edges} message emissions")
+        t0 = time.perf_counter()                           # a scratch warm start:
+        oracle = Booster(ib.effective_schema(), cfg, hashes=ib.booster.hashes)  # its schema,
+        sync(dev)
+        schema_s = time.perf_counter() - t0
+        want, _ = oracle.boost(frozen, 1)                  # ... and its tree
+        sync(dev)
+        scratch_s = time.perf_counter() - t0
+        got = ib.trees[-1]
+        if not (torch.equal(got.feat, want[-1].feat)
+                and torch.allclose(got.thr, want[-1].thr, rtol=1e-6, atol=1e-6)
+                and torch.allclose(got.leaf, want[-1].leaf, rtol=1e-4, atol=1e-5)):
+            raise AssertionError(f"retrain: refit {b} differs from the scratch warm start: "
+                                 f"{got} against {want[-1]}")
+        if not rep.edges < oracle.counter.edges:
+            raise AssertionError(f"retrain: refit {b} emitted {rep.edges} edges, the scratch "
+                                 f"warm start {oracle.counter.edges}")
+        r = {"refit_s": refit_s, "scratch_s": scratch_s, "scratch_schema_s": schema_s,
+             "edges": rep.edges,
+             "scratch_edges": oracle.counter.edges, "edge_ratio": rep.edges / oracle.counter.edges,
+             "signature_ms": (ib.engine.signature_s - sig0) * 1e3, "queries": rep.queries,
+             "drift": rep.drift, "mse_after": rep.mse_after,
+             "cache_hit_rate": rep.cache_hit_rate, "launches": refit_launches}
+        out["refits"].append(r)
+        log(f"  refit {b}: {refit_s:.2f}s against the scratch warm start's {scratch_s:.2f}s "
+            f"(its schema and split plans {schema_s:.2f}s); "
+            f"edges {rep.edges} / {oracle.counter.edges} = {r['edge_ratio']:.3f}; signatures "
+            f"{r['signature_ms']:.1f} ms; segment_sum launches {refit_launches}; drift "
+            f"{rep.drift:.3f}, mse {rep.mse_after:.4f}; trees match")
+    if not launches > 0:
+        raise AssertionError("retrain: no segment_sum launch in the refits")
+    out["launches"] = launches
+    if profile:                           # one more drift batch and refit
+        batch = next(drift_stream(schema, ib.live_rows, seed=10, n_batches=1,
+                                  rows_per_batch=rows_per_batch))
+        v = out["profile_refit"] = profile_window(
+            lambda: ib.refit(deltas=batch, n_new_trees=1, drift_threshold=-math.inf))
+        log(f"  profile one more refit: wall {v['wall_ms']:.1f} ms, kernels busy "
+            f"{v['device_busy_ms']:.1f} ms, idle share {v['idle_share']:.3f}; by kind "
+            f"{v['by_kind']}")
+    log(f"  retrain: setup {out['setup_s']:.2f}s, fit {out['fit_s']:.2f}s; {n_batches} refits, "
+        f"segment_sum launches {launches}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -1570,9 +1943,10 @@ def main() -> int:
                     help="phase-4 fact rows (coefficient-domain and histogram fits)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 2, trace one more training round and one scoring "
-                         "pass per table, in phases 5 and 6 16 decode steps, and in phase 7 "
-                         "one more train step, with torch.profiler and print the device's "
-                         "busy and idle share")
+                         "pass per table, in phases 5 and 6 16 decode steps, in phase 7 "
+                         "one more train step, and in phase 8 one more delta batch's apply "
+                         "and refresh and one more refit, with torch.profiler and print the "
+                         "device's busy and idle share")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an "
@@ -1620,12 +1994,27 @@ def main() -> int:
     fshapes = phase_attn(fops, flash_attention)
     cshapes = phase_sketch(cops, count_sketch)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
-    serve = phase_serve(ops, args.n_fact, profile=args.profile)
+    serve, serve_schema, serve_trees = phase_serve(ops, args.n_fact, profile=args.profile)
     log(f"phase 3: paper check at {args.paper_n_fact} fact rows")
     paper = phase_paper(args.paper_n_fact)
     log(f"phase 4: paper's coefficient-domain sketch and histogram splits at "
         f"{args.coeff_n_fact} fact rows")
-    coeff = phase_coeff_hist(pops, ops, args.coeff_n_fact)
+    coeff, coeff_schema = phase_coeff_hist(pops, ops, args.coeff_n_fact)
+    log(f"phase 8: incremental maintenance on phase 2's schema and trees "
+        f"({MAINTAIN_BATCHES} delta batches, WAL, checkpoint, recovery), then warm-start "
+        f"refits on phase 4's schema")
+    t0 = time.perf_counter()
+    for o in (pops, wops, fops, cops):
+        o.reset_launches()
+    maintain = phase_maintain(ops, serve_schema, serve_trees, profile=args.profile)
+    retrain = phase_retrain(ops, coeff_schema, profile=args.profile)
+    if any(o.launches for o in (pops, wops, fops, cops)):
+        raise AssertionError("phase 8 launched a kernel other than segment_sum: "
+                             f"{[(o.__name__, o.launches) for o in (pops, wops, fops, cops)]}")
+    phase8_s = time.perf_counter() - t0
+    log(f"  phase 8 took {phase8_s:.1f}s")
+    del serve_schema, serve_trees, coeff_schema     # phases 5-7 run without them
+    gc.collect()                          # a scorer and its snapshots hold each other
     torch.cuda.empty_cache()
     lm_cfg = configs.get("rwkv6_1_6b")
     log(f"phase 5: {lm_cfg.name} serving at full width: prefill 8 x 1024, decode 64 tokens")
@@ -1661,7 +2050,9 @@ def main() -> int:
         "launches_by_path": {"serve": serve["launches"],
                              "coeff_fit": coeff["segment_sum_launches_b"],
                              "hist_fit": coeff["segment_sum_launches"],
-                             "hist_fit_histogram_route": coeff["hist_launches"]},
+                             "hist_fit_histogram_route": coeff["hist_launches"],
+                             "maintain": maintain["launches"],
+                             "retrain": retrain["launches"]},
         "shapes": shapes,
     }, {
         "name": "polymul", "route": "cuda",
@@ -1712,7 +2103,8 @@ def main() -> int:
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
-                    "lm_dense": dense, "lm_train": train}))
+                    "lm_dense": dense, "lm_train": train, "maintain": maintain,
+                    "retrain": retrain, "phase8_s": phase8_s}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -64,6 +64,12 @@ class QueryEngine:
         """Per-table feature matrices for split plans; None → the schema's."""
         raise NotImplementedError
 
+    def plan_featmat(self, table: str) -> Optional[torch.Tensor]:
+        """One table's matrix of :meth:`plan_featmats` (histogram edge
+        re-quantization reads one table at a time); None → the schema's."""
+        featmats = self.plan_featmats()
+        return None if featmats is None else featmats.get(table)
+
 
 def _keep(masks, extra, tn):
     return masks[tn] if extra is None else masks[tn] & extra[tn]

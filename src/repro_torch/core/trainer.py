@@ -122,8 +122,8 @@ class Booster:
             (time.perf_counter() - t0) * 1e3)
 
     def _plan_featmat(self, table: str) -> torch.Tensor:
-        featmats = self.engine.plan_featmats()
-        return featmats[table] if featmats and table in featmats else self.schema.featmat[table]
+        fm = self.engine.plan_featmat(table)
+        return self.schema.featmat[table] if fm is None else fm
 
     # ------------------------------------------------------ residual stats --
     def _table_stats(self, table, masks, prev_masks, prev_vals, want_ssr: bool):

@@ -133,6 +133,29 @@ class Segments:
             plan=WorkPlan.from_offsets(offsets, ITEM_ROWS, device),
         )
 
+    @staticmethod
+    def from_tensor(ids: torch.Tensor, n_keys: int) -> "Segments":
+        """The CSR :meth:`from_ids` gives for the same ids, built on the
+        ids' own device: a stable ``torch.sort`` and a ``bincount``; only
+        the n_keys + 1 offsets come to the host, for the work plan.  Keeps
+        a reference to ``ids``: the caller must not write to it later."""
+        ids = ids.reshape(-1).to(torch.int64)
+        if ids.numel() >= 2 ** 31:
+            raise ValueError(f"segment_sum takes < 2^31 rows, got {ids.numel()}")
+        counts = torch.bincount(ids, minlength=n_keys)
+        if counts.numel() != n_keys:
+            raise ValueError(f"key ids reach {counts.numel() - 1}, past n_keys {n_keys}")
+        offsets = torch.zeros(n_keys + 1, dtype=torch.int64, device=ids.device)
+        torch.cumsum(counts, 0, out=offsets[1:])
+        return Segments(
+            ids=ids,
+            order=torch.sort(ids, stable=True).indices.to(torch.int32),
+            offsets=offsets.to(torch.int32),
+            n_keys=int(n_keys),
+            n_rows=int(ids.numel()),
+            plan=WorkPlan.from_offsets(offsets.cpu().numpy(), ITEM_ROWS, ids.device),
+        )
+
 
 # ------------------------------------------------------------------ build --
 def build(verbose: bool = False) -> Tuple[Path, str]:

@@ -1,4 +1,4 @@
-"""Thread-safe named metrics: counters and log-bucketed histograms.
+"""Thread-safe named metrics: counters, gauges and log-bucketed histograms.
 
 A :class:`MetricsRegistry` is a flat namespace of named series.  An
 ``inc``/``observe`` is a lock acquire plus an integer/dict update, cheap
@@ -15,7 +15,7 @@ import math
 import threading
 from typing import Dict
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "get_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry"]
 
 
 class Counter:
@@ -36,6 +36,24 @@ class Counter:
 
     def snapshot(self) -> dict:
         return {"type": "counter", "value": self._value}
+
+
+class Gauge:
+    """Last-written value (a lag, a log position); ``set`` from any thread."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> dict:
+        return {"type": "gauge", "value": self._value}
 
 
 class Histogram:
@@ -130,6 +148,9 @@ class MetricsRegistry:
 
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
 
     def histogram(self, name: str) -> Histogram:
         return self._get(name, Histogram)

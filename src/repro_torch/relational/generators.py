@@ -6,12 +6,19 @@ column on a designated fact table whose ground truth is a piecewise
 (tree-like) or linear function of features spread across tables.  The
 columns are numpy arrays drawn from ``np.random.default_rng(seed)``;
 ``device`` is where the built :class:`Schema` puts its tensors.
+
+:func:`delta_stream` and :func:`drift_stream` draw table deltas for the
+incremental workloads; for the same seed and live rows they yield the
+same batches as the JAX package's generators.
 """
 from __future__ import annotations
+
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from ..core.schema import Schema, Table
+from ..incremental.deltas import TableDelta
 
 
 def _label(rng, feats, kind: str):
@@ -174,3 +181,171 @@ def chain_schema(
         fc = tuple(c for c in cols if c.startswith(f"t{ti}f"))
         out.append(Table(name=f"t{ti}", columns=cols, feature_columns=fc))
     return Schema(out, label=("t0", "y"), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Delta streams (incremental-maintenance workloads)
+# ---------------------------------------------------------------------------
+
+def _key_columns(schema: Schema) -> set:
+    """Join-key columns under natural-join semantics: any column name
+    appearing in more than one table."""
+    seen, keys = set(), set()
+    for t in schema.tables:
+        for c in t.columns:
+            (keys if c in seen else seen).add(c)
+    return keys
+
+
+def delta_stream(
+    schema: Schema,
+    live_of: Callable[[str], np.ndarray],
+    seed: int = 0,
+    n_batches: int = 8,
+    ops_per_batch: int = 6,
+    tables: Optional[Sequence[str]] = None,
+    p_insert: float = 0.35,
+    p_delete: float = 0.3,
+    new_key_prob: float = 0.15,
+    min_live: int = 4,
+) -> Iterator[List[TableDelta]]:
+    """Random insert/delete/update batches against a live relational DB.
+
+    ``live_of(table)`` must return the CURRENT live slot ids (deltas are
+    generated lazily per batch, after the caller applied the previous
+    one — e.g. ``ms.live_rows``).  Inserted key values are drawn from
+    the observed key domain, except with ``new_key_prob`` a previously
+    unseen key is minted (exercising the append-only key dictionaries);
+    updates rewrite the non-key feature columns of live rows.  Deletes
+    never shrink a table below ``min_live`` rows.
+    """
+    rng = np.random.default_rng(seed)
+    key_cols = _key_columns(schema)
+    names = [t.name for t in (schema.tables if tables is None
+                              else [schema.table(n) for n in tables])]
+    # observed key domains (grown as new keys are minted)
+    domains: Dict[str, np.ndarray] = {}
+    for t in schema.tables:
+        for c in t.columns:
+            if c in key_cols:
+                vals = np.unique(np.asarray(t.col(c)))
+                domains[c] = (np.union1d(domains[c], vals)
+                              if c in domains else vals)
+
+    def _insert_row(t: Table) -> Dict[str, np.ndarray]:
+        row = {}
+        for c, v in t.columns.items():
+            v = np.asarray(v)
+            if c in key_cols:
+                if rng.random() < new_key_prob:
+                    nk = domains[c].max() + int(rng.integers(1, 4))
+                    domains[c] = np.append(domains[c], nk)
+                    row[c] = np.asarray([nk], v.dtype)
+                else:
+                    row[c] = np.asarray([rng.choice(domains[c])], v.dtype)
+            else:
+                row[c] = rng.standard_normal(1).astype(v.dtype)
+        return row
+
+    for _ in range(n_batches):
+        per_table: Dict[str, Dict] = {
+            n: {"ins": [], "del": set(), "upd": set()} for n in names
+        }
+        for _ in range(ops_per_batch):
+            name = names[int(rng.integers(len(names)))]
+            t = schema.table(name)
+            acc = per_table[name]
+            r = rng.random()
+            live = np.setdiff1d(live_of(name), np.fromiter(
+                acc["del"] | acc["upd"], np.int64, len(acc["del"]) + len(acc["upd"])
+            ))
+            if r < p_insert or len(live) <= min_live:
+                acc["ins"].append(_insert_row(t))
+            elif r < p_insert + p_delete:
+                acc["del"].add(int(rng.choice(live)))
+            else:
+                acc["upd"].add(int(rng.choice(live)))
+        batch: List[TableDelta] = []
+        for name, acc in per_table.items():
+            t = schema.table(name)
+            inserts = deletes = updates = None
+            if acc["ins"]:
+                inserts = {c: np.concatenate([r[c] for r in acc["ins"]])
+                           for c in t.columns}
+            if acc["del"]:
+                deletes = np.asarray(sorted(acc["del"]), np.int64)
+            if acc["upd"]:
+                slots = np.asarray(sorted(acc["upd"]), np.int64)
+                upd_cols = [c for c in t.feature_columns if c not in key_cols]
+                if upd_cols:
+                    updates = (slots, {
+                        c: rng.standard_normal(len(slots)).astype(
+                            np.asarray(t.col(c)).dtype)
+                        for c in upd_cols
+                    })
+            if inserts or deletes is not None or updates is not None:
+                batch.append(TableDelta(table=name, inserts=inserts,
+                                        deletes=deletes, updates=updates))
+        if batch:
+            yield batch
+
+
+def drift_stream(
+    schema: Schema,
+    live_of: Callable[[str], np.ndarray],
+    seed: int = 0,
+    n_batches: int = 6,
+    rows_per_batch: int = 8,
+    feature_tables: Optional[Sequence[str]] = None,
+    label_shift: float = 0.75,
+    label_scale: float = 0.5,
+) -> Iterator[List[TableDelta]]:
+    """Concept-drift workload for incremental RETRAINING benchmarks.
+
+    Unlike :func:`delta_stream` (which churns rows but leaves the
+    label-generating process alone — a serving workload), each batch
+    here rewrites the feature values of live rows on one rotating
+    feature table AND shifts the labels of a random block of live
+    label-table rows.  Label perturbations are expressed in units of the
+    CURRENT live labels' std (y ← μ + shift·σ + scale·σ·ε), so the
+    drift severity is comparable across workloads whose label variances
+    differ by orders of magnitude.  The maintained aggregates absorb the
+    delta cheaply, but the *model* goes stale — the regime where
+    ``IncrementalBooster.refit`` must append trees, not just refresh
+    messages."""
+    rng = np.random.default_rng(seed)
+    key_cols = _key_columns(schema)
+    names = list(feature_tables) if feature_tables is not None else [
+        t.name for t in schema.tables
+    ]
+    lbl_t, lbl_c = schema.label_table, schema.label_column
+    # drift severity in units of the ORIGINAL label distribution (the
+    # dynamic store's current values aren't visible through `live_of`,
+    # and a fixed reference keeps repeated shifts from compounding)
+    y0 = np.asarray(schema.table(lbl_t).col(lbl_c)).astype(np.float64)
+    mu, sd = float(y0.mean()), float(y0.std() + 1e-9)
+    for b in range(n_batches):
+        batch: List[TableDelta] = []
+        name = names[b % len(names)]
+        t = schema.table(name)
+        live = live_of(name)
+        k = min(rows_per_batch, len(live))
+        if k:
+            slots = np.sort(rng.choice(live, size=k, replace=False))
+            cols = {
+                c: rng.standard_normal(k).astype(np.asarray(t.col(c)).dtype)
+                for c in t.feature_columns if c not in key_cols
+            }
+            if cols:
+                batch.append(TableDelta(table=name, updates=(slots, cols)))
+        livef = live_of(lbl_t)
+        kf = min(rows_per_batch, len(livef))
+        if kf:
+            fslots = np.sort(rng.choice(livef, size=kf, replace=False))
+            newy = (mu + label_shift * sd
+                    + label_scale * sd * rng.standard_normal(kf)
+                    ).astype(np.float32)
+            batch.append(TableDelta(table=lbl_t,
+                                    updates=(fslots, {lbl_c: newy})))
+        if batch:
+            yield batch

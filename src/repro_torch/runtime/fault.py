@@ -78,6 +78,7 @@ class Backoff:
         self.cap_s = cap_s
         self.budget_s = budget_s
         self.jitter = jitter
+        self._seed = seed
         self._rng = random.Random(seed)
         self._attempt = 0
         self._spent = 0.0
@@ -96,6 +97,10 @@ class Backoff:
     def reset(self) -> None:
         self._attempt = 0
         self._spent = 0.0
+
+    def clone(self) -> "Backoff":
+        """A fresh backoff with the same settings (one per retry loop)."""
+        return Backoff(self.base_s, self.cap_s, self.budget_s, self.jitter, self._seed)
 
 
 def run_with_retries(step_fn, state, batch, *, retries: int = 2,

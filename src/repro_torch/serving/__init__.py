@@ -5,7 +5,7 @@
     score_grouped_reference              — per-leaf loop (baseline)
     ModelRegistry / RelationalScoringService — versioned hot-swap + batcher
 """
-from .compile import CompiledEnsemble, compile_ensemble, stack_table_factor
+from .compile import CompiledEnsemble, compile_ensemble, contract, stack_table_factor
 from .scorer import (
     score_fresh, score_grouped, score_grouped_reference, score_mean_rows, score_rows,
 )
@@ -14,7 +14,7 @@ from .service import (
 )
 
 __all__ = [
-    "CompiledEnsemble", "compile_ensemble", "stack_table_factor",
+    "CompiledEnsemble", "compile_ensemble", "contract", "stack_table_factor",
     "score_fresh", "score_grouped", "score_grouped_reference", "score_mean_rows",
     "score_rows",
     "LRUCache", "ModelRegistry", "RelationalScoringService", "ServiceOverloadedError",

@@ -46,6 +46,24 @@ def stack_table_factor(schema: Schema, trees: List[TreeArrays], table: str,
     return torch.cat(per_tree, dim=0).T.to(dtype).contiguous()
 
 
+def contract(counts: torch.Tensor, leaf_values: torch.Tensor, tree0_leaves: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σŷ, |ρ⋈J|) per row from grouped leaf counts (n_g, A).
+
+    The leaf axis contracts as an explicitly sequenced chain: each output
+    row reads only its own counts row in a fixed order, so the bits do
+    not depend on how the rows are blocked or how many there are (a
+    maintained scorer's capacity-shaped counts and a fresh compile's
+    give the same bits row for row)."""
+    counts = counts.to(torch.float32)         # bf16 counts contract in f32
+    tot = counts[:, 0] * leaf_values[0]
+    for j in range(1, int(leaf_values.shape[0])):
+        tot = tot + counts[:, j] * leaf_values[j]
+    # integer-valued counts: exact in f32 in any association order
+    cnt = torch.sum(counts[:, :tree0_leaves], dim=1)
+    return tot.to(torch.float32), cnt.to(torch.float32)
+
+
 @dataclasses.dataclass
 class CompiledEnsemble:
     """A trained ensemble lowered to single-pass relational scoring.
@@ -96,17 +114,7 @@ class CompiledEnsemble:
         if self.counter is not None:
             self.counter.bump(1)
         counts = self._sp(self._sem, self.factors, group_by=group_by)   # (n_g, A)
-        counts = counts.to(torch.float32)     # bf16 counts contract in f32
-        vals = self.leaf_values
-        # contract over the leaf axis as an explicitly sequenced chain:
-        # each output row reads only its own counts row in a fixed order,
-        # so the bits do not depend on how the rows are blocked
-        tot = counts[:, 0] * vals[0]
-        for j in range(1, int(vals.shape[0])):
-            tot = tot + counts[:, j] * vals[j]
-        # integer-valued counts: exact in f32 in any association order
-        cnt = torch.sum(counts[:, :self.tree0_leaves], dim=1)
-        return tot.to(torch.float32), cnt.to(torch.float32)
+        return contract(counts, self.leaf_values, self.tree0_leaves)
 
     def grouped_cached(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """Memoized full-table scores: tables are static per model version,

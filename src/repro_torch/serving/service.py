@@ -14,6 +14,11 @@ the slot's install epoch, so no cached score of the old occupant is
 served).  In-flight requests keep the version they were enqueued with;
 new requests pick up the change (zero-downtime hot swap).
 
+Snapshot isolation: a model that publishes MVCC snapshots (a
+``MaintainedScorer``) is served from one pinned at batch cutoff
+(:meth:`RelationalScoringService._frozen_view`), so a batch scores
+against one ``data_version`` while ``apply()`` runs concurrently.
+
 Backpressure: past ``4 * max_queue`` queued requests, new ones are shed
 with :class:`ServiceOverloadedError`.  A version dispatch that throws is
 retried once after a jittered, budget-capped backoff before its
@@ -349,13 +354,28 @@ class RelationalScoringService:
         st._batched_rows.inc(len(batch))
         st.batch_size.observe(len(batch))
 
+    def _frozen_view(self, ens):
+        """Pin the serving view AT batch cutoff.  A maintained model
+        publishes an MVCC snapshot — frozen factors/messages/join trees
+        at one data_version — so a concurrent ``apply()`` can neither
+        tear the gather nor slide the version between read and cache
+        write.  Static ensembles are immutable already: served as-is."""
+        snap = getattr(ens, "snapshot", None)
+        if callable(snap):
+            view = snap(roots=(self.group_by,))
+            return view, view.data_version
+        return ens, getattr(ens, "data_version", 0)
+
     def _dispatch_version(self, v: int, reqs: List[_Request]):
         _, ens = self.registry.get(v)
         ep = self.registry.epoch(v)
-        dv = getattr(ens, "data_version", 0)
+        # the version pin happens HERE, at batch cutoff: a delta applied
+        # mid-dispatch mutates the live model, but this batch gathers
+        # from the frozen view and caches under its pinned data_version
+        view, dv = self._frozen_view(ens)
         ids = np.asarray([r.row_id for r in reqs], np.int64)
         t_exec = time.perf_counter()
-        mean = score_mean_rows(ens, self.group_by, ids).cpu().numpy()
+        mean = score_mean_rows(view, self.group_by, ids).cpu().numpy()
         self.stats.batch_exec_ms.observe((time.perf_counter() - t_exec) * 1e3)
         for r, m in zip(reqs, mean):
             val = float(m)
