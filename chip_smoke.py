@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
 1. Kernels vs plain on the card, both built here from
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, in parallel):
    - the segment-⊕ kernel (``segment_sum.cu``) against its plain PyTorch
-     version at the serve path's shapes (uniform, Zipf-skewed,
+     version at the serve path's shapes (C = 3, 40, and 160 for phase 9's
+     four stacked models, f32 and bf16; uniform, Zipf-skewed,
      empty-segment and one-key key sets; a key of more than
      ``ops.ITEM_ROWS`` entries is cut into work items, the one key into
      1,024) and at the histogram sweep's (a key column over 2 tiled
@@ -207,6 +208,48 @@ Phases (any failure exits non-zero):
    ``--profile`` adds one more batch's apply and refresh and one more
    refit, traced, after the gates.
 
+9. The operated service, right after phase 8, on phase 2's schema and
+   model; what it allocates is freed before phase 5, and it prints its
+   peak memory.  (a) Phase 2's 2,000 Zipf(1.3) requests through
+   ``serve_relational``'s own wiring (``wire``, ``drive``, ``finish``)
+   with every telemetry flag on: tracing, the SLO
+   ``latency=50ms@0.99,errors=0.01,staleness=5s``, a 4,096-span flight
+   ring, the telemetry server on 127.0.0.1 port 0 and the sampler into a
+   temporary file; half-way through the traffic (the requests wait for it)
+   a client thread fetches ``/metricsz``, ``/healthz``, ``/statusz`` and
+   ``/tracez`` (10 s timeout), and ``/metricsz`` once more after the last
+   request.  Gates: every endpoint answers; the mid-traffic
+   ``repro_service_requests`` is below the final one, which equals the
+   service's own count; the Chrome
+   trace parses and its ``service.batch`` events number the service's
+   batches; a forced ``flight.trigger`` writes a dump that parses, with at
+   most 4,096 spans; the 2,000 answers bit-equal to phase 2's
+   ``grouped_cached`` means (and so are the same requests' answers with
+   telemetry off, served first).  Prints QPS and p50/p99 with telemetry on
+   and off, the SLO state and burn rates.  (b) Three more variants of phase
+   2's model (seeds 7, 8 and 9, shrinkage 1/2, 1/4 and 1/8), all four
+   published and stacked by ``registry.stacked()`` into one factor set of
+   160 channels, scored by every table: each model's (Σŷ, count) bit-equal
+   to its own ``score_grouped`` in float32; segment_sum launches of the
+   stacked pass equal to the edges of one pass, and to 4 times that for
+   the four separate passes; a bfloat16 stack's leaf counts within 2⁻⁸ ·
+   |count| of the float32 stack's; ``stacked()`` the cached object until a
+   ``swap``, then a new one.  Prints a stacked pass's ms against the four
+   separate passes' per table (CUDA events).  (c) A writer
+   ``MaintainedScorer`` over phase 2's model logs phase 8's batches to a
+   temporary WAL and checkpoints after batch 8; a replica recovers from
+   that checkpoint and log (``recover_scorer``) and a ``WalFollower``
+   tails the log (10 ms polls) while the writer applies and refreshes
+   batches 9-24, one every 50 ms, on a thread of its own, and a service
+   over the replica, with a degrade-only staleness objective and
+   ``extra_staleness``, answers Zipf(1.3) requests.  Gates: the follower
+   applied through the writer's last LSN; both roots' grouped scores of
+   the replica bit-equal to the writer's; 256 service answers equal the
+   replica's ``grouped_cached`` means; the staleness objective never
+   ``unhealthy``; no request shed or failed; segment_sum launched.  Prints
+   the replication lag (per record) p50/p99, the writer's ms a batch and
+   the launches.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  A failure ends the run where it
@@ -363,6 +406,8 @@ def phase_kernel(ops, ref, dev="cuda"):
         ("c3_k4", 4, n22, 3, torch.float32, "uniform"),
         ("leaves40_f32", 1, n22, 40, torch.float32, "uniform"),
         ("leaves40_bf16", 1, n22, 40, torch.bfloat16, "uniform"),
+        ("stacked160_f32", 1, n22, 160, torch.float32, "uniform"),     # phase 9's A/B stack
+        ("stacked160_bf16", 1, n22, 160, torch.bfloat16, "uniform"),
         ("polyfreq256_k4", 4, n18, 258, torch.float32, "uniform"),
         ("c3_zipf", 1, n22, 3, torch.float32, "zipf"),
         ("leaves40_zipf", 1, n22, 40, torch.float32, "zipf"),
@@ -907,7 +952,7 @@ def phase_serve(ops, n_fact: int, dev="cuda", profile: bool = False):
             log(f"  profile {k}: wall {v['wall_ms']:.1f} ms, kernels busy "
                 f"{v['device_busy_ms']:.1f} ms, idle share {v['idle_share']:.3f}; "
                 f"top {v['top']}")
-    return out, schema, trees
+    return out, schema, trees, ens
 
 
 def kernel_kind(name: str, split=()) -> str:
@@ -1935,6 +1980,386 @@ def phase_retrain(ops, schema, n_batches=4, rows_per_batch=16384, dev="cuda", pr
     return out
 
 
+# ------------------------------------------------------------------ phase 9 --
+OPERATED_SLO = "latency=50ms@0.99,errors=0.01,staleness=5s"
+FLIGHT_RING = 4096
+AB_VARIANTS = ((7, 0.5), (8, 0.25), (9, 0.125))   # (seed, shrinkage) of each A/B variant
+FOLLOW_CHECKPOINT, FOLLOW_LAST = 8, 24            # writer checkpoints, then tails to here
+FOLLOW_PERIOD_S = 0.05
+ENDPOINTS = ("/metricsz", "/healthz", "/statusz", "/tracez")
+
+
+def fetch(url: str, timeout: float = 10.0):
+    """(HTTP status, body) of a GET; a 503 from /healthz is an answer."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prom_value(text: str, name: str) -> float:
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    if m is None:
+        raise AssertionError(f"operate: {name} missing from /metricsz")
+    return float(m.group(1))
+
+
+def grouped_means(ens, root, ids) -> np.ndarray:
+    tot, cnt = ens.grouped_cached(root)
+    return (tot / torch.clamp(cnt, min=1.0))[torch.from_numpy(np.asarray(ids)).to(tot.device)
+                                              ].cpu().numpy()
+
+
+def serve_args(tmp, telemetry: bool):
+    """``serve_relational``'s arguments for phase 2's traffic, every
+    telemetry flag on or off."""
+    import os
+
+    args = argparse.Namespace(
+        trees=5, depth=3, requests=2000, concurrency=256, max_batch=64, max_wait_ms=1.0,
+        cache_size=4096, zipf=1.3, trace=None, slo=None, flight=None, flight_latency_ms=None,
+        metrics_port=None, sample=None, sample_interval=0.25)
+    if telemetry:
+        args.trace = os.path.join(tmp, "serve_trace.json")
+        args.slo, args.flight, args.metrics_port = OPERATED_SLO, FLIGHT_RING, 0
+        args.sample = os.path.join(tmp, "serve_samples.jsonl")
+    return args
+
+
+def operate_service(ops, schema, trees, ens, tmp, dev="cuda"):
+    """Phase 9(a): phase 2's requests through ``serve_relational``'s
+    wiring, telemetry off, then on (module docstring)."""
+    from repro_torch.core import QueryCounter
+    from repro_torch.launch import serve_relational as sr
+    from repro_torch.serving import ModelRegistry, compile_ensemble
+
+    group = schema.label_table
+    n_rows = schema.table(group).n_rows
+    out = {}
+    for mode in ("off", "on"):
+        args = serve_args(tmp, mode == "on")
+        registry = ModelRegistry()
+        counter = QueryCounter()
+        registry.publish(compile_ensemble(schema, trees, counter=counter))
+        w = sr.wire(args, registry, group)
+        probe = None
+        if mode == "on":
+            w.flight.out_dir = tmp
+
+            def probe(stage, url=w.telemetry.url):
+                paths = ENDPOINTS if stage == "mid" else ENDPOINTS[:1]
+                return {p: fetch(url(p)) for p in paths}
+        sync(dev)
+        ops.reset_launches()                               # the served run starts here
+        served = asyncio.run(sr.drive(w.service, n_rows, args.requests, args.concurrency,
+                                      args.zipf, registry, schema, args, counter,
+                                      telemetry=w.telemetry, hot_swap=False, probe=probe))
+        sync(dev)
+        launches = ops.launches                            # ... and ends here
+        if served["shed_chunks"] or w.service.stats.errors:
+            raise AssertionError(f"operate[{mode}]: {served['shed_chunks']} chunks shed, "
+                                 f"{w.service.stats.errors} errors")
+        bad = int(np.sum(np.asarray(served["answers"], np.float32)
+                         != grouped_means(ens, group, served["ids"])))
+        if bad:
+            raise AssertionError(f"operate[{mode}]: {bad} of {args.requests} answers differ "
+                                 f"from phase 2's grouped_cached means")
+        if launches != len(schema.join_tree(group).edges):
+            raise AssertionError(f"operate[{mode}]: segment_sum launched {launches} times, "
+                                 f"expected one pass's {len(schema.join_tree(group).edges)}")
+        rec = {k: served[k] for k in ("qps", "p50_ms", "p99_ms", "batches", "cache_hit_rate")}
+        rec["launches"] = launches
+        if mode == "on":
+            stats = w.service.stats_snapshot()
+            dump = w.flight.trigger("chip_smoke forced dump", phase="9a")
+            files = sr.finish(args, w)
+            mid, end = served["probes"]["mid"], served["probes"]["end"]
+            codes = {p: c for p, (c, _) in mid.items()}
+            if (any(codes[p] != 200 for p in ENDPOINTS if p != "/healthz")
+                    or codes["/healthz"] not in (200, 503) or end["/metricsz"][0] != 200):
+                raise AssertionError(f"operate: endpoints answered {codes}, then "
+                                     f"/metricsz {end['/metricsz'][0]}")
+            n_mid = prom_value(mid["/metricsz"][1], "repro_service_requests")
+            n_end = prom_value(end["/metricsz"][1], "repro_service_requests")
+            if not n_mid < n_end == stats["requests"]:
+                raise AssertionError(f"operate: repro_service_requests mid {n_mid}, end {n_end}, "
+                                     f"service {stats['requests']}")
+            doc = json.loads(Path(args.trace).read_text())
+            n_batch_spans = sum(e["name"] == "service.batch" for e in doc["traceEvents"])
+            if n_batch_spans != stats["batches"]:
+                raise AssertionError(f"operate: {n_batch_spans} service.batch spans for "
+                                     f"{stats['batches']} batches")
+            if dump is None:
+                raise AssertionError("operate: the forced flight trigger wrote no dump")
+            fl = json.loads(Path(dump).read_text())["traceEvents"]
+            n_spans = sum(e["ph"] == "X" for e in fl)
+            if not (0 < n_spans <= FLIGHT_RING and [e["ph"] for e in fl].count("i") == 1):
+                raise AssertionError(f"operate: the flight dump holds {n_spans} spans")
+            health = json.loads(mid["/healthz"][1])
+            rec.update(slo=served["slo"], health_mid=health["state"],
+                       requests_mid=n_mid, requests_end=n_end, trace_spans=files["trace_spans"],
+                       batch_spans=n_batch_spans, flight_dump_spans=n_spans,
+                       samples=files["samples"],
+                       tracez_spans=len(json.loads(mid["/tracez"][1])["spans"]))
+        out[mode] = rec
+        del registry, w
+    on, off = out["on"], out["off"]
+    slo = on["slo"]
+    log(f"  operate (a): telemetry on {on['qps']:.0f} QPS, p50 {on['p50_ms']:.3f} / p99 "
+        f"{on['p99_ms']:.3f} ms; off {off['qps']:.0f} QPS, p50 {off['p50_ms']:.3f} / p99 "
+        f"{off['p99_ms']:.3f} ms; /metricsz requests mid {on['requests_mid']:.0f}, end "
+        f"{on['requests_end']:.0f}; {on['batch_spans']} service.batch spans of "
+        f"{on['trace_spans']}; flight dump {on['flight_dump_spans']} spans; "
+        f"{on['samples']} samples; SLO {slo['state']} "
+        + ", ".join(f"{n} burn {o['burn_fast']:.3f}/{o['burn_slow']:.3f} [{o['state']}]"
+                    for n, o in slo["objectives"].items())
+        + "; answers bit-equal to phase 2's")
+    return out
+
+
+def stacked_ab(ops, schema, trees, ens, dev="cuda"):
+    """Phase 9(b): four variants in one stacked pass (module docstring)."""
+    from repro_torch.core import BoostConfig, Booster
+    from repro_torch.serving import ModelRegistry, compile_ensemble, stack_ensembles
+
+    t0 = time.perf_counter()
+    variants = [Booster(schema, BoostConfig(n_trees=5, depth=3, mode="sketch", ssr_mode="off",
+                                            seed=seed, lr=lr)).fit()[0]
+                for seed, lr in AB_VARIANTS]
+    sync(dev)
+    out = {"train_s": time.perf_counter() - t0, "tables": {}}
+    models = [ens] + [compile_ensemble(schema, t) for t in variants]
+    registry = ModelRegistry()
+    versions = [registry.publish(m) for m in models]
+    st = registry.stacked()
+    C = st.factors[schema.names[0]].shape[1]
+    if C != sum(m.total_leaves for m in models) or st.ensembles != models:
+        raise AssertionError(f"stacked: {C} channels over {st.n_models} models")
+    st16 = stack_ensembles([compile_ensemble(schema, m.trees, factor_dtype=torch.bfloat16)
+                            for m in models])
+    launches = 0
+    for t in schema.names:
+        edges = len(schema.join_tree(t).edges)
+        sync(dev)
+        ops.reset_launches()                               # the stacked pass starts here
+        got = st.score_grouped(t)
+        sync(dev)
+        n_stacked = ops.launches                           # ... and ends here
+        launches += n_stacked
+        ops.reset_launches()
+        own = [m.score_grouped(t) for m in models]
+        sync(dev)
+        n_separate = ops.launches
+        if (n_stacked, n_separate) != (edges, len(models) * edges):
+            raise AssertionError(f"stacked {t}: {n_stacked} launches stacked and {n_separate} "
+                                 f"separate, for {edges} edges a pass")
+        for m, ((tot, cnt), (want_tot, want_cnt)) in enumerate(zip(got, own)):
+            if not (torch.equal(tot, want_tot) and torch.equal(cnt, want_cnt)):
+                raise AssertionError(f"stacked {t}: model {m} differs from its own pass")
+        del got, own
+        c32 = st._sp(st._sem, st.factors, group_by=t)
+        c16 = st16._sp(st16._sem, st16.factors, group_by=t).float()
+        ratio = float(((c16 - c32).abs() / (BF16_ULP * c32.abs()).clamp(min=1e-30)).max())
+        if not bool(((c16 - c32).abs() <= BF16_ULP * c32.abs()).all()):
+            raise AssertionError(f"stacked {t}: bf16 counts past 2^-8 of the f32 ones "
+                                 f"({ratio:.3f} of the limit)")
+        del c32, c16
+        rec = {"edges": edges, "launches_stacked": n_stacked, "launches_separate": n_separate,
+               "stacked_ms": cuda_ms(lambda: st.score_grouped(t), max_reps=10),
+               "separate_ms": cuda_ms(lambda: [m.score_grouped(t) for m in models], max_reps=10),
+               "stacked_bf16_ms": cuda_ms(lambda: st16.score_grouped(t), max_reps=10),
+               "bf16_err_over_limit": ratio}
+        out["tables"][t] = rec
+        log(f"  stacked (b) {t:<5}: one pass at C={C} {rec['stacked_ms']:.3f} ms (bf16 "
+            f"{rec['stacked_bf16_ms']:.3f}) against 4 passes {rec['separate_ms']:.3f} ms; "
+            f"launches {n_stacked} / {n_separate}; every model bit-equal to its own pass; "
+            f"bf16 counts at {ratio:.3f} of 2^-8")
+    if registry.stacked() is not st:
+        raise AssertionError("stacked: stacked() did not return its cached object")
+    registry.swap(versions[-1], models[1])
+    st2 = registry.stacked()
+    if st2 is st or st2.ensembles[-1] is not models[1] or registry.stacked() is not st2:
+        raise AssertionError("stacked: a swap did not give a new stacked object")
+    same = [all(torch.equal(a.leaf, b.leaf) for a, b in zip(trees, v)) for v in variants]
+    out.update(channels=C, launches=launches, variants_equal_to_phase2=same)
+    log(f"  stacked (b): variants trained in {out['train_s']:.2f}s (trees equal to phase 2's: "
+        f"{same}); stacked() cached until a swap")
+    return out
+
+
+def follow_writer(ops, schema, trees, tmp, dev="cuda"):
+    """Phase 9(c): a WAL-follower replica of a live writer (module
+    docstring)."""
+    import os
+    import threading
+
+    from repro_torch.core import QueryCounter
+    from repro_torch.incremental import MaintainedScorer
+    from repro_torch.incremental.recover import save_checkpoint
+    from repro_torch.incremental.wal import WalWriter
+    from repro_torch.launch import serve_relational as sr
+    from repro_torch.serving import ModelRegistry, RelationalScoringService, compile_ensemble
+
+    roots = MAINTAIN_ROOTS
+    wal_dir = os.path.join(tmp, "wal")
+    writer = MaintainedScorer(compile_ensemble(schema, trees), counter=QueryCounter())
+    for r in roots:
+        writer.grouped_cached(r)
+    wal = WalWriter(wal_dir, sync_every=8).attach(writer.state)
+    rng, mint = np.random.default_rng(8), KeyMint(schema)   # phase 8's batches
+
+    def step(b):
+        batch, _ = maintain_batch(rng, writer, mint, grow_rows=2048 if b == 17 else 0)
+        writer.apply(batch)
+        for r in roots:
+            writer.grouped_cached(r)
+        sync(dev)
+
+    for b in range(1, FOLLOW_CHECKPOINT + 1):
+        step(b)
+    save_checkpoint(writer.state, os.path.join(wal_dir, "ckpt"))
+    t0 = time.perf_counter()
+    rcounter = QueryCounter()
+    replica, follower, rep = sr.open_follower(compile_ensemble(schema, trees), wal_dir,
+                                              poll_ms=10.0, counter=rcounter)
+    replica.grouped_cached("fact")
+    sync(dev)
+    recover_s = time.perf_counter() - t0
+    if (rep.checkpoint_lsn, rep.replayed) != (FOLLOW_CHECKPOINT, 0):
+        raise AssertionError(f"follow: recovered {rep}")
+    slo = sr.make_slo("staleness=5s", follower=True)
+    extra = sr.follower_staleness(follower, grace_s=5.0)
+    registry = ModelRegistry()
+    registry.publish(replica)
+    svc = RelationalScoringService(registry, "fact", max_batch=64, max_wait_ms=1.0,
+                                   cache_size=4096, slo=slo, extra_staleness=extra)
+    writer_ms, errors = [], []
+    writer_edges0, replica_edges0 = writer.counter.edges, rcounter.edges
+
+    def write():
+        try:
+            t_start = time.perf_counter()
+            for k, b in enumerate(range(FOLLOW_CHECKPOINT + 1, FOLLOW_LAST + 1)):
+                time.sleep(max(0.0, t_start + k * FOLLOW_PERIOD_S - time.perf_counter()))
+                t = time.perf_counter()
+                step(b)
+                writer_ms.append((time.perf_counter() - t) * 1e3)
+            wal.close()
+        except BaseException as e:       # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    n_rows = schema.table("fact").n_rows
+    ids = np.minimum(np.random.default_rng(3).zipf(1.3, 1 << 16) - 1, n_rows - 1)
+    states, extras = [], []
+
+    async def serve_tail(thread):
+        await svc.start()
+        answered, k = 0, 0
+        while thread.is_alive():
+            chunk = ids[(k * 256) % len(ids):][:256].tolist()
+            answered += len(await svc.score_many(chunk))
+            k += 1
+            rep_ = slo.evaluate()
+            states.append((rep_["state"], rep_["objectives"]["staleness"]["state"]))
+            extras.append(extra())
+            await asyncio.sleep(0.005)
+        await svc.stop()
+        return answered
+
+    sync(dev)
+    ops.reset_launches()                                   # the tail starts here
+    thread = threading.Thread(target=write, name="wal-writer")
+    t0 = time.perf_counter()
+    thread.start()
+    answered = asyncio.run(serve_tail(thread))
+    thread.join()
+    follower.stop(drain=True)
+    sync(dev)
+    tail_s = time.perf_counter() - t0
+    launches = ops.launches                                # ... and ends here
+    writer_edges, replica_edges = writer.counter.edges - writer_edges0, rcounter.edges - replica_edges0
+    if errors:
+        raise errors[0]
+    if follower.applied_lsn != writer.data_version or writer.data_version != FOLLOW_LAST:
+        raise AssertionError(f"follow: applied lsn {follower.applied_lsn}, writer at "
+                             f"{writer.data_version}")
+    for r in roots:
+        if not all(torch.equal(a, b) for a, b in zip(replica.grouped_cached(r),
+                                                      writer.grouped_cached(r))):
+            raise AssertionError(f"follow: the replica's {r} scores differ from the writer's")
+    stale_states = [s for _, s in states]
+    if "unhealthy" in stale_states or svc.stats.shed or svc.stats.errors:
+        raise AssertionError(f"follow: staleness states {sorted(set(stale_states))}, shed "
+                             f"{svc.stats.shed}, errors {svc.stats.errors}")
+    if not launches > 0:
+        raise AssertionError("follow: no segment_sum launch during the tail")
+    registry2 = ModelRegistry()
+    registry2.publish(replica)
+    svc2 = RelationalScoringService(registry2, "fact", max_batch=64, max_wait_ms=1.0)
+
+    async def final():
+        await svc2.start()
+        try:
+            return await svc2.score_many(ids[:256].tolist())
+        finally:
+            await svc2.stop()
+
+    got = np.asarray(asyncio.run(final()), np.float32)
+    bad = int(np.sum(got != grouped_means(replica, "fact", ids[:256])))
+    if bad:
+        raise AssertionError(f"follow: {bad} of 256 answers differ from the replica's means")
+    lag = follower.apply_lag_s.summary()
+    out = {"recover_s": recover_s, "tail_s": tail_s, "records": FOLLOW_LAST - FOLLOW_CHECKPOINT,
+           "applied_lsn": follower.applied_lsn, "answered": answered,
+           "lag_p50_s": lag["p50"], "lag_p99_s": lag["p99"], "lag_max_s": lag["max"],
+           "writer_ms": {"p50": pctl(writer_ms, 50), "p99": pctl(writer_ms, 99)},
+           "launches": launches, "writer_edges": writer_edges, "replica_edges": replica_edges,
+           "slo_states": sorted(set(s for s, _ in states)),
+           "staleness_states": sorted(set(stale_states)),
+           "extra_staleness_max_s": max(extras, default=0.0),
+           "service_staleness_s": svc.stats.staleness_s.value}
+    log(f"  follow (c): recovered at lsn {rep.recovered_lsn} in {recover_s:.2f}s; tailed "
+        f"{out['records']} records in {tail_s:.2f}s to lsn {follower.applied_lsn}, replication "
+        f"lag p50 {lag['p50'] * 1e3:.1f} / p99 {lag['p99'] * 1e3:.1f} ms (max "
+        f"{lag['max'] * 1e3:.1f}); writer p50 {out['writer_ms']['p50']:.1f} / p99 "
+        f"{out['writer_ms']['p99']:.1f} ms a batch; {answered} requests answered during the "
+        f"tail, SLO states {out['slo_states']}, staleness {out['staleness_states']} (extra max "
+        f"{out['extra_staleness_max_s']:.3f}s); segment_sum launches {launches} (edges: writer "
+        f"{out['writer_edges']}, replica {out['replica_edges']}); replica bit-equal to the "
+        f"writer on {list(roots)}, 256 answers its means")
+    return out
+
+
+def phase_operate(ops, schema, trees, ens, dev="cuda"):
+    """Phase 9 (module docstring): (a), (b) and (c), then their peak
+    memory; returns their records."""
+    import tempfile
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"service": operate_service(ops, schema, trees, ens, tmp, dev)}
+        gc.collect()
+        out["stacked"] = stacked_ab(ops, schema, trees, ens, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["follow"] = follow_writer(ops, schema, trees, tmp, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(seconds=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={"service": out["service"]["on"]["launches"],
+                         "stacked": out["stacked"]["launches"],
+                         "follow": out["follow"]["launches"]})
+    log(f"  phase 9 took {out['seconds']:.1f}s, peak memory {out['peak_gib']:.2f} GiB "
+        f"allocated; segment_sum launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -1994,7 +2419,8 @@ def main() -> int:
     fshapes = phase_attn(fops, flash_attention)
     cshapes = phase_sketch(cops, count_sketch)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
-    serve, serve_schema, serve_trees = phase_serve(ops, args.n_fact, profile=args.profile)
+    serve, serve_schema, serve_trees, serve_ens = phase_serve(ops, args.n_fact,
+                                                              profile=args.profile)
     log(f"phase 3: paper check at {args.paper_n_fact} fact rows")
     paper = phase_paper(args.paper_n_fact)
     log(f"phase 4: paper's coefficient-domain sketch and histogram splits at "
@@ -2013,7 +2439,13 @@ def main() -> int:
                              f"{[(o.__name__, o.launches) for o in (pops, wops, fops, cops)]}")
     phase8_s = time.perf_counter() - t0
     log(f"  phase 8 took {phase8_s:.1f}s")
-    del serve_schema, serve_trees, coeff_schema     # phases 5-7 run without them
+    log("phase 9: the operated service on phase 2's schema and model: telemetry on, four "
+        "A/B variants in one stacked pass, a WAL-follower replica of a live writer")
+    operate = phase_operate(ops, serve_schema, serve_trees, serve_ens)
+    if any(o.launches for o in (pops, wops, fops, cops)):
+        raise AssertionError("phase 9 launched a kernel other than segment_sum: "
+                             f"{[(o.__name__, o.launches) for o in (pops, wops, fops, cops)]}")
+    del serve_schema, serve_trees, serve_ens, coeff_schema   # phases 5-7 run without them
     gc.collect()                          # a scorer and its snapshots hold each other
     torch.cuda.empty_cache()
     lm_cfg = configs.get("rwkv6_1_6b")
@@ -2052,7 +2484,10 @@ def main() -> int:
                              "hist_fit": coeff["segment_sum_launches"],
                              "hist_fit_histogram_route": coeff["hist_launches"],
                              "maintain": maintain["launches"],
-                             "retrain": retrain["launches"]},
+                             "retrain": retrain["launches"],
+                             "operate_service": operate["launches"]["service"],
+                             "operate_stacked": operate["launches"]["stacked"],
+                             "operate_follow": operate["launches"]["follow"]},
         "shapes": shapes,
     }, {
         "name": "polymul", "route": "cuda",
@@ -2104,7 +2539,7 @@ def main() -> int:
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
                     "lm_dense": dense, "lm_train": train, "maintain": maintain,
-                    "retrain": retrain, "phase8_s": phase8_s}))
+                    "retrain": retrain, "phase8_s": phase8_s, "operate": operate}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,7 +34,7 @@ def _module(name: str):
     mod = ALIASES.get(name, name)
     if mod not in PORTED:
         raise NotImplementedError(f"architecture {name!r} is not ported yet; the port has "
-                                  f"{list(PORTED)} (ROADMAP §1 item 11)")
+                                  f"{list(PORTED)} (ROADMAP §1 item 7)")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -36,6 +36,12 @@ under ``state.lock`` and served lock-free while ``apply`` builds the
 next version.  Tensors are never written after a snapshot may hold
 them: ``apply`` writes each changed table's factor into a fresh copy
 (copy on write), and refreshes build new message lists.
+
+Staleness: ``staleness_s(root)`` is the wall-clock lag of a root's
+served view behind the applied deltas (0 once a score refreshed it),
+the signal the serving batcher burns its staleness objective against;
+every catch-up observes the ``ivm.refresh_lag_s`` histogram and
+re-samples the ``ivm.staleness_s`` gauge.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ class MaintainedScorer:
 
     def __init__(self, ens: CompiledEnsemble, slack: float = 0.25,
                  counter: Optional[QueryCounter] = None,
+                 served_window_s: float = 30.0,
                  snapshot_retention: int = 4):
         sch = ens.schema
         self.schema = sch
@@ -92,6 +99,14 @@ class MaintainedScorer:
         self._msgs: Dict[str, List[torch.Tensor]] = {}
         self._dirty: Dict[str, Set[int]] = {}
         self._grouped: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # perf_counter instant of the oldest applied-but-unrefreshed delta,
+        # PER ROOT (absent = that root's served view is caught up).  A root
+        # counts toward the aggregate only while it is served (queried
+        # within `served_window_s`): one abandoned by traffic must not pin
+        # the staleness objective forever.
+        self._stale_since: Dict[str, float] = {}
+        self._last_query: Dict[str, float] = {}
+        self.served_window_s = served_window_s
         # recently published MVCC snapshots, keyed by data_version; at
         # most `snapshot_retention` versions stay cached (evicted ones keep
         # serving whoever still references them)
@@ -139,8 +154,10 @@ class MaintainedScorer:
                     self._refresh_factor_rows(ch.table, ch.changed)
                 if len(ch.changed) or len(ch.deleted):
                     ti = self.schema.index[ch.table]
+                    now = time.perf_counter()
                     for root in self._msgs:
                         self._dirty.setdefault(root, set()).add(ti)
+                        self._stale_since.setdefault(root, now)
             self._grouped.clear()
             self.data_version += 1
             self._gc_snapshots()
@@ -148,6 +165,39 @@ class MaintainedScorer:
         reg.counter("ivm.deltas").inc(len(deltas))
         reg.histogram("ivm.apply_ms").observe((time.perf_counter() - t0) * 1e3)
         return self.data_version
+
+    def staleness_s(self, root: Optional[str] = None) -> float:
+        """Wall-clock lag of the served view behind applied deltas.
+
+        With ``root``: 0.0 when that root's cached messages reflect the
+        current ``data_version``, else seconds since its oldest
+        unrefreshed delta landed.  Without: the max over *served* roots
+        (queried within ``served_window_s``); before any root has been
+        queried, every stale root counts."""
+        now = time.perf_counter()
+        if root is not None:
+            t = self._stale_since.get(root)
+            return max(0.0, now - t) if t is not None else 0.0
+        if not self._stale_since:
+            return 0.0
+        if self._last_query:
+            candidates = [t for r, t in self._stale_since.items()
+                          if now - self._last_query.get(r, -np.inf) <= self.served_window_s]
+        else:
+            candidates = list(self._stale_since.values())
+        if not candidates:
+            return 0.0
+        return max(0.0, now - min(candidates))
+
+    def _note_fresh(self, root: str) -> None:
+        """``root``'s served view just caught up: observe how long its
+        resolved deltas sat unserved and re-sample the aggregate gauge."""
+        self._last_query[root] = time.perf_counter()
+        t = self._stale_since.pop(root, None)
+        reg = get_registry()
+        if t is not None:
+            reg.histogram("ivm.refresh_lag_s").observe(time.perf_counter() - t)
+        reg.gauge("ivm.staleness_s").set(self.staleness_s())
 
     def _writable_factor(self, table: str, fresh: Set[str]) -> None:
         """Give ``table`` a factor tensor of its current capacity that no
@@ -196,6 +246,7 @@ class MaintainedScorer:
             get_registry().histogram("ivm.refresh_ms").observe(
                 (time.perf_counter() - t0) * 1e3)
         self._dirty[group_by] = set()
+        self._note_fresh(group_by)
         return sp.node_factor(sem, self.factors, jt, jt.root, self._msgs[group_by])
 
     def score_grouped(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -314,6 +365,8 @@ class MaintainedScorer:
             self._msgs.clear()
             self._dirty.clear()
             self._grouped.clear()
+            self._stale_since.clear()
+            self._last_query.clear()
             self._snaps.clear()
             self.data_version = state.data_version
 
@@ -329,6 +382,16 @@ class MaintainedScorer:
                 return
             self._msgs[root] = list(msgs)
             self._dirty[root] = set()
+            self._note_fresh(root)
+
+    def score_full(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full recompute over the SAME maintained state (every edge of
+        ``group_by``'s join tree re-emitted): the baseline of the edge and
+        latency ratios.  Touches no cached message."""
+        jt = self.state.jt(group_by)
+        msgs = self._sp.messages(self._sem, self.factors, jt=jt)
+        counts = self._sp.node_factor(self._sem, self.factors, jt, jt.root, msgs)
+        return contract(counts, self.leaf_values, self.tree0_leaves)
 
 
 class Snapshot:

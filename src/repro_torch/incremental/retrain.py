@@ -339,6 +339,9 @@ class IncrementalBooster:
         self.trees: List[TreeArrays] = []
         self.trace = FitTrace()
         self._mse_ref: Optional[float] = None
+        # perf_counter instant of the oldest delta the model has not yet
+        # been (re)evaluated against: the training-side freshness lag
+        self._stale_since: Optional[float] = None
 
     # -------------------------------------------------------------- deltas --
     def apply(self, deltas: Sequence[TableDelta]) -> int:
@@ -348,7 +351,28 @@ class IncrementalBooster:
             deltas = [deltas]
         with span("retrain.apply", n_deltas=len(deltas)):
             self.state.apply(deltas)
+        if self._stale_since is None:
+            self._stale_since = time.perf_counter()
         return self.state.data_version
+
+    def staleness_s(self, root: Optional[str] = None) -> float:
+        """Seconds the model has been behind applied deltas (0.0 once a
+        fit or drift check consumed them).  ``root`` is accepted for the
+        serving batcher's ``MaintainedScorer`` surface and ignored: model
+        freshness here is global."""
+        if self._stale_since is None:
+            return 0.0
+        return max(0.0, time.perf_counter() - self._stale_since)
+
+    def _mark_fresh(self) -> None:
+        """The model was re-evaluated against every applied delta: record
+        the consumed lag and reset the staleness clock."""
+        if self._stale_since is not None:
+            reg = get_registry()
+            reg.histogram("retrain.delta_lag_s").observe(
+                time.perf_counter() - self._stale_since)
+            reg.gauge("retrain.staleness_s").set(0.0)
+            self._stale_since = None
 
     def live_rows(self, table: str) -> np.ndarray:
         return self.state.live_rows(table)
@@ -408,6 +432,7 @@ class IncrementalBooster:
         self._refresh()
         self.trees, self.trace = self.booster.boost([], self.cfg.n_trees)
         self._mse_ref = self.ensemble_mse()
+        self._mark_fresh()
         return self.trees, self.trace
 
     def refit(
@@ -436,6 +461,9 @@ class IncrementalBooster:
         q0, e0 = c.count, c.edges
         with span("retrain.drift_check"):
             mse0 = self.ensemble_mse()
+        # the drift check evaluated the ensemble on the post-delta data:
+        # whatever its verdict, the model is no longer behind the store
+        self._mark_fresh()
         drift = (float("inf") if self._mse_ref is None
                  else (mse0 - self._mse_ref) / max(self._mse_ref, 1e-12))
         if self.trees and drift <= drift_threshold:

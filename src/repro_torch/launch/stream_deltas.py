@@ -16,7 +16,15 @@ the segment-⊕ edge ratio vs full recompute, and the audit verdict.
 With ``--wal-dir`` every applied batch is appended to a durable log
 (``--wal-sync-every`` appends a fsync), ``--checkpoint-every`` N batches
 checkpoints the dynamic store, and a directory that already holds a log
-is recovered (newest checkpoint + log tail) and resumed.
+is recovered (newest checkpoint + log tail) and resumed; ``serve_relational
+--follow DIR`` serves a replica that tails it.
+
+Telemetry: ``--metrics-port`` serves ``/metricsz /healthz /statusz
+/tracez`` from a thread while the stream runs, ``--slo`` judges each
+batch's maintenance latency and the served data's staleness,
+``--flight N`` dumps the newest N spans past ``--flight-latency-ms``
+(``FLIGHT_deltas_*.json``), ``--sample PATH`` appends metric deltas to a
+JSONL series.
 """
 from __future__ import annotations
 
@@ -28,6 +36,10 @@ import numpy as np
 
 from repro_torch.core import BoostConfig, Booster, QueryCounter
 from repro_torch.incremental import MaintainedScorer
+from repro_torch.obs import (
+    FlightRecorder, PeriodicSampler, SLOMonitor, TelemetryServer, format_summary_table,
+    get_registry, parse_slo_spec,
+)
 from repro_torch.relational import generators
 from repro_torch.serving import ModelRegistry, compile_ensemble
 
@@ -66,13 +78,27 @@ def main(argv=None):
     ap.add_argument("--audit-every", type=int, default=4)
     ap.add_argument("--wal-dir", metavar="DIR", default=None,
                     help="durable delta log: append every applied batch to "
-                         "DIR/wal.log (crash-consistent).  An existing log is "
+                         "DIR/wal.log (crash-consistent; a follower process can tail "
+                         "it with serve_relational --follow DIR).  An existing log is "
                          "recovered and resumed.")
     ap.add_argument("--checkpoint-every", type=int, default=None, metavar="N",
                     help="checkpoint the dynamic store to DIR/ckpt every N "
                          "batches (recovery = newest checkpoint + WAL tail)")
     ap.add_argument("--wal-sync-every", type=int, default=8,
                     help="fsync the log every N appends (group commit)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve /metricsz /healthz /statusz /tracez on this port "
+                         "(0 = ephemeral) for the duration of the stream")
+    ap.add_argument("--slo", metavar="SPEC", default=None,
+                    help="e.g. 'latency=100ms@0.99,staleness=2s': per-batch "
+                         "maintenance latency and served-data staleness")
+    ap.add_argument("--flight", type=int, default=None, metavar="N",
+                    help="flight-recorder ring of the last N spans with "
+                         "latency-triggered FLIGHT_deltas_*.json dumps")
+    ap.add_argument("--flight-latency-ms", type=float, default=None)
+    ap.add_argument("--sample", metavar="PATH", default=None,
+                    help="append periodic metric-snapshot deltas to this JSONL")
+    ap.add_argument("--sample-interval", type=float, default=1.0)
     ap.add_argument("--device", default="cuda",
                     help="torch device for tables, queries and kernels "
                          "(cuda raises on a host without a GPU)")
@@ -107,6 +133,29 @@ def main(argv=None):
           f"{schema.n_tables} tables on {schema.device}; full pass = {full_edges} "
           f"segment-⊕ edges")
 
+    slo = (SLOMonitor(parse_slo_spec(args.slo), fast_window_s=5.0, slow_window_s=30.0)
+           if args.slo else None)
+    flight = None
+    if args.flight:
+        flight = FlightRecorder(capacity=args.flight, name="deltas",
+                                latency_trigger_ms=args.flight_latency_ms,
+                                cooldown_s=5.0).start()
+    telemetry = None
+    if args.metrics_port is not None:
+        telemetry = TelemetryServer(
+            slo=slo, flight=flight, port=args.metrics_port,
+            status_fn=lambda: {"data_version": ms.data_version,
+                               "staleness_s": ms.staleness_s()})
+        telemetry.start_in_thread()
+        print(f"telemetry: {telemetry.url('/metricsz')}  {telemetry.url('/healthz')}")
+    sampler = None
+    if args.sample:
+        sampler = PeriodicSampler(
+            args.sample, interval_s=args.sample_interval,
+            extra_fn=lambda: {"data_version": ms.data_version,
+                              "staleness_s": ms.staleness_s(),
+                              "slo_state": slo.state() if slo else None}).start()
+
     stream = generators.delta_stream(
         schema, ms.live_rows, seed=args.seed + 1,
         n_batches=args.batches, ops_per_batch=args.ops,
@@ -116,8 +165,16 @@ def main(argv=None):
         e0 = counter.edges
         t0 = time.perf_counter()
         dv = ms.apply(batch)
+        if slo is not None:
+            slo.set_staleness(ms.staleness_s())   # applied, not yet served
         ms.grouped_cached(group)                  # path-restricted refresh
         lat.append((time.perf_counter() - t0) * 1e3)
+        if slo is not None:
+            slo.record_latency(lat[-1])
+            slo.record_request(error=False)
+            slo.set_staleness(ms.staleness_s())   # refreshed: 0 again
+        if flight is not None:
+            flight.observe_latency(lat[-1], batch=bi)
         inc_edges += counter.edges - e0
         ops = sum(d.n_ops for d in batch)
         note = ""
@@ -143,6 +200,21 @@ def main(argv=None):
         wal.close()
         print(f"WAL: durable through lsn {durable} "
               f"({os.path.getsize(wal.path)} bytes at {wal.path})")
+    if slo is not None:
+        rep = slo.evaluate()
+        print(f"SLO state: {rep['state']}  "
+              + "  ".join(f"{n}: burn {o['burn_fast']:.2f} [{o['state']}]"
+                          for n, o in rep["objectives"].items()))
+    if sampler is not None:
+        sampler.stop()
+        print(f"wrote {sampler.samples} telemetry samples to {args.sample}")
+    if telemetry is not None:
+        telemetry.stop_thread()
+    if flight is not None:
+        flight.stop()
+        st = flight.status()
+        print(f"flight recorder: {st['buffered']} spans buffered, {len(st['dumps'])} dump(s)")
+    print(format_summary_table(get_registry().snapshot(), title="stream_deltas metrics"))
     return err
 
 

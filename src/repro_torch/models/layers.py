@@ -17,7 +17,7 @@ gradient is wanted (training), the attention is the kernel's
 ``attention_train``, whose backward is the port of the reference's
 custom VJP.  Everything here is differentiable and updates nothing in
 place.  Windowed and cross-attention wait for the configs that use them
-(ROADMAP §1 item 11).
+(ROADMAP §1 item 7).
 """
 from __future__ import annotations
 

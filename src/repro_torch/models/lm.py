@@ -6,7 +6,7 @@ the dense (GQA transformer) block.  The reference stacks each parameter
 over the layers and scans them; the port keeps a list of per-layer dicts
 and loops over it (``convert.lm_params`` unstacks the reference's).  The
 other block kinds (moe, hybrid, encdec), sliding-window attention and
-the modality front ends wait for later slices (ROADMAP §1 item 11) and
+the modality front ends wait for later slices (ROADMAP §1 item 7) and
 raise.
 
 Parameters: ``{"embed": {"tok", "head"}, "layers": [...], "ln_f"}``, a
@@ -54,7 +54,7 @@ def _check_kind(cfg: ModelConfig) -> None:
             f"{cfg.name}: block kind {cfg.kind!r} (frontend {cfg.frontend!r}, "
             f"{cfg.meta_tokens} meta tokens, window {cfg.window}) is not ported yet; the "
             f"port runs kinds {KINDS} with full attention on token ids alone (ROADMAP §1 "
-            f"item 11)")
+            f"item 7)")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, device=None):
@@ -122,7 +122,7 @@ class Model:
         if cfg.kind != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: training a {cfg.kind!r} model is not ported yet; the rwkv6_chunk "
-                f"kernel has no backward (ROADMAP §1 item 11)")
+                f"kernel has no backward (ROADMAP §1 item 7)")
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
         h = L.embed(params["embed"], tokens)
         B, S = tokens.shape

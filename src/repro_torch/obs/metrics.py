@@ -5,9 +5,18 @@ A :class:`MetricsRegistry` is a flat namespace of named series.  An
 enough for the hot paths it measures (``QueryCounter`` bumps, the
 serving batcher's per-request latencies).
 
+Snapshots are plain JSON-able dicts, so three derived operations cover
+every reporting need:
+
+- ``registry.snapshot()``  — point-in-time values/summaries;
+- ``diff_snapshots(a, b)`` — work done *between* two snapshots
+  (counters/histogram buckets subtract; gauges keep the later value);
+- ``merge_snapshots(a, b)`` — combine series from parallel actors
+  (counters/buckets add, min/max widen).
+
 Histograms are log-bucketed (``RES`` sub-buckets per octave, ~9%
-relative width), so quantile summaries (p50/p90/p99) cost O(#buckets).
-No dependencies beyond the stdlib.
+relative width), so quantile summaries (p50/p90/p99) cost O(#buckets)
+and merging is exact.  No dependencies beyond the stdlib.
 """
 from __future__ import annotations
 
@@ -15,7 +24,11 @@ import math
 import threading
 from typing import Dict
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry"]
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "get_registry", "reset_registry", "diff_snapshots", "merge_snapshots",
+    "format_summary_table",
+]
 
 
 class Counter:
@@ -125,7 +138,19 @@ class Histogram:
         }
 
     def snapshot(self) -> dict:
-        return {"type": "histogram", **self.summary()}
+        return {"type": "histogram", **self.summary(),
+                "buckets": {str(k): v for k, v in self.buckets.items()}}
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        """In-place ⊎: bucket-wise add (exact — the grid is shared)."""
+        with self._lock:
+            for i, c in other.buckets.items():
+                self.buckets[i] = self.buckets.get(i, 0) + c
+            self.count += other.count
+            self.sum += other.sum
+            self.min = min(self.min, other.min)
+            self.max = max(self.max, other.max)
+        return self
 
 
 class MetricsRegistry:
@@ -155,13 +180,119 @@ class MetricsRegistry:
     def histogram(self, name: str) -> Histogram:
         return self._get(name, Histogram)
 
+    def names(self):
+        with self._lock:
+            return sorted(self._metrics)
+
     def snapshot(self) -> Dict[str, dict]:
         """JSON-able {name: instrument snapshot} for every series."""
         with self._lock:
             items = list(self._metrics.items())
         return {name: m.snapshot() for name, m in items}
 
+    def clear(self) -> None:
+        with self._lock:
+            self._metrics.clear()
 
+
+# ------------------------------------------------------ snapshot algebra --
+def _diff_hist(a: dict, b: dict) -> dict:
+    """Histogram work b−a: bucket/count/sum subtract; min/max/quantiles
+    cannot be recovered for the window, so they are re-estimated from
+    the differenced buckets."""
+    buckets = dict(b.get("buckets", {}))
+    for k, v in (a.get("buckets") or {}).items():
+        buckets[k] = buckets.get(k, 0) - v
+        if buckets[k] <= 0:
+            buckets.pop(k)
+    count = b["count"] - a["count"]
+    out = {
+        "type": "histogram",
+        "count": count,
+        "sum": b["sum"] - a["sum"],
+        "min": None, "max": None,
+        "mean": (b["sum"] - a["sum"]) / count if count else None,
+        "p50": None, "p90": None, "p99": None,
+        "buckets": buckets,
+    }
+    if count > 0 and buckets:
+        h = Histogram()
+        h.buckets = {int(k): v for k, v in buckets.items()}
+        h.count = count
+        h.sum = out["sum"]
+        idx = sorted(h.buckets)
+        h.min = 2.0 ** (idx[0] / h.RES) if idx[0] != h._UNDER else 0.0
+        h.max = 2.0 ** ((idx[-1] + 1) / h.RES)
+        out.update(p50=h.quantile(.5), p90=h.quantile(.9), p99=h.quantile(.99),
+                   min=h.min, max=h.max)
+    return out
+
+
+def diff_snapshots(before: Dict[str, dict], after: Dict[str, dict]) -> Dict[str, dict]:
+    """Work done between two snapshots of the SAME registry."""
+    out = {}
+    for name, b in after.items():
+        a = before.get(name)
+        if a is None or a["type"] != b["type"]:
+            out[name] = dict(b)
+        elif b["type"] == "counter":
+            out[name] = {"type": "counter", "value": b["value"] - a["value"]}
+        elif b["type"] == "gauge":
+            out[name] = dict(b)
+        else:
+            out[name] = _diff_hist(a, b)
+    return out
+
+
+def merge_snapshots(a: Dict[str, dict], b: Dict[str, dict]) -> Dict[str, dict]:
+    """⊎ of snapshots from parallel actors (counters/buckets add)."""
+    out = {k: dict(v) for k, v in a.items()}
+    for name, m in b.items():
+        cur = out.get(name)
+        if cur is None or cur["type"] != m["type"]:
+            out[name] = dict(m)
+        elif m["type"] == "counter":
+            cur["value"] += m["value"]
+        elif m["type"] == "gauge":
+            cur["value"] = m["value"]
+        else:
+            h = Histogram()
+            for src in (cur, m):
+                for k, v in (src.get("buckets") or {}).items():
+                    h.buckets[int(k)] = h.buckets.get(int(k), 0) + v
+            h.count = cur["count"] + m["count"]
+            h.sum = cur["sum"] + m["sum"]
+            mins = [x["min"] for x in (cur, m) if x.get("min") is not None]
+            maxs = [x["max"] for x in (cur, m) if x.get("max") is not None]
+            h.min = min(mins) if mins else math.inf
+            h.max = max(maxs) if maxs else -math.inf
+            out[name] = h.snapshot()
+    return out
+
+
+def format_summary_table(snapshot: Dict[str, dict], title: str = "metrics") -> str:
+    """One-screen fixed-width rendering of a snapshot — what the launch
+    CLIs print on exit instead of ad-hoc prints."""
+    lines = [f"── {title} " + "─" * max(0, 62 - len(title))]
+    width = max([len(n) for n in snapshot] or [8])
+    for name in sorted(snapshot):
+        m = snapshot[name]
+        if m["type"] == "counter":
+            lines.append(f"{name:<{width}}  {m['value']:>12,}")
+        elif m["type"] == "gauge":
+            lines.append(f"{name:<{width}}  {m['value']:>12.4g}")
+        else:
+            if not m["count"]:
+                continue
+            lines.append(
+                f"{name:<{width}}  n={m['count']:<8,} "
+                f"mean={m['mean']:.3g} p50={m['p50']:.3g} "
+                f"p90={m['p90']:.3g} p99={m['p99']:.3g} max={m['max']:.3g}")
+    lines.append("─" * 64)
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------- process-wide --
 _global_registry = MetricsRegistry()
 
 
@@ -169,3 +300,8 @@ def get_registry() -> MetricsRegistry:
     """The process-wide default registry (instrumented subsystems mirror
     their per-instance accounting into it as named series)."""
     return _global_registry
+
+
+def reset_registry() -> None:
+    """Clear the process-wide registry (tests and benchmark phases)."""
+    _global_registry.clear()

@@ -4,8 +4,10 @@
     score_grouped / score_rows / score_fresh — entry points
     score_grouped_reference              — per-leaf loop (baseline)
     ModelRegistry / RelationalScoringService — versioned hot-swap + batcher
+    StackedEnsembles / stack_ensembles   — A/B variants in one SumProd pass
 """
 from .compile import CompiledEnsemble, compile_ensemble, contract, stack_table_factor
+from .multi import StackedEnsembles, stack_ensembles
 from .scorer import (
     score_fresh, score_grouped, score_grouped_reference, score_mean_rows, score_rows,
 )
@@ -18,5 +20,5 @@ __all__ = [
     "score_fresh", "score_grouped", "score_grouped_reference", "score_mean_rows",
     "score_rows",
     "LRUCache", "ModelRegistry", "RelationalScoringService", "ServiceOverloadedError",
-    "ServiceStats",
+    "ServiceStats", "StackedEnsembles", "stack_ensembles",
 ]

@@ -19,10 +19,23 @@ Snapshot isolation: a model that publishes MVCC snapshots (a
 (:meth:`RelationalScoringService._frozen_view`), so a batch scores
 against one ``data_version`` while ``apply()`` runs concurrently.
 
-Backpressure: past ``4 * max_queue`` queued requests, new ones are shed
-with :class:`ServiceOverloadedError`.  A version dispatch that throws is
-retried once after a jittered, budget-capped backoff before its
-requests fail.
+Backpressure, outermost first: burn-rate load shedding (an attached
+SLO monitor in state ``unhealthy`` ⇒ :class:`ServiceOverloadedError`),
+queue-depth admission control (shed past ``max_queue`` while the SLO
+burns, or past the 4× hard cap), and a deadline-aware batch cutoff (the
+coalescing window closes early when the oldest queued request would
+otherwise spend more than ``deadline_frac`` of its latency budget
+waiting; a degraded SLO collapses the window).  A version dispatch that
+throws is retried once after a jittered, budget-capped backoff before
+its requests fail (and an attached flight recorder dumps).
+
+Live telemetry: an attached :class:`~repro_torch.obs.slo.SLOMonitor`
+receives every request's latency and outcome plus the served model's
+data staleness (``staleness_s(group_by)`` of a maintained model, max'ed
+with ``extra_staleness()``, e.g. a replica's replication lag), mirrored
+into the ``service.staleness_s`` gauge; an attached
+:class:`~repro_torch.obs.flight.FlightRecorder` is fed the same
+latencies and every failed dispatch.
 """
 from __future__ import annotations
 
@@ -41,7 +54,8 @@ from .scorer import score_mean_rows
 
 
 class ServiceOverloadedError(RuntimeError):
-    """Raised when admission control sheds a request."""
+    """Raised when admission control sheds a request (SLO unhealthy or
+    the queue too deep)."""
 
 
 class LRUCache:
@@ -92,6 +106,7 @@ class ModelRegistry:
         self._models: Dict[int, CompiledEnsemble] = {}
         self._latest: Optional[int] = None
         self._ids = itertools.count(1)
+        self._stacked_cache = None
         # per-slot install epoch, monotonic across the registry: bumps
         # whenever a slot's MODEL changes, so caches keyed on it cannot
         # serve model A's scores for model B after a hot swap
@@ -137,6 +152,21 @@ class ModelRegistry:
     def versions(self) -> List[int]:
         return sorted(self._models)
 
+    def stacked(self, versions: Optional[List[int]] = None):
+        """All (or the given) resident variants fused into one factor set
+        for single-pass A/B scoring (``serving/multi.py``).  Cached until
+        the participating versions, their install epochs or their
+        data_versions change — the epoch term keeps two distinct models
+        that both report data_version 0 apart across a swap."""
+        from .multi import stack_ensembles
+
+        vs = tuple(self.versions() if versions is None else versions)
+        key = (vs, tuple(self._epochs[v] for v in vs),
+               tuple(getattr(self._models[v], "data_version", 0) for v in vs))
+        if self._stacked_cache is None or self._stacked_cache[0] != key:
+            self._stacked_cache = (key, stack_ensembles([self._models[v] for v in vs]))
+        return self._stacked_cache[1]
+
 
 class ServiceStats:
     """Service accounting as named metric series (thread-safe): request,
@@ -155,6 +185,7 @@ class ServiceStats:
         self._errors = r.counter("service.errors")       # dispatch failures
         self._retries = r.counter("service.retries")     # transient redispatch
         self._shed = r.counter("service.shed")           # admission control
+        self.staleness_s = r.gauge("service.staleness_s")
         self.queue_wait_ms = r.histogram("service.queue_wait_ms")
         self.latency_ms = r.histogram("service.latency_ms")
         self.batch_exec_ms = r.histogram("service.batch_exec_ms")
@@ -187,6 +218,7 @@ class ServiceStats:
             "errors": self.errors,
             "retries": self.retries,
             "shed": self.shed,
+            "staleness_s": self.staleness_s.value,
             "mean_batch": self.mean_batch,
             "queue_wait_ms": q(self.queue_wait_ms),
             "latency_ms": q(self.latency_ms),
@@ -206,24 +238,50 @@ class _Request:
 
 
 class RelationalScoringService:
-    """Queue → coalesce → batched scorer → dispatch futures."""
+    """Queue → coalesce → batched scorer → dispatch futures.
+
+    ``slo`` (an ``SLOMonitor``) and ``flight`` (a ``FlightRecorder``) are
+    optional; ``extra_staleness`` is a () → seconds callable folded (max)
+    into the staleness the SLO monitor burns against."""
 
     def __init__(self, registry: ModelRegistry, group_by: str, max_batch: int = 64,
                  max_wait_ms: float = 2.0, cache_size: int = 4096,
-                 max_queue: Optional[int] = None, retry_transient: bool = True):
+                 slo=None, flight=None, shed_when_unhealthy: bool = True,
+                 latency_budget_ms: Optional[float] = None, deadline_frac: float = 0.5,
+                 max_queue: Optional[int] = None, retry_transient: bool = True,
+                 extra_staleness=None):
         self.registry = registry
         self.group_by = group_by
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.stats = ServiceStats()
         self.cache = LRUCache(cache_size, registry=self.stats.registry)
-        # queue-depth admission cap: past 4 * max_queue queued requests,
-        # new ones are shed instead of compounding everyone's wait
+        self.slo = slo
+        self.flight = flight
+        self.shed_when_unhealthy = shed_when_unhealthy
+        # per-request latency budget (seconds) for the deadline-aware batch
+        # cutoff: explicit, else the tightest latency objective of the SLO
+        # monitor, else none; only deadline_frac of it may be spent waiting
+        # in the coalescing window, the rest is left for execution
+        if latency_budget_ms is not None:
+            self.latency_budget = latency_budget_ms / 1e3
+        else:
+            budgets = [o.target / 1e3 for o in getattr(slo, "objectives", {}).values()
+                       if o.kind == "latency"]
+            self.latency_budget = min(budgets) if budgets else None
+        self.deadline_frac = deadline_frac
+        # queue-depth admission control: past max_queue while the SLO burns
+        # (state != healthy), or past the 4× hard cap regardless, new
+        # requests are shed instead of compounding everyone's wait
         self.max_queue = max_queue
         # one re-attempt of a failing version dispatch after a jittered
         # backoff; the budget bounds total sleep across repeated failures
         self.retry_transient = retry_transient
         self._retry_backoff = Backoff(base_s=0.005, cap_s=0.05, budget_s=1.0)
+        # replica wiring: a WAL follower's replication lag, so a lagging or
+        # dead writer burns the staleness objective even while the local
+        # scorer is caught up with everything the log delivered
+        self.extra_staleness = extra_staleness
         self._q: "asyncio.Queue" = asyncio.Queue()
         self._task: Optional["asyncio.Task"] = None
 
@@ -247,6 +305,14 @@ class RelationalScoringService:
                 item.future.set_exception(RuntimeError("service stopped"))
 
     # -------------------------------------------------------------- serving --
+    def _observe_latency(self, ms: float, error: bool = False) -> None:
+        self.stats.latency_ms.observe(ms)
+        if self.slo is not None:
+            self.slo.record_latency(ms)
+            self.slo.record_request(error=error)
+        if self.flight is not None:
+            self.flight.observe_latency(ms)
+
     async def score(self, row_id: int, version: Optional[int] = None) -> float:
         """Mean prediction Σŷ/count for one row of ``group_by``."""
         if self._task is None or self._task.done():
@@ -260,22 +326,39 @@ class RelationalScoringService:
             self.stats._rejected.inc()
             raise IndexError(
                 f"row id {row_id} out of range for table {self.group_by!r} (n_rows={n})")
-        if self.max_queue is not None and self._q.qsize() >= 4 * self.max_queue:
+        # burn-rate shedding: unhealthy means both windows are past the SLO
+        if (self.slo is not None and self.shed_when_unhealthy
+                and self.slo.state() == "unhealthy"):
             self.stats._shed.inc()
             raise ServiceOverloadedError(
-                f"load shed: queue depth {self._q.qsize()} over hard cap "
-                f"(max_queue={self.max_queue})")
+                "load shed: SLO state unhealthy (burn rates over budget; see /healthz)")
+        # queue-depth backpressure: a deep queue while the SLO burns means
+        # arrivals outpace dispatch; the 4× hard cap bounds memory and wait
+        # even without an SLO verdict
+        if self.max_queue is not None:
+            depth = self._q.qsize()
+            burning = self.slo is not None and self.slo.state() != "healthy"
+            if depth >= 4 * self.max_queue or (burning and depth >= self.max_queue):
+                self.stats._shed.inc()
+                raise ServiceOverloadedError(
+                    f"load shed: queue depth {depth} over "
+                    f"{'hard cap' if depth >= 4 * self.max_queue else 'limit'} "
+                    f"(max_queue={self.max_queue})")
         self.stats._requests.inc()
         cached = self.cache.get(
             (v, self.registry.epoch(v), getattr(ens, "data_version", 0), row_id))
         if cached is not None:
             self.stats._cache_hits.inc()
-            self.stats.latency_ms.observe((time.perf_counter() - t0) * 1e3)
+            self._observe_latency((time.perf_counter() - t0) * 1e3)
             return cached
         fut = asyncio.get_running_loop().create_future()
         await self._q.put(_Request(int(row_id), v, fut, t0))
-        result = await fut
-        self.stats.latency_ms.observe((time.perf_counter() - t0) * 1e3)
+        try:
+            result = await fut
+        except Exception:
+            self._observe_latency((time.perf_counter() - t0) * 1e3, error=True)
+            raise
+        self._observe_latency((time.perf_counter() - t0) * 1e3)
         return result
 
     async def score_many(self, row_ids, version: Optional[int] = None) -> List[float]:
@@ -291,12 +374,20 @@ class RelationalScoringService:
     # -------------------------------------------------------------- batcher --
     async def _collect(self) -> Optional[List[_Request]]:
         """One coalescing window: the first request opens the batch, then
-        fill until max_batch or the max_wait deadline."""
+        fill until max_batch, the max_wait deadline, or the instant the
+        OLDEST request would otherwise spend more than ``deadline_frac`` of
+        its latency budget waiting.  A degraded SLO collapses the window
+        (drain greedily).  Every clock is ``time.perf_counter``."""
         first = await self._q.get()
         if first is None:
             return None
         batch = [first]
-        deadline = time.perf_counter() + self.max_wait
+        wait = self.max_wait
+        if self.slo is not None and self.slo.state() != "healthy":
+            wait = 0.0
+        deadline = time.perf_counter() + wait
+        if self.latency_budget is not None:
+            deadline = min(deadline, first.t_enq + self.latency_budget * self.deadline_frac)
         while len(batch) < self.max_batch:
             try:                             # greedy drain: no await overhead
                 item = self._q.get_nowait()
@@ -347,6 +438,8 @@ class RelationalScoringService:
                         except Exception as e:   # noqa: BLE001
                             err = e
                 st._errors.inc(len(reqs))
+                if self.flight is not None:
+                    self.flight.observe_error(err, batch_size=len(reqs))
                 for r in reqs:
                     if not r.future.done():
                         r.future.set_exception(err)
@@ -366,9 +459,28 @@ class RelationalScoringService:
             return view, view.data_version
         return ens, getattr(ens, "data_version", 0)
 
+    def _observe_staleness(self, ens) -> None:
+        """Served-data staleness of our root, sampled from the live model
+        (a snapshot is frozen and has no lag of its own), max'ed with
+        ``extra_staleness()``; into the gauge and the SLO monitor."""
+        stale = getattr(ens, "staleness_s", None)
+        s = None
+        if callable(stale):
+            try:
+                s = stale(self.group_by)
+            except TypeError:            # a provider without per-root lag
+                s = stale()
+        if self.extra_staleness is not None:
+            s = max(s or 0.0, float(self.extra_staleness()))
+        if s is not None:
+            self.stats.staleness_s.set(s)
+            if self.slo is not None:
+                self.slo.set_staleness(s)
+
     def _dispatch_version(self, v: int, reqs: List[_Request]):
         _, ens = self.registry.get(v)
         ep = self.registry.epoch(v)
+        self._observe_staleness(ens)
         # the version pin happens HERE, at batch cutoff: a delta applied
         # mid-dispatch mutates the live model, but this batch gathers
         # from the frozen view and caches under its pinned data_version
@@ -392,6 +504,8 @@ class RelationalScoringService:
                 self._dispatch(batch)
             except Exception as e:      # noqa: BLE001 — propagate to callers, keep serving
                 self.stats._errors.inc(len(batch))
+                if self.flight is not None:
+                    self.flight.observe_error(e, batch_size=len(batch))
                 for r in batch:
                     if not r.future.done():
                         r.future.set_exception(e)

@@ -230,7 +230,7 @@ def test_attention_routes():
     k = v = torch.randn(B, S, Kh, dh, device="meta")
     with pytest.raises(RuntimeError, match="no route"):
         L.attend(w, q, k, v)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         Model(cfg.replace(window=4, global_layers=(0,)), device="cpu")
 
 

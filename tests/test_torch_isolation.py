@@ -55,7 +55,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
               "repro_torch.optim.adamw", "repro_torch.optim.grad_compress",
               "repro_torch.data.pipeline", "repro_torch.data.synthetic",
               "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
-              "repro_torch.launch.steps"):
+              "repro_torch.launch.steps", "repro_torch.obs.flight", "repro_torch.obs.slo",
+              "repro_torch.obs.exposition", "repro_torch.serving.multi"):
         assert m in mods
     code = (
         "import importlib, sys\n"
