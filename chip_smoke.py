@@ -250,6 +250,30 @@ Phases (any failure exits non-zero):
    the replication lag (per record) p50/p99, the writer's ms a batch and
    the launches.
 
+10. Data parallelism, right after phase 9, on phase 2's schema and model:
+   two processes spawned on the one card, both on ``cuda:0``, in a gloo
+   group (NCCL puts one card under each rank; gloo stages every
+   collective through the host), each rank holding a row block of every
+   table the world size divides.  The parent hands the ranks phase 2's
+   columns (labels snapped to 1/16, so every label sum is exact in
+   float32; scores do not read labels), trees and scores; each rank
+   builds the schema itself.  With the counts at 0, each rank runs (a)
+   phase 2's trees compiled under the mesh, ``score_grouped`` by every
+   table; (b) phase 2's fit config (5 trees, depth 3, sketch, no SSR);
+   (c) a ``MaintainedScorer`` through 4 ``delta_stream`` batches of 8
+   ops (labels snapped), both roots after each; then, outside the count,
+   the one-process fit and scorer.  Gates on every rank: (a) ``tot`` and
+   ``cnt`` bit-equal to phase 2's; (b) trees equal to the one-process
+   fit's; (c) both roots bit-equal to the one-process scorer's after
+   every batch; segment_sum launches = the counters' edges, and the fact
+   table's factor a row block.  A rank that fails, or a world not joined
+   within 600 s, fails the phase.  Prints per rank the all-reduce ms a
+   message (p50/p99 of its spans) and its bytes, the all-gather ms a
+   grouped output, each pass's ms against phase 2's, the fits' seconds,
+   the delta batches' ms and the peak memory, and the phase's seconds.
+   Two ranks sharing one card through the host measure correctness and
+   the collectives' host cost, not the speed of several cards.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  A failure ends the run where it
@@ -952,7 +976,7 @@ def phase_serve(ops, n_fact: int, dev="cuda", profile: bool = False):
             log(f"  profile {k}: wall {v['wall_ms']:.1f} ms, kernels busy "
                 f"{v['device_busy_ms']:.1f} ms, idle share {v['idle_share']:.3f}; "
                 f"top {v['top']}")
-    return out, schema, trees, ens
+    return out, schema, trees, ens, scores
 
 
 def kernel_kind(name: str, split=()) -> str:
@@ -2360,6 +2384,245 @@ def phase_operate(ops, schema, trees, ens, dev="cuda"):
     return out
 
 
+# ----------------------------------------------------------------- phase 10 --
+DP_WORLD = 2                       # ranks sharing the one card over gloo
+DP_ROOTS = ("fact", "dim0")
+DP_BATCHES, DP_OPS = 4, 8          # delta_stream batches and ops a batch, (c)
+DP_TIMEOUT_S = 600.0               # every rank joined within this, or the phase fails
+
+
+def snap16(x):
+    """Labels on the 1/16 grid: every label sum of the fit is exact in
+    float32, so the cross-rank sums are too."""
+    return np.round(np.asarray(x) * 16.0) / 16.0
+
+
+def snap_delta(schema, batch):
+    """``snap16`` for labels arriving through a delta batch."""
+    from repro_torch.incremental import TableDelta
+
+    lt, lc = schema.label_table, schema.label_column
+    out = []
+    for d in batch:
+        ins, upd = d.inserts, d.updates
+        if d.table == lt and ins and lc in ins:
+            ins = {**ins, lc: snap16(ins[lc])}
+        if d.table == lt and upd and lc in upd[1]:
+            upd = (upd[0], {**upd[1], lc: snap16(upd[1][lc])})
+        out.append(TableDelta(d.table, inserts=ins, deletes=d.deletes, updates=upd))
+    return out
+
+
+def dp_rank(rank: int, world: int, tmp: str, dev: str) -> None:
+    """One rank of phase 10 (module docstring): joins the gloo group,
+    runs the sharded main path with the counts at 0, then the one-process
+    references, holds the gates and writes its numbers."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, 8 // world))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        with open(f"{tmp}/inputs.pkl", "rb") as fh:
+            inp = pickle.load(fh)
+        out = dp_work(rank, world, inp, dev)
+        with open(f"{tmp}/rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_work(rank: int, world: int, inp: dict, dev: str) -> dict:
+    from repro_torch.core import BoostConfig, Booster, QueryCounter, Schema, Table
+    from repro_torch.core.tree import TreeArrays
+    from repro_torch.distributed import spmd
+    from repro_torch.incremental import MaintainedScorer
+    from repro_torch.kernels.segment_sum import ops
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.obs import disable_tracing, enable_tracing, get_tracer
+    from repro_torch.relational.generators import delta_stream
+    from repro_torch.serving import compile_ensemble, score_grouped
+
+    if dev == "cpu":                    # a CPU rehearsal counts the plain version's calls
+        import repro_torch.core.semiring as sr
+        plain = sr.segment_sum
+
+        def counted(vals, seg):
+            ops.launches += 1
+            return plain(vals, seg)
+        sr.segment_sum = counted
+    mesh = make_data_mesh(world, device=dev, backend="gloo")
+    lt, lc = inp["label"]
+    t0 = time.perf_counter()
+    schema = Schema([Table(n, {c: (snap16(v) if (n, c) == (lt, lc) else v)
+                               for c, v in cols.items()}, fc)
+                     for n, cols, fc in inp["tables"]], label=(lt, lc), device=dev)
+    schema_s = time.perf_counter() - t0
+    trees = [TreeArrays(*(x.to(dev) for x in t)) for t in inp["trees"]]
+    cfg = BoostConfig(n_trees=5, depth=3, mode="sketch", ssr_mode="off")   # phase 2's fit
+    names = schema.names
+    roots = [r for r in DP_ROOTS if r in names]
+
+    def stream(ms):
+        return (snap_delta(schema, b) for b in delta_stream(
+            schema, ms.live_rows, seed=21, n_batches=DP_BATCHES, ops_per_batch=DP_OPS))
+
+    def grouped(ms):
+        return {r: [x.cpu() for x in ms.grouped_cached(r)] for r in roots}
+
+    # the sharded main path: counts at 0 before it, read after it
+    sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    enable_tracing(torch_annotations=False)
+    ops.reset_launches()
+    t_main = time.perf_counter()
+    c_a = QueryCounter()
+    with spmd.use_data_mesh(mesh):
+        ens = compile_ensemble(schema, trees, counter=c_a)
+    fact_sharded = spmd.is_row_sharded(ens.factors["fact"], mesh,
+                                       rows=schema.table("fact").n_rows)
+    scores, pass_ms = {}, {}
+    for t in names:
+        sync(dev)
+        t0 = time.perf_counter()
+        scores[t] = [x.cpu() for x in score_grouped(ens, t)]
+        sync(dev)
+        pass_ms[t] = (time.perf_counter() - t0) * 1e3
+    del ens
+    t0 = time.perf_counter()
+    with spmd.use_data_mesh(mesh):
+        booster = Booster(schema, cfg)
+    fit_n, _ = booster.fit()
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    c_c = QueryCounter()
+    with spmd.use_data_mesh(mesh):
+        ms = MaintainedScorer(compile_ensemble(schema, trees), counter=c_c)
+    maint = [grouped(ms)]
+    batch_ms = []
+    for batch in stream(ms):
+        sync(dev)
+        t0 = time.perf_counter()
+        ms.apply(batch)
+        maint.append(grouped(ms))
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    del ms
+    sync(dev)
+    main_s = time.perf_counter() - t_main
+    launches = ops.launches
+    edges = c_a.count * (len(names) - 1) + booster.counter.edges + c_c.edges
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else 0.0
+    events = list(get_tracer().events)
+    disable_tracing()
+    coll = {}
+    for kind in ("all_reduce", "all_gather"):
+        evs = [e for e in events if e["name"] == f"spmd.{kind}"]
+        ms_ = [e["dur_ms"] for e in evs]
+        coll[kind] = {"n": len(evs), "p50_ms": pctl(ms_, 50) if ms_ else None,
+                      "p99_ms": pctl(ms_, 99) if ms_ else None,
+                      "bytes_mean": float(np.mean([e["bytes"] for e in evs])) if evs else None}
+
+    # the one-process references, outside the counted run
+    with spmd.use_data_mesh(None):
+        t0 = time.perf_counter()
+        fit_1, _ = Booster(schema, cfg).fit()
+        sync(dev)
+        fit1_s = time.perf_counter() - t0
+        ms1 = MaintainedScorer(compile_ensemble(schema, trees))
+        maint1 = [grouped(ms1)]
+        for batch in stream(ms1):
+            ms1.apply(batch)
+            maint1.append(grouped(ms1))
+    del ms1
+
+    tag = f"data parallel rank {rank}/{world}"
+    for t in names:                                                       # (a)
+        want = inp["scores"][t]
+        if not all(torch.equal(g, w) for g, w in zip(scores[t], want)):
+            raise AssertionError(f"{tag}: (a) scores grouped by {t} differ from phase 2's")
+    same = len(fit_n) == len(fit_1) and all(                              # (b)
+        torch.equal(a.feat, b.feat) and torch.equal(a.thr, b.thr) and torch.equal(a.leaf, b.leaf)
+        for a, b in zip(fit_n, fit_1))
+    if not same:
+        raise AssertionError(f"{tag}: (b) the sharded fit's trees differ from one process's")
+    for i, (g, w) in enumerate(zip(maint, maint1)):                        # (c)
+        for r in roots:
+            if not all(torch.equal(x, y) for x, y in zip(g[r], w[r])):
+                raise AssertionError(f"{tag}: (c) {r} after batch {i} differs from one "
+                                     f"process's scorer")
+    if len(maint) != DP_BATCHES + 1:
+        raise AssertionError(f"{tag}: (c) ran {len(maint) - 1} batches, wants {DP_BATCHES}")
+    if not fact_sharded:
+        raise AssertionError(f"{tag}: the fact table's factor is not a row block")
+    if launches != edges or launches == 0:
+        raise AssertionError(f"{tag}: segment_sum launches {launches}, the counters' edges "
+                             f"{edges}")
+    return {"rank": rank, "schema_s": schema_s, "main_s": main_s, "pass_ms": pass_ms,
+            "fit_s": fit_s, "fit_one_process_s": fit1_s, "batch_ms": batch_ms,
+            "launches": launches, "edges": edges, "collectives": coll, "peak_gib": peak_gib,
+            "queries": {"scores": c_a.count, "fit": booster.counter.count,
+                        "maintain_edges": c_c.edges}}
+
+
+def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
+    """Phase 10 (module docstring): two ranks on the one card over gloo,
+    spawned, joined within ``DP_TIMEOUT_S``; returns their records."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/inputs.pkl", "wb") as fh:
+            pickle.dump({"tables": [(t.name, t.columns, t.feature_columns)
+                                    for t in schema.tables],
+                         "label": (schema.label_table, schema.label_column),
+                         "trees": [(t.feat.cpu(), t.thr.cpu(), t.leaf.cpu()) for t in trees],
+                         "scores": {n: [x.cpu() for x in v] for n, v in scores.items()}}, fh)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, DP_WORLD, tmp, dev))
+                 for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break                                 # one rank failed: stop the others
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_WORLD:
+            raise AssertionError(f"data parallel: ranks exited with {codes} (a kill: one "
+                                 f"failed, or {DP_TIMEOUT_S:.0f} s passed)")
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    out = {"seconds": time.perf_counter() - t0, "ranks": ranks,
+           "launches": sum(r["launches"] for r in ranks),
+           "phase2_pass_ms": {n: serve_times[f"score_grouped_{n}_s"] * 1e3 for n in scores}}
+    for r in ranks:
+        c = r["collectives"]
+        log(f"  rank {r['rank']}: schema {r['schema_s']:.2f} s, main path {r['main_s']:.2f} s, "
+            f"fit {r['fit_s']:.2f} s (one process {r['fit_one_process_s']:.2f} s), "
+            f"launches {r['launches']} = edges {r['edges']}, peak {r['peak_gib']:.2f} GiB")
+        log(f"    all-reduce a message: n {c['all_reduce']['n']}, p50 "
+            f"{c['all_reduce']['p50_ms']} / p99 {c['all_reduce']['p99_ms']} ms, "
+            f"{c['all_reduce']['bytes_mean']} bytes mean; all-gather a grouped output: n "
+            f"{c['all_gather']['n']}, p50 {c['all_gather']['p50_ms']} / p99 "
+            f"{c['all_gather']['p99_ms']} ms, {c['all_gather']['bytes_mean']} bytes mean")
+        log("    pass ms by table (sharded, all-gather included / phase 2's one process): "
+            + ", ".join(f"{n} {r['pass_ms'][n]:.3f} / {out['phase2_pass_ms'][n]:.3f}"
+                        for n in r["pass_ms"]))
+        log(f"    delta batches ms: {[round(x, 3) for x in r['batch_ms']]}")
+    log(f"  phase 10 took {out['seconds']:.1f}s; gates (a)-(c) held on every rank")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -2419,7 +2682,7 @@ def main() -> int:
     fshapes = phase_attn(fops, flash_attention)
     cshapes = phase_sketch(cops, count_sketch)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
-    serve, serve_schema, serve_trees, serve_ens = phase_serve(ops, args.n_fact,
+    serve, serve_schema, serve_trees, serve_ens, serve_scores = phase_serve(ops, args.n_fact,
                                                               profile=args.profile)
     log(f"phase 3: paper check at {args.paper_n_fact} fact rows")
     paper = phase_paper(args.paper_n_fact)
@@ -2445,7 +2708,11 @@ def main() -> int:
     if any(o.launches for o in (pops, wops, fops, cops)):
         raise AssertionError("phase 9 launched a kernel other than segment_sum: "
                              f"{[(o.__name__, o.launches) for o in (pops, wops, fops, cops)]}")
-    del serve_schema, serve_trees, serve_ens, coeff_schema   # phases 5-7 run without them
+    log(f"phase 10: phase 2's schema and model data-parallel over {DP_WORLD} ranks sharing "
+        f"the one card over gloo (correctness and the collectives' host cost, not multi-card "
+        f"speed)")
+    dp = phase_data_parallel(serve_schema, serve_trees, serve_scores, serve["times"])
+    del serve_schema, serve_trees, serve_ens, serve_scores, coeff_schema   # phases 5-7 run without them
     gc.collect()                          # a scorer and its snapshots hold each other
     torch.cuda.empty_cache()
     lm_cfg = configs.get("rwkv6_1_6b")
@@ -2487,7 +2754,8 @@ def main() -> int:
                              "retrain": retrain["launches"],
                              "operate_service": operate["launches"]["service"],
                              "operate_stacked": operate["launches"]["stacked"],
-                             "operate_follow": operate["launches"]["follow"]},
+                             "operate_follow": operate["launches"]["follow"],
+                             "data_parallel_2_ranks": dp["launches"]},
         "shapes": shapes,
     }, {
         "name": "polymul", "route": "cuda",
@@ -2539,7 +2807,8 @@ def main() -> int:
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
                     "lm_dense": dense, "lm_train": train, "maintain": maintain,
-                    "retrain": retrain, "phase8_s": phase8_s, "operate": operate}))
+                    "retrain": retrain, "phase8_s": phase8_s, "operate": operate,
+                    "data_parallel": dp}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,12 @@ costs are accounted analytically by the trainer.
 
 Engines also own the trainer's data surface (row-domain sizes and the
 feature matrices masks and split plans are built from).
+
+Under a data mesh (``distributed.spmd``) an engine holds its base
+factors as row blocks and cuts each query's masks, which the trainer
+builds whole from the replicated feature matrices, to the same blocks;
+every grouped output is replicated at the engine boundary, so the
+trainer, the split sweeps and the tree code run on whole rows.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..distributed import spmd
 from .semiring import Arithmetic
 from .sketch import sketch_factors
 
@@ -77,13 +84,15 @@ def _keep(masks, extra, tn):
 
 class DirectEngine(QueryEngine):
     """The paper's execution model: one batched SumProd pass per query
-    family over the static schema."""
+    family over the static schema, data-parallel over the data mesh
+    active at ``bind``."""
 
     analytic_edges = True
 
     def bind(self, booster) -> None:
         schema = booster.schema
         self.schema = schema
+        self.mesh = spmd.current_data_mesh()
         self.sp = booster.sp
         self.c3 = booster.c3
         self.sem = booster.sem
@@ -101,20 +110,31 @@ class DirectEngine(QueryEngine):
         self._sk_label = dict(self._sk_base)
         self._sk_label[schema.label_table] = self.sem.scale(
             self._sk_base[schema.label_table], lbl)
+        for base in (self._c3_base, self._sk_base, self._sk_label):
+            base.update(spmd.shard_factors(base, self.mesh))
+
+    def _query(self, sem, table, factor):
+        """One grouped family: ``factor(tn, local_mask)`` per table, the
+        pass on the data mesh, the output whole."""
+        cut = lambda m: spmd.shard_rows(m, self.mesh, row_axis=-1, dtype=sem.dtype)
+        with spmd.use_data_mesh(self.mesh):
+            out = self.sp(sem, {tn: factor(tn, cut) for tn in self.schema.names},
+                          group_by=table)
+            return spmd.replicate(out, self.mesh, row_axis=sem.row_dim(out),
+                                  rows=self.schema.table(table).n_rows)
 
     def grouped_c3(self, table, masks, extra=None):
-        f = {tn: self.c3.mask(self._c3_base[tn], _keep(masks, extra, tn)) for tn in masks}
-        return self.sp(self.c3, f, group_by=table)
+        return self._query(self.c3, table, lambda tn, cut: self.c3.mask(
+            self._c3_base[tn], cut(_keep(masks, extra, tn))))
 
     def grouped_count_pair(self, table, masks, extra_a, extra_b):
-        ar = Arithmetic()
-        f = {tn: (masks[tn] & extra_a[tn] & extra_b[tn]).to(torch.float32) for tn in masks}
-        return self.sp(ar, f, group_by=table)
+        return self._query(Arithmetic(), table, lambda tn, cut: cut(
+            masks[tn] & extra_a[tn] & extra_b[tn]).to(torch.float32))
 
     def grouped_sketch(self, table, masks, extra=None, labeled=False):
         base = self._sk_label if labeled else self._sk_base
-        f = {tn: self.sem.mask(base[tn], _keep(masks, extra, tn)) for tn in masks}
-        return self.sp(self.sem, f, group_by=table)
+        return self._query(self.sem, table, lambda tn, cut: self.sem.mask(
+            base[tn], cut(_keep(masks, extra, tn))))
 
     def n_rows(self, table):
         return self.schema.table(table).n_rows

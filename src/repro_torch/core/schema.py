@@ -111,7 +111,12 @@ def dense_ids(cols: Sequence[np.ndarray]) -> np.ndarray:
     return_inverse=True)`` gives, computed with 1-D ``np.unique`` for a
     single column and ``np.lexsort`` otherwise (the row-wise unique
     sorts structured records and takes many seconds at millions of
-    rows)."""
+    rows).  Where a column holds a NaN, the row-wise unique itself runs:
+    it gives every NaN row an id of its own, in an order neither fast
+    branch reproduces."""
+    if any(np.isnan(c).any() for c in cols if np.issubdtype(np.asarray(c).dtype, np.floating)):
+        _, inv = np.unique(np.stack(cols, axis=1), axis=0, return_inverse=True)
+        return inv.reshape(-1).astype(np.int64)
     if len(cols) == 1:
         _, inv = np.unique(cols[0], return_inverse=True)
         return inv.reshape(-1).astype(np.int64)

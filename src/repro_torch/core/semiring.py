@@ -42,6 +42,7 @@ class Semiring:
 
     value_shape: Tuple[int, ...] = ()
     dtype: torch.dtype = torch.float32
+    all_reduce_op = "sum"          # ⊕ across ranks (``spmd.psum_message``)
 
     def zeros(self, batch_shape=(), device=None) -> torch.Tensor:
         raise NotImplementedError
@@ -234,6 +235,7 @@ def _scatter_reduce(vals: torch.Tensor, seg: Segments, zero, reduce: str):
 class Tropical(Semiring):
     """(R ∪ {+inf}, min, +) — min-plus."""
 
+    all_reduce_op = "min"
     value_shape: Tuple[int, ...] = ()
     dtype: torch.dtype = torch.float32
 
@@ -260,6 +262,7 @@ class Tropical(Semiring):
 class BooleanSR(Semiring):
     """({False,True}, or, and)."""
 
+    all_reduce_op = "max"
     value_shape: Tuple[int, ...] = ()
     dtype: torch.dtype = torch.bool
 

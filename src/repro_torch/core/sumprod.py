@@ -16,6 +16,19 @@ paper's *grouped-by* query.  The ungrouped query is one more ⊕-reduce.
 Query families (tree nodes, leaves, leaf pairs) run as one pass with an
 explicit leading batch dim on the factors: every emission is then one
 kernel launch for the whole family.
+
+Data parallelism: under an active ``spmd`` data mesh a table whose rows
+the layout rule shards for the semiring's dtype is *local* — its factor
+arrives as this rank's row block.  An edge whose child is local runs its
+segment-⊕ over the CSR of the child's block (``spmd.local_segments``,
+built once per CSR) against the same key domain, then ONE all-reduce of
+the message with the semiring's ⊕ (``spmd.psum_message``); an edge whose
+child is replicated runs on the whole CSR with no collective (an
+all-reduce there would count every row once per rank).  A local parent
+gathers with its block of the parent ids.  A grouped result of a local
+root stays a row block (callers ``spmd.replicate`` it); the ungrouped
+reduce of a local root is all-reduced.  Query and edge accounting is
+host-side and so the same on every rank and as for one process.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ from typing import Dict, Hashable, Iterable, List, Optional, Set
 import numpy as np
 import torch
 
+from ..distributed import spmd as _spmd
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
 from .schema import JoinTree, Schema, dense_ids
@@ -138,6 +152,41 @@ def _pad_keys(sem: Semiring, msg: torch.Tensor, n_keys: int) -> torch.Tensor:
     return torch.cat([msg, pad], dim=ax)
 
 
+class _Layout:
+    """Which tables of a join tree are local row blocks on this rank."""
+
+    def __init__(self, mesh, sem: Semiring, jt: JoinTree):
+        self.mesh, self.dtype = mesh, sem.dtype
+        self.rows: Dict[int, int] = {}
+        for e in jt.edges:
+            self.rows[e.child] = e.child_seg.n_rows
+            self.rows[e.parent] = int(e.parent_ids.shape[0])
+        self.local = {t: _spmd.shards(n, sem.dtype, mesh) for t, n in self.rows.items()}
+
+    @staticmethod
+    def of(sem: Semiring, jt: JoinTree) -> Optional["_Layout"]:
+        mesh = _spmd.current_data_mesh()
+        return _Layout(mesh, sem, jt) if _spmd.data_axis_size(mesh) > 1 else None
+
+    def block(self, node: int, ids: torch.Tensor) -> torch.Tensor:
+        """The rows of a per-row tensor of ``node`` that this rank holds."""
+        lo, hi = _spmd.local_range(self.rows[node], self.dtype, self.mesh)
+        return ids[lo:hi]
+
+    def check(self, sem: Semiring, node: int, f: torch.Tensor, name: str) -> None:
+        """A factor must have its table's rows in this layout: the block
+        for a local table, all of them otherwise; nothing is resliced."""
+        if node not in self.rows:
+            return
+        want = self.rows[node] // self.mesh.size if self.local[node] else self.rows[node]
+        got = f.shape[sem.row_dim(f)]
+        if got != want:
+            raise ValueError(
+                f"factor of {name!r} has {got} rows; its layout over {self.mesh.size} ranks "
+                f"wants {want} ({'a row block' if self.local[node] else 'replicated'} of "
+                f"{self.rows[node]})")
+
+
 class SumProd:
     """Executable SumProd program for one schema."""
 
@@ -148,7 +197,9 @@ class SumProd:
     def ones_factors(self, sem: Semiring, batch_shape=()) -> Dict[str, torch.Tensor]:
         """Factor dict with ⊗-identity everywhere (q_f ≡ 1)."""
         return {
-            t.name: sem.ones(tuple(batch_shape) + (t.n_rows,), device=self.schema.device)
+            t.name: _spmd.shard_rows(sem.ones(tuple(batch_shape) + (t.n_rows,),
+                                              device=self.schema.device),
+                                     row_axis=len(batch_shape), dtype=sem.dtype)
             for t in self.schema.tables
         }
 
@@ -158,12 +209,18 @@ class SumProd:
         """Combined factor at ``node``: base factor ⊗ gathered messages
         from every child edge whose message is already available.  The
         gather axis is derived from each message's rank, so factors and
-        messages may carry leading batch dims (broadcast under ⊗)."""
-        f = factors[self.schema.names[node]]
+        messages may carry leading batch dims (broadcast under ⊗).  Under
+        a data mesh a local node's factor is its row block."""
+        name = self.schema.names[node]
+        f = factors[name]
+        lay = _Layout.of(sem, jt)
+        if lay is not None:
+            lay.check(sem, node, f, name)
         for i, e in enumerate(jt.edges):
             if e.parent == node and msgs[i] is not None:
                 m = msgs[i]
-                f = sem.mul(f, m.index_select(sem.row_dim(m), e.parent_ids))
+                ids = e.parent_ids if lay is None else lay.block(node, e.parent_ids)
+                f = sem.mul(f, m.index_select(sem.row_dim(m), ids))
         return f
 
     def _emit(self, sem, factors, jt, i, msgs):
@@ -171,7 +228,11 @@ class SumProd:
         with _span("sumprod.emit", edge=i, child=e.child, parent=e.parent,
                    n_keys=e.n_keys):
             cf = self.node_factor(sem, factors, jt, e.child, msgs)
-            return sem.segment_add(cf, e.child_seg)
+            lay = _Layout.of(sem, jt)
+            if lay is None or not lay.local[e.child]:
+                return sem.segment_add(cf, e.child_seg)
+            msg = sem.segment_add(cf, _spmd.local_segments(e.child_seg, lay.mesh))
+            return _spmd.psum_message(msg, sem.all_reduce_op, lay.mesh)
 
     def messages(self, sem: Semiring, factors: Dict[str, torch.Tensor],
                  root: Optional[str] = None,
@@ -250,7 +311,8 @@ class SumProd:
         leading batch dim evaluates a family of queries in one pass (the
         plan is shared).
         group_by: if set, return per-row results for that table (the tree
-        is rooted there).  Otherwise reduce the rows to one value each.
+        is rooted there; its row block where the table is local under a
+        data mesh).  Otherwise reduce the rows to one value each.
         """
         root_name = group_by or root or self.schema.names[0]
         jt: JoinTree = self.schema.join_tree(root_name)
@@ -260,7 +322,11 @@ class SumProd:
         out = self.node_factor(sem, factors, jt, jt.root, msgs)
         if group_by is not None:
             return out
-        return sem.reduce_add(out, dim=sem.row_dim(out))
+        red = sem.reduce_add(out, dim=sem.row_dim(out))
+        lay = _Layout.of(sem, jt)
+        if lay is not None and lay.local.get(jt.root, False):
+            red = _spmd.psum_message(red, sem.all_reduce_op, lay.mesh)
+        return red
 
 
 def materialize_join(schema: Schema) -> Dict[str, torch.Tensor]:

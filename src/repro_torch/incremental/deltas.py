@@ -40,7 +40,9 @@ def assign_ids(key_to_id: Dict[Tuple, int], cols: Sequence[np.ndarray]) -> np.nd
     its id, and unseen keys take the next ids in the order of their first
     row, entering ``key_to_id`` — the result of ``key_to_id.setdefault(key,
     len(key_to_id))`` row by row.  Each key is a tuple of the columns'
-    numpy scalars."""
+    numpy scalars, so a key holding a NaN equals no stored key: every
+    such row takes a new id (``dense_ids`` puts each in a group of its
+    own)."""
     n = len(cols[0]) if cols else 0
     if n == 0:
         return np.zeros((0,), np.int64)

@@ -42,6 +42,16 @@ served view behind the applied deltas (0 once a score refreshed it),
 the signal the serving batcher burns its staleness objective against;
 every catch-up observes the ``ivm.refresh_lag_s`` histogram and
 re-samples the ``ivm.staleness_s`` gauge.
+
+Data parallelism: the scorer takes the ensemble's data mesh (or the
+active one) and holds each capacity-padded factor as its row block where
+the layout rule shards the capacity (``spmd``); a delta writes only the
+slots this rank holds, a capacity that grows is re-laid out (the new
+capacity may not divide), refreshed messages are all-reduced, and the
+grouped (Σŷ, count) of a sharded root is replicated after ``contract``
+(row-local, so bit-equal to replicating the counts first).  Every rank
+must apply the same batches in the same order.  The recompute oracle
+runs in one process on every rank, with no collective.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ import torch
 
 from ..core.schema import Schema
 from ..core.sumprod import QueryCounter, SumProd
+from ..distributed import spmd
 from ..obs import get_registry, span
 from ..serving.compile import CompiledEnsemble, compile_ensemble, contract, stack_table_factor
 from .deltas import DynamicEdge, DynamicTable, TableDelta
@@ -80,20 +91,22 @@ class MaintainedScorer:
         self._sp = SumProd(sch, counter=self.counter)
         self.factor_dtype = ens.factor_dtype
         self.data_version = 0
+        self.mesh = ens.mesh if ens.mesh is not None else spmd.current_data_mesh()
 
         self.state = DynamicState(sch, slack=slack)
         self.tables: Dict[str, DynamicTable] = self.state.tables
         self.edges: Dict[frozenset, DynamicEdge] = self.state.edges
 
-        # capacity-padded factors: source rows verbatim, dead slots ⊕-zero
+        # capacity-padded factors: source rows verbatim, dead slots ⊕-zero;
+        # _rows holds each factor's whole row count (its capacity)
         self.factors: Dict[str, torch.Tensor] = {}
+        self._rows: Dict[str, int] = {}
         for t in sch.tables:
-            pad = self.tables[t.name].capacity - t.n_rows
-            self.factors[t.name] = torch.cat([
-                ens.factors[t.name],
-                torch.zeros((pad, self.total_leaves), dtype=self.factor_dtype,
-                            device=sch.device),
-            ])
+            cap = self.tables[t.name].capacity
+            src = spmd.replicate(ens.factors[t.name], ens.mesh, rows=t.n_rows)
+            self.factors[t.name] = spmd.shard_rows(torch.cat([
+                src, src.new_zeros((cap - t.n_rows, self.total_leaves))]), self.mesh)
+            self._rows[t.name] = cap
 
         # per-root cached state (created lazily on first score)
         self._msgs: Dict[str, List[torch.Tensor]] = {}
@@ -148,7 +161,7 @@ class MaintainedScorer:
                 # zero deleted slots BEFORE scattering fresh rows: an insert in
                 # this same delta may have reused a just-deleted slot
                 if len(ch.deleted):
-                    gone = torch.from_numpy(ch.deleted).to(self.schema.device)
+                    _, gone = self._held(ch.table, ch.deleted)
                     self.factors[ch.table][gone] = 0
                 if len(ch.changed):
                     self._refresh_factor_rows(ch.table, ch.changed)
@@ -201,21 +214,35 @@ class MaintainedScorer:
 
     def _writable_factor(self, table: str, fresh: Set[str]) -> None:
         """Give ``table`` a factor tensor of its current capacity that no
-        snapshot holds: a copy (padded with ⊕-zero rows after growth),
-        made at most once a batch unless the capacity grew again."""
-        cur = self.factors[table]
+        snapshot holds: a copy (padded with ⊕-zero rows after growth, and
+        laid out again for the new capacity), made at most once a batch
+        unless the capacity grew again."""
+        cur, old = self.factors[table], self._rows[table]
         cap = self.tables[table].capacity
-        if cap > cur.shape[0]:
-            self.factors[table] = torch.cat(
-                [cur, cur.new_zeros((cap - cur.shape[0], cur.shape[1]))])
+        if cap > old:
+            full = spmd.replicate(cur, self.mesh, rows=old)
+            self.factors[table] = spmd.shard_rows(torch.cat(
+                [full, full.new_zeros((cap - old, full.shape[1]))]), self.mesh)
+            self._rows[table] = cap
         elif table not in fresh:
             self.factors[table] = cur.clone()
         fresh.add(table)
 
+    def _held(self, table: str, slots: np.ndarray) -> Tuple[np.ndarray, torch.Tensor]:
+        """The ``slots`` whose factor rows this rank holds, and their
+        positions in its factor tensor (all of them, unsharded)."""
+        lo, hi = spmd.local_range(self._rows[table], self.factor_dtype, self.mesh)
+        slots = np.asarray(slots, np.int64)
+        mine = slots[(slots >= lo) & (slots < hi)]
+        return mine, torch.from_numpy(mine - lo).to(self.schema.device)
+
     def _refresh_factor_rows(self, table: str, slots: np.ndarray):
-        """Re-evaluate the stacked leaf masks for ``slots`` and write them
-        into the live factor (elementwise per-row ops — identical bits to
-        a full-table recompute of the same rows)."""
+        """Re-evaluate the stacked leaf masks for the ``slots`` this rank
+        holds and write them into the live factor (elementwise per-row
+        ops — identical bits to a full-table recompute of the same rows)."""
+        slots, pos = self._held(table, slots)
+        if not len(slots):
+            return
         dt = self.tables[table]
         cols = self.schema.feat_cols[table]
         if cols:
@@ -228,33 +255,41 @@ class MaintainedScorer:
         frows = stack_table_factor(self.schema, self.trees, table,
                                    featmat=torch.from_numpy(rows).to(dev),
                                    dtype=self.factor_dtype)
-        self.factors[table][torch.from_numpy(np.asarray(slots, np.int64)).to(dev)] = frows
+        self.factors[table][pos] = frows
 
     # ------------------------------------------------------------- scoring --
     def _counts(self, group_by: str) -> torch.Tensor:
-        """Grouped leaf counts via cached messages + path refresh."""
+        """Grouped leaf counts via cached messages + path refresh (this
+        rank's rows of them under a mesh)."""
         jt = self.state.jt(group_by)
         sem, sp = self._sem, self._sp
         dirty = self._dirty.get(group_by)
-        if group_by not in self._msgs:
-            self._msgs[group_by] = sp.messages(sem, self.factors, jt=jt)
-        elif dirty:
-            t0 = time.perf_counter()
-            with span("ivm.refresh", root=group_by, dirty=len(dirty)):
-                self._msgs[group_by] = sp.refresh_messages(
-                    sem, self.factors, self._msgs[group_by], dirty, jt)
-            get_registry().histogram("ivm.refresh_ms").observe(
-                (time.perf_counter() - t0) * 1e3)
-        self._dirty[group_by] = set()
-        self._note_fresh(group_by)
-        return sp.node_factor(sem, self.factors, jt, jt.root, self._msgs[group_by])
+        with spmd.use_data_mesh(self.mesh):
+            if group_by not in self._msgs:
+                self._msgs[group_by] = sp.messages(sem, self.factors, jt=jt)
+            elif dirty:
+                t0 = time.perf_counter()
+                with span("ivm.refresh", root=group_by, dirty=len(dirty)):
+                    self._msgs[group_by] = sp.refresh_messages(
+                        sem, self.factors, self._msgs[group_by], dirty, jt)
+                get_registry().histogram("ivm.refresh_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+            self._dirty[group_by] = set()
+            self._note_fresh(group_by)
+            return sp.node_factor(sem, self.factors, jt, jt.root, self._msgs[group_by])
+
+    def _contract(self, counts: torch.Tensor, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(Σŷ, |ρ⋈J|) of a root's counts, whole on every rank."""
+        return tuple(spmd.replicate(x, self.mesh, rows=rows)
+                     for x in contract(counts, self.leaf_values, self.tree0_leaves))
 
     def score_grouped(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Σŷ, |ρ⋈J|) per slot of ``group_by`` — maintained counts, same
         contraction as the compiled scorer.  Dead slots read (0, 0)."""
         if self.counter is not None:
             self.counter.bump(1)
-        return contract(self._counts(group_by), self.leaf_values, self.tree0_leaves)
+        counts = self._counts(group_by)
+        return self._contract(counts, self._rows[group_by])
 
     def grouped_cached(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         if group_by not in self._grouped:
@@ -281,12 +316,14 @@ class MaintainedScorer:
         """The recompute oracle over an EXPLICIT effective schema /
         live-slot / capacity pin — shared by :meth:`recompute_oracle`
         (current state) and :meth:`Snapshot.recompute_oracle` (a frozen
-        historical version)."""
-        fresh = compile_ensemble(eff, self.trees, factor_dtype=self.factor_dtype)
-        sp = SumProd(eff)
-        jt = eff.join_tree(group_by)
-        msgs = sp.messages(fresh._sem, fresh.factors, jt=jt)
-        counts = sp.node_factor(fresh._sem, fresh.factors, jt, jt.root, msgs)
+        historical version).  It runs in one process on every rank:
+        ground truth must not depend on the sharding."""
+        with spmd.use_data_mesh(None):
+            fresh = compile_ensemble(eff, self.trees, factor_dtype=self.factor_dtype)
+            sp = SumProd(eff)
+            jt = eff.join_tree(group_by)
+            msgs = sp.messages(fresh._sem, fresh.factors, jt=jt)
+            counts = sp.node_factor(fresh._sem, fresh.factors, jt, jt.root, msgs)
         full = counts.new_zeros((capacity, counts.shape[1]))
         full[torch.from_numpy(np.asarray(live, np.int64)).to(counts.device)] = counts
         return contract(full, fresh.leaf_values, fresh.tree0_leaves)
@@ -356,9 +393,10 @@ class MaintainedScorer:
             self.factors = {}
             for t in self.schema.tables:
                 dt = self.tables[t.name]
-                self.factors[t.name] = torch.zeros(
+                self.factors[t.name] = spmd.shard_rows(torch.zeros(
                     (dt.capacity, self.total_leaves), dtype=self.factor_dtype,
-                    device=self.schema.device)
+                    device=self.schema.device), self.mesh)
+                self._rows[t.name] = dt.capacity
                 live = dt.live_slots()
                 if len(live):
                     self._refresh_factor_rows(t.name, live)
@@ -389,9 +427,10 @@ class MaintainedScorer:
         ``group_by``'s join tree re-emitted): the baseline of the edge and
         latency ratios.  Touches no cached message."""
         jt = self.state.jt(group_by)
-        msgs = self._sp.messages(self._sem, self.factors, jt=jt)
-        counts = self._sp.node_factor(self._sem, self.factors, jt, jt.root, msgs)
-        return contract(counts, self.leaf_values, self.tree0_leaves)
+        with spmd.use_data_mesh(self.mesh):
+            msgs = self._sp.messages(self._sem, self.factors, jt=jt)
+            counts = self._sp.node_factor(self._sem, self.factors, jt, jt.root, msgs)
+        return self._contract(counts, self._rows[group_by])
 
 
 class Snapshot:
@@ -424,6 +463,7 @@ class Snapshot:
         self.jt_version = view.jt_version
         self.factors = factors
         self.leaf_values = leaf_values
+        self.mesh = owner.mesh
         self._msgs = msgs           # root → message list (None until scored)
         self._dirty = dirty         # root → frozenset of dirty table idx
         self._grouped: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -439,7 +479,7 @@ class Snapshot:
         jt = self.view.jt(group_by)              # KeyError if not pinned
         o = self._owner
         sem, sp = o._sem, o._sp
-        with self._lock:
+        with self._lock, spmd.use_data_mesh(self.mesh):
             msgs = self._msgs.get(group_by)
             dirty = self._dirty.get(group_by, frozenset())
             if msgs is None:
@@ -453,7 +493,8 @@ class Snapshot:
             self._msgs[group_by] = msgs
             self._dirty[group_by] = frozenset()
         o._absorb(group_by, self.data_version, msgs)
-        return sp.node_factor(sem, self.factors, jt, jt.root, msgs)
+        with spmd.use_data_mesh(self.mesh):
+            return sp.node_factor(sem, self.factors, jt, jt.root, msgs)
 
     def score_grouped(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Σŷ, |ρ⋈J|) per slot at this snapshot's pinned version —
@@ -461,7 +502,8 @@ class Snapshot:
         o = self._owner
         if o.counter is not None:
             o.counter.bump(1)
-        return contract(self._counts(group_by), self.leaf_values, o.tree0_leaves)
+        counts = self._counts(group_by)
+        return o._contract(counts, self.view.capacities[group_by])
 
     def grouped_cached(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         with self._lock:

@@ -33,6 +33,14 @@ are all equal is found so there and only its first row is copied to the
 host; ``signature_s`` adds up the host seconds the signatures take.
 Every real segment-⊕ emission (the segment-⊕ kernel on CUDA) bumps
 ``QueryCounter.edges`` (``analytic_edges = False``).
+
+Under the data mesh active when the engine is built, its query bases are
+this rank's row blocks of the capacity slots, each query cuts its keep
+masks to them, and the grouped outputs are replicated.  The signatures
+stay digests of the WHOLE keep masks, the same bytes on every rank, so
+every rank hits and misses the message cache as one process does — and
+so runs the same collectives in the same order.  The feature matrices,
+which the trainer builds its masks and split plans from, stay whole.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from ..core.sketch import TableHashes, monomial_coeff, monomial_freq
 from ..core.sumprod import MessageCache, QueryCounter, SumProd
 from ..core.trainer import BoostConfig, Booster, FitTrace
 from ..core.tree import TreeArrays
+from ..distributed import spmd
 from ..obs import get_registry, span
 from .deltas import TableDelta, assign_ids
 from .state import DynamicState, TableChange
@@ -68,6 +77,7 @@ class MaintainedEngine(QueryEngine):
                  max_cache_per_edge: int = 64):
         self.state = state
         self.counter = counter
+        self.mesh = spmd.current_data_mesh()
         self.cache = MessageCache(max_per_edge=max_cache_per_edge)
         self.signature_s = 0.0                   # host seconds of mask signatures
         self._version: Dict[str, int] = {n: 0 for n in state.tables}
@@ -188,6 +198,8 @@ class MaintainedEngine(QueryEngine):
         m = self.sem.mask(mono(self.sem, h.sign(w), h.bucket(w)), live)
         self._sk_base[name] = m
         self._sk_label[name] = self.sem.scale(m, lbl) if lbl is not None else m
+        for base in (self._cnt_base, self._c3_base, self._sk_base, self._sk_label):
+            base[name] = spmd.shard_factor(base[name], self.mesh)
 
     # ------------------------------------------------------------- queries --
     def _combine(self, name: str, mask, extra):
@@ -222,14 +234,18 @@ class MaintainedEngine(QueryEngine):
         K = next(iter(keeps.values())).shape[0]
         factors, sigs = {}, {}
         with span("engine.grouped", table=table,
-                  kind=kinds if isinstance(kinds, str) else "sk"):
+                  kind=kinds if isinstance(kinds, str) else "sk"), \
+                spmd.use_data_mesh(self.mesh):
             for name, keep in keeps.items():
                 rows, n_rows, digest = self._signature(keep)
                 kind = kinds if isinstance(kinds, str) else kinds[name]
                 sigs[name] = (kind, self._version[name], n_rows, digest)
+                rows = spmd.shard_rows(rows, self.mesh, row_axis=-1, dtype=sem.dtype)
                 factors[name] = sem.mask(bases[name][None], rows)
             msgs = self.sp.messages_memo(sem, factors, jt, sigs, self.cache)
             out = self.sp.node_factor(sem, factors, jt, jt.root, msgs)
+            out = spmd.replicate(out, self.mesh, row_axis=1,
+                                 rows=self.state.capacity(table))
         if out.shape[0] != K:
             out = out.expand((K,) + tuple(out.shape[1:]))
         return out

@@ -25,6 +25,11 @@ edge's CSR and parent ids only when that side's ids were written since
 and every other edge keeps its objects; a side's ids go to the device
 once whether it serves as child, parent or both.  ``csr_s`` adds up
 the host seconds those rebuilds take, ``csr_builds`` counts the CSRs.
+Under a data mesh a SumProd pass walks the CSR of this rank's block of a
+local child's capacity slots (``spmd.local_segments``), built once per
+edge CSR, so it too is rebuilt only when that side moved; the layout is
+decided afresh from each side's capacity, which a growth can make
+indivisible.
 
 Concurrency: the state owns a reentrant ``lock`` serializing mutation
 against snapshot capture.  :meth:`apply` holds it for the whole batch

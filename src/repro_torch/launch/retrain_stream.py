@@ -21,16 +21,26 @@ thread, ``--slo`` judges each batch's refit latency and the model's
 staleness, ``--flight N`` dumps the newest N spans past
 ``--flight-latency-ms`` (``FLIGHT_retrain_*.json``), ``--sample PATH``
 appends metric deltas to a JSONL series.
+
+Data parallel: ``torchrun --nproc-per-node N -m
+repro_torch.launch.retrain_stream --mesh N`` shards the maintained query
+bases over N ranks (gloo with ``--device cpu``, NCCL with one card a rank
+on CUDA).  Every rank runs the same seeded stream; rank 0 prints and
+owns the telemetry and the trace.  The audit's full refit runs in one
+process on every rank.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
 
 from repro_torch.core import BoostConfig, Booster, materialize_join, predict_rows
+from repro_torch.distributed import spmd
 from repro_torch.incremental import IncrementalBooster
+from repro_torch.launch._devices import add_device_args, is_lead, resolve_mesh, shutdown
 from repro_torch.obs import (
     FlightRecorder, PeriodicSampler, SLOMonitor, TelemetryServer, disable_tracing,
     enable_tracing,
@@ -107,15 +117,26 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device for tables, queries and kernels "
                          "(cuda raises on a host without a GPU)")
+    add_device_args(ap)
     args = ap.parse_args(argv)
-    if args.trace:
+    mesh = resolve_mesh(args)
+    lead = is_lead(mesh)
+    with contextlib.nullcontext() if lead else contextlib.redirect_stdout(None):
+        return _run(args, mesh, lead)
+
+
+def _run(args, mesh, lead: bool):
+    if args.trace and lead:
         enable_tracing()
 
     schema = build_schema(args)
     cfg = BoostConfig(n_trees=args.trees, depth=args.depth, mode="sketch",
                       ssr_mode="off", seed=args.seed,
                       split_mode=args.split_mode, hist_bins=args.hist_bins)
-    ib = IncrementalBooster(schema, cfg)
+    with spmd.use_data_mesh(mesh):
+        ib = IncrementalBooster(schema, cfg)
+    if mesh is not None:
+        print(f"data-parallel over {spmd.data_axis_size(mesh)} ranks ({mesh.backend})")
     t0 = time.perf_counter()
     ib.fit()
     print(f"initial fit on {schema.device}: {len(ib.trees)} trees in "
@@ -124,21 +145,21 @@ def main(argv=None):
           f"(cache hit rate {ib.engine.cache.hit_rate:.2f})")
 
     slo = (SLOMonitor(parse_slo_spec(args.slo), fast_window_s=5.0, slow_window_s=30.0)
-           if args.slo else None)
+           if args.slo and lead else None)
     flight = None
-    if args.flight:
+    if args.flight and lead:
         flight = FlightRecorder(capacity=args.flight, name="retrain",
                                 latency_trigger_ms=args.flight_latency_ms,
                                 cooldown_s=5.0).start()
     telemetry = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
         telemetry = TelemetryServer(
             slo=slo, flight=flight, port=args.metrics_port,
             status_fn=lambda: {"n_trees": len(ib.trees), "staleness_s": ib.staleness_s()})
         telemetry.start_in_thread()
         print(f"telemetry: {telemetry.url('/metricsz')}  {telemetry.url('/healthz')}")
     sampler = None
-    if args.sample:
+    if args.sample and lead:
         sampler = PeriodicSampler(
             args.sample, interval_s=args.sample_interval,
             extra_fn=lambda: {"n_trees": len(ib.trees), "staleness_s": ib.staleness_s(),
@@ -194,7 +215,7 @@ def main(argv=None):
         st = flight.status()
         print(f"flight recorder: {st['buffered']} spans buffered, {len(st['dumps'])} dump(s)")
     print(format_summary_table(get_registry().snapshot(), title="retrain_stream metrics"))
-    if args.trace:
+    if args.trace and lead:
         n = get_tracer().dump_chrome_trace(args.trace)
         get_tracer().dump_jsonl(args.trace + ".jsonl")
         disable_tracing()
@@ -204,3 +225,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

@@ -25,11 +25,22 @@ service's admission control, ``--flight N`` keeps the newest N spans and
 dumps them (``FLIGHT_serve_*.json`` in the working directory) past
 ``--flight-latency-ms`` or on a failed dispatch, and ``--sample PATH``
 appends metric deltas to a JSONL series.
+
+Data parallel: ``torchrun --nproc-per-node N -m
+repro_torch.launch.serve_relational --mesh N`` fits and compiles with the
+factors sharded over N ranks (gloo with ``--device cpu``, NCCL with one
+card a rank on CUDA).  Collectives run only where every rank runs the
+same program: the fit, the compile, and one bulk pass of the served
+table for the model and for the hot swap's model, all before traffic.
+Rank 0 alone then serves, and its requests read those replicated
+results.  ``--follow`` needs one process: a follower applies the log on
+its own clock, so the ranks' collectives would fall out of step.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import os
 import time
@@ -38,6 +49,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.core import BoostConfig, Booster, QueryCounter
+from repro_torch.distributed import spmd
+from repro_torch.launch._devices import add_device_args, is_lead, resolve_mesh, shutdown
 from repro_torch.obs import (
     FlightRecorder, PeriodicSampler, SLOMonitor, TelemetryServer, disable_tracing, enable_tracing,
     format_summary_table, get_registry, get_tracer, merge_snapshots, parse_slo_spec,
@@ -146,10 +159,12 @@ def wire(args, registry: ModelRegistry, group: str, extra_staleness=None,
 
 
 async def drive(service, n_rows, n_requests, concurrency, zipf_a, registry,
-                schema, args, counter, telemetry=None, hot_swap=True, probe=None):
+                schema, args, counter, telemetry=None, hot_swap=True, probe=None,
+                swap_model=None):
     """Warm up outside the SLO clock, serve ``n_requests`` zipf-skewed
     requests in chunks of ``concurrency`` (an overloaded chunk is shed
-    and counted), then hot-swap a refreshed model.  ``probe(stage)``, a
+    and counted), then hot-swap a refreshed model (``swap_model``, else
+    one trained and compiled here).  ``probe(stage)``, a
     blocking callable (a scrape of the telemetry server), runs on a worker
     thread while the loop keeps serving HTTP: ``"mid"`` half-way through
     the traffic (the requests wait for it; its time is left out of the
@@ -197,8 +212,8 @@ async def drive(service, n_rows, n_requests, concurrency, zipf_a, registry,
            "batches": snap["batches"], "cache_hit_rate": snap["cache_hit_rate"],
            "shed_chunks": shed_chunks, "ids": ids, "answers": answers}
     if hot_swap:
-        v2 = registry.publish(compile_ensemble(schema, train(schema, args, seed=7),
-                                               counter=counter))
+        v2 = registry.publish(swap_model if swap_model is not None else compile_ensemble(
+            schema, train(schema, args, seed=7), counter=counter))
         more = rng.integers(0, n_rows, 64)
         try:
             got = await service.score_many(more.tolist())
@@ -290,15 +305,38 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device for tables, queries and kernels "
                          "(cuda raises on a host without a GPU)")
+    add_device_args(ap)
     args = ap.parse_args(argv)
+    mesh = resolve_mesh(args)
+    if args.follow and spmd.data_axis_size(mesh) > 1:
+        raise ValueError("--follow needs one process (--mesh 0 or 1): a follower applies "
+                         "the log on its own clock, so the ranks' collectives would fall "
+                         "out of step")
+    lead = is_lead(mesh)
+    with contextlib.nullcontext() if lead else contextlib.redirect_stdout(None):
+        return _run(args, mesh, lead)
 
+
+def _run(args, mesh, lead: bool):
     schema = build_schema(args)
-    trees = train(schema, args)
-    counter = QueryCounter()
-    ens = compile_ensemble(schema, trees, counter=counter)
     group = schema.label_table
+    counter = QueryCounter()
+    swap = None
+    with spmd.use_data_mesh(mesh):
+        trees = train(schema, args)
+        ens = compile_ensemble(schema, trees, counter=counter)
+        if spmd.data_axis_size(mesh) > 1:
+            # every rank runs these bulk passes; the served requests then
+            # read their replicated results and run no collective
+            ens.grouped_cached(group)
+            swap = compile_ensemble(schema, train(schema, args, seed=7), counter=counter)
+            swap.grouped_cached(group)
     print(f"compiled ensemble: {ens.n_trees} trees, {ens.total_leaves} stacked "
-          f"leaves over {schema.n_tables} tables (group_by={group}) on {schema.device}")
+          f"leaves over {schema.n_tables} tables (group_by={group}) on {schema.device}"
+          + (f", data-parallel over {mesh.size} ranks ({mesh.backend})"
+             if swap is not None else ""))
+    if not lead:
+        return {"evals": counter.count}
 
     follower = extra = None
     serve_model = ens
@@ -316,7 +354,7 @@ def main(argv=None):
     n_rows = schema.table(group).n_rows
     out = asyncio.run(drive(w.service, n_rows, args.requests, args.concurrency, args.zipf,
                             registry, schema, args, counter, telemetry=w.telemetry,
-                            hot_swap=follower is None))
+                            hot_swap=follower is None, swap_model=swap))
     if follower is not None:
         follower.stop(drain=True)
         out["applied_lsn"] = follower.applied_lsn
@@ -335,3 +373,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

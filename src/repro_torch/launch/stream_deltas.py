@@ -25,17 +25,27 @@ batch's maintenance latency and the served data's staleness,
 ``--flight N`` dumps the newest N spans past ``--flight-latency-ms``
 (``FLIGHT_deltas_*.json``), ``--sample PATH`` appends metric deltas to a
 JSONL series.
+
+Data parallel: ``torchrun --nproc-per-node N -m
+repro_torch.launch.stream_deltas --mesh N`` shards the maintained
+factors over N ranks (gloo with ``--device cpu``, NCCL with one card a
+rank on CUDA).  Every rank runs the same seeded stream; rank 0 prints,
+writes the log and checkpoints, and owns the telemetry.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
 import numpy as np
 
 from repro_torch.core import BoostConfig, Booster, QueryCounter
+from repro_torch.distributed import spmd
 from repro_torch.incremental import MaintainedScorer
+from repro_torch.launch._devices import (add_device_args, barrier, is_lead, resolve_mesh,
+                                         shutdown)
 from repro_torch.obs import (
     FlightRecorder, PeriodicSampler, SLOMonitor, TelemetryServer, format_summary_table,
     get_registry, parse_slo_spec,
@@ -102,14 +112,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device for tables, queries and kernels "
                          "(cuda raises on a host without a GPU)")
+    add_device_args(ap)
     args = ap.parse_args(argv)
+    mesh = resolve_mesh(args)
+    lead = is_lead(mesh)
+    with contextlib.nullcontext() if lead else contextlib.redirect_stdout(None):
+        return _run(args, mesh, lead)
 
+
+def _run(args, mesh, lead: bool):
     schema = build_schema(args)
     group = schema.label_table
     cfg = BoostConfig(n_trees=args.trees, depth=args.depth, mode="sketch", ssr_mode="off")
-    trees, _ = Booster(schema, cfg).fit()
     counter = QueryCounter()
-    ms = MaintainedScorer(compile_ensemble(schema, trees), counter=counter)
+    with spmd.use_data_mesh(mesh):
+        trees, _ = Booster(schema, cfg).fit()
+        ms = MaintainedScorer(compile_ensemble(schema, trees), counter=counter)
+    if mesh is not None:
+        print(f"data-parallel over {spmd.data_axis_size(mesh)} ranks ({mesh.backend})")
     wal = ckpt_dir = None
     if args.wal_dir:
         from repro_torch.incremental.recover import recover_scorer, save_checkpoint
@@ -117,14 +137,17 @@ def main(argv=None):
 
         ckpt_dir = os.path.join(args.wal_dir, "ckpt")
         if os.path.exists(wal_path(args.wal_dir)) or os.path.isdir(ckpt_dir):
-            ms, rep = recover_scorer(
-                compile_ensemble(schema, trees), args.wal_dir,
-                ckpt_dir if os.path.isdir(ckpt_dir) else None, counter=counter)
+            with spmd.use_data_mesh(mesh):
+                ms, rep = recover_scorer(
+                    compile_ensemble(schema, trees), args.wal_dir,
+                    ckpt_dir if os.path.isdir(ckpt_dir) else None, counter=counter)
             print(f"recovered: checkpoint lsn {rep.checkpoint_lsn} + "
                   f"{rep.replayed} replayed → data_v{rep.recovered_lsn} "
                   f"({rep.tail_bytes_discarded}B torn tail discarded)")
-        wal = WalWriter(args.wal_dir, sync_every=args.wal_sync_every,
-                        repair=True).attach(ms.state)
+        barrier(mesh)                    # every rank has read the log before rank 0 writes
+        if lead:
+            wal = WalWriter(args.wal_dir, sync_every=args.wal_sync_every,
+                            repair=True).attach(ms.state)
     registry = ModelRegistry()
     v = registry.publish(ms)
     ms.grouped_cached(group)                      # prime the message cache
@@ -134,14 +157,14 @@ def main(argv=None):
           f"segment-⊕ edges")
 
     slo = (SLOMonitor(parse_slo_spec(args.slo), fast_window_s=5.0, slow_window_s=30.0)
-           if args.slo else None)
+           if args.slo and lead else None)
     flight = None
-    if args.flight:
+    if args.flight and lead:
         flight = FlightRecorder(capacity=args.flight, name="deltas",
                                 latency_trigger_ms=args.flight_latency_ms,
                                 cooldown_s=5.0).start()
     telemetry = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
         telemetry = TelemetryServer(
             slo=slo, flight=flight, port=args.metrics_port,
             status_fn=lambda: {"data_version": ms.data_version,
@@ -149,7 +172,7 @@ def main(argv=None):
         telemetry.start_in_thread()
         print(f"telemetry: {telemetry.url('/metricsz')}  {telemetry.url('/healthz')}")
     sampler = None
-    if args.sample:
+    if args.sample and lead:
         sampler = PeriodicSampler(
             args.sample, interval_s=args.sample_interval,
             extra_fn=lambda: {"data_version": ms.data_version,
@@ -181,7 +204,7 @@ def main(argv=None):
         if (bi + 1) % args.audit_every == 0:
             err = audit(ms, group)
             note = f"  audit max|Δ|={err:.1e}" + ("  OK" if err == 0.0 else "  DRIFT!")
-        if (ckpt_dir is not None and args.checkpoint_every
+        if (wal is not None and args.checkpoint_every
                 and (bi + 1) % args.checkpoint_every == 0):
             path = save_checkpoint(ms.state, ckpt_dir)
             note += f"  ckpt→{os.path.basename(path)}"
@@ -220,3 +243,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

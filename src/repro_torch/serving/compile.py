@@ -22,6 +22,12 @@ and the served quantities are two dense contractions:
 SumProd evaluations per request drop from n_trees·L + 1 to **1**; the
 wide segment-⊕ that remains is a (n_rows, total_leaves) segment sum,
 which on CUDA runs the segment-⊕ kernel (``kernels/segment_sum``).
+
+Under a data mesh the ensemble holds its factors as row blocks
+(``spmd.shard_factors``); a grouped pass contracts the local rows and
+replicates (Σŷ, count).  ``contract`` is row-local, so the bits do not
+depend on the blocking, and leaf-mask counts are integers, exact under
+the cross-rank sums: the scores equal one process's bit for bit.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from ..core.schema import Schema
 from ..core.semiring import Channels
 from ..core.sumprod import QueryCounter, SumProd
 from ..core.tree import TreeArrays, leaf_masks
+from ..distributed import spmd
 
 
 def stack_table_factor(schema: Schema, trees: List[TreeArrays], table: str,
@@ -80,6 +87,12 @@ class CompiledEnsemble:
 
     ``data_version`` is bumped by whoever mutates served state in place;
     caches keyed on it never serve stale scores.
+
+    ``mesh``: the data mesh the factors are sharded over (None: one
+    process).  Every score re-enters it; under a mesh of more than one
+    rank, :meth:`score_grouped` is a collective that every rank must
+    call, so a server fills ``grouped_cached`` on every rank before it
+    takes traffic.
     """
 
     schema: Schema
@@ -91,11 +104,13 @@ class CompiledEnsemble:
     counter: Optional[QueryCounter] = None
     factor_dtype: torch.dtype = torch.float32
     data_version: int = 0
+    mesh: Optional[spmd.DataMesh] = None
 
     def __post_init__(self):
         self._sp = SumProd(self.schema)
         self._sem = Channels(self.total_leaves, self.factor_dtype)
         self._grouped: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.factors = spmd.shard_factors(self.factors, self.mesh)
 
     @property
     def total_leaves(self) -> int:
@@ -107,14 +122,17 @@ class CompiledEnsemble:
 
     def n_rows(self, table: str) -> int:
         """Row-id domain of ``table``'s factor."""
-        return int(self.factors[table].shape[0])
+        return self.schema.table(table).n_rows
 
     def score_grouped(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Σŷ, |ρ⋈J|) per row of ``group_by`` — ONE SumProd evaluation."""
         if self.counter is not None:
             self.counter.bump(1)
-        counts = self._sp(self._sem, self.factors, group_by=group_by)   # (n_g, A)
-        return contract(counts, self.leaf_values, self.tree0_leaves)
+        with spmd.use_data_mesh(self.mesh):
+            counts = self._sp(self._sem, self.factors, group_by=group_by)   # (n_g, A)
+        rows = self.n_rows(group_by)
+        return tuple(spmd.replicate(x, self.mesh, rows=rows)
+                     for x in contract(counts, self.leaf_values, self.tree0_leaves))
 
     def grouped_cached(self, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """Memoized full-table scores: tables are static per model version,
@@ -126,8 +144,10 @@ class CompiledEnsemble:
 
 def compile_ensemble(schema: Schema, trees: List[TreeArrays], use_kernel: bool = False,
                      counter: Optional[QueryCounter] = None,
-                     factor_dtype=torch.float32) -> CompiledEnsemble:
-    """Stack per-table leaf masks across all trees into channel factors.
+                     factor_dtype=torch.float32,
+                     mesh: Optional[spmd.DataMesh] = None) -> CompiledEnsemble:
+    """Stack per-table leaf masks across all trees into channel factors,
+    sharded over ``mesh`` (default: the active data mesh).
     ``use_kernel`` has no effect (see :class:`CompiledEnsemble`)."""
     if not trees:
         raise ValueError("cannot compile an empty ensemble")
@@ -138,4 +158,5 @@ def compile_ensemble(schema: Schema, trees: List[TreeArrays], use_kernel: bool =
         schema=schema, trees=list(trees), leaf_values=leaf_values, factors=factors,
         tree0_leaves=int(trees[0].leaf.shape[0]), use_kernel=use_kernel,
         counter=counter, factor_dtype=factor_dtype,
+        mesh=mesh if mesh is not None else spmd.current_data_mesh(),
     )

@@ -10,6 +10,10 @@
 
 :func:`score_grouped_reference` keeps the per-leaf-per-tree loop (with
 analytic query accounting) as the test baseline.
+
+Every entry re-enters the model's data mesh (``mesh``; none for a model
+without one), so a sharded model is scored as it was compiled whatever
+mesh the calling thread has active.
 """
 from __future__ import annotations
 
@@ -22,12 +26,19 @@ from ..core.schema import Schema
 from ..core.semiring import Arithmetic
 from ..core.sumprod import QueryCounter, SumProd
 from ..core.tree import TreeArrays, all_tables_leaf_masks, predict_rows
+from ..distributed import spmd
 from .compile import CompiledEnsemble
+
+
+def _mesh_of(ens):
+    """The data mesh a model was built under (None: one process)."""
+    return getattr(ens, "mesh", None)
 
 
 def score_grouped(ens: CompiledEnsemble, group_by: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row-of-``group_by`` (Σ ŷ(x), count) over x ∈ ρ⋈J — one pass."""
-    return ens.score_grouped(group_by)
+    with spmd.use_data_mesh(_mesh_of(ens)):
+        return ens.score_grouped(group_by)
 
 
 def score_rows(ens: CompiledEnsemble, group_by: str, row_ids
@@ -42,7 +53,8 @@ def score_rows(ens: CompiledEnsemble, group_by: str, row_ids
         bad = ids[(ids < 0) | (ids >= n)][:5]
         raise IndexError(
             f"row ids out of range for table {group_by!r} (n_rows={n}): {bad.tolist()}")
-    tot, cnt = ens.grouped_cached(group_by)
+    with spmd.use_data_mesh(_mesh_of(ens)):
+        tot, cnt = ens.grouped_cached(group_by)
     idx = torch.from_numpy(ids).to(tot.device)
     return tot[idx], cnt[idx]
 
@@ -73,17 +85,19 @@ def score_grouped_reference(schema: Schema, trees: List[TreeArrays], group_by: s
                             counter: Optional[QueryCounter] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-leaf scoring loop: one Arithmetic SumProd pass per leaf per
-    tree + one count pass (n_trees·L + 1 queries, accounted analytically)."""
+    tree + one count pass (n_trees·L + 1 queries, accounted analytically),
+    in one process whatever mesh is active."""
     ar = Arithmetic()
     sp = SumProd(schema)
     dev = schema.device
     tot = torch.zeros((schema.table(group_by).n_rows,), dtype=torch.float32, device=dev)
-    for t in trees:
-        lm = all_tables_leaf_masks(schema, t)
-        for a in range(int(t.leaf.shape[0])):
-            f = {tn: lm[tn][a].to(torch.float32) for tn in lm}
-            tot = tot + t.leaf[a] * sp(ar, f, group_by=group_by)
-    cnt = sp(ar, sp.ones_factors(ar), group_by=group_by)
+    with spmd.use_data_mesh(None):
+        for t in trees:
+            lm = all_tables_leaf_masks(schema, t)
+            for a in range(int(t.leaf.shape[0])):
+                f = {tn: lm[tn][a].to(torch.float32) for tn in lm}
+                tot = tot + t.leaf[a] * sp(ar, f, group_by=group_by)
+        cnt = sp(ar, sp.ones_factors(ar), group_by=group_by)
     if counter is not None:
         counter.bump(sum(int(t.leaf.shape[0]) for t in trees) + 1)
     return tot, cnt

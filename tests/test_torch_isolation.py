@@ -56,7 +56,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
               "repro_torch.data.pipeline", "repro_torch.data.synthetic",
               "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
               "repro_torch.launch.steps", "repro_torch.obs.flight", "repro_torch.obs.slo",
-              "repro_torch.obs.exposition", "repro_torch.serving.multi"):
+              "repro_torch.obs.exposition", "repro_torch.serving.multi",
+              "repro_torch.distributed.spmd", "repro_torch.distributed.collectives",
+              "repro_torch.launch.mesh", "repro_torch.launch._devices"):
         assert m in mods
     code = (
         "import importlib, sys\n"
