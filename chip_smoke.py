@@ -44,11 +44,24 @@ Phases (any failure exits non-zero):
      −3.3 to −3.7 a token at c 16 (twice that at c 8), which put every
      chunk's cumulative decay just above the −60 where the factored form
      ends, held to the same gates; prints the largest err/W;
+   - the WKV backward kernel (``rwkv6_chunk_bwd.cu``) against its plain
+     version (``ref.rwkv6_chunk_bwd_ref``) in float64 at phase 11's training
+     shape (1, 2048, 32, 64, c 16), the reference test's (2, 64, 2, 32, 16)
+     and (3, 48, 1, 16, 8), and in strong-decay chunks ((1, 256, 2, 64, 16)
+     and (1, 128, 2, 32, 8), every chunk decaying by 53–59, just inside the
+     −60 clip, or by 80–96, past it): dr, dk, dv, dlogw and du each within
+     1e-4 · scale per element, the scale ``ref.rwkv6_chunk_bwd_scale`` (the
+     same formulas on |r|, |k|, |v|, |u|, |do|, the decays' two cancelling
+     sums as magnitudes), and bit-equal on a second run.  Prints kernel,
+     plain (float32) and bound times; no single PyTorch call computes the
+     WKV's gradient;
    - the flash_attention kernel (``flash_attention.cu``) against a dense
      softmax in float64 over the same inputs at the TinyLlama prefill's
      shape (B 8, S 2048, 32 query heads, 4 K/V heads, dh 64, causal) in
      bf16 and in float32, one long prompt (1, 8192, 32, 4, 64), Qwen2.5-32B
-     / Llama-3 heads (2, 1024, 40, 8, 128), an encoder side (2, 512, 16,
+     / Llama-3 heads (2, 1024, 40, 8, 128), phase 12's three prefills
+     (Granite-3-8B (8, 2048, 32, 8, 128), Qwen2.5-32B (1, 2048, 40, 8, 128)
+     and Llama-3-405B (1, 2048, 128, 8, 128): 16 query heads a K/V head), an encoder side (2, 512, 16,
      16, 64, not causal, f32), a ragged S (3, 1000, 8, 2, 32, f32) and the
      smoke config's (2, 24, 8, 1, 16, f32), on numpy-seeded standard-normal
      q, k, v: per element, |kernel − dense_f64| ≤ 2e-5 · max|v| in
@@ -71,7 +84,11 @@ Phases (any failure exits non-zero):
      128) and at every TinyLlama gradient leaf that the compressor
      sketches: ln_f (2,048, 2⁹), ln1/ln2 (45,056, 2¹³), w_down/w_gate/w_up
      (253,755,392, 2²⁵), wq/wo (92,274,688, 2²⁴), embed (66,060,288, 2²³)
-     and wk/wv (11,534,336, 2²¹): per bucket j, |kernel − float64| ≤ 2⁻²³ ·
+     and wk/wv (11,534,336, 2²¹), and at every RWKV-6 1.6B leaf of phase
+     11: ck/cv (352,321,536, 2²⁶: the slabs route, 8 slabs), embed and
+     head (134,217,728, 2²⁵), wr/wk/wv/wg/wo/cr (100,663,296, 2²⁴), wA/wB
+     (3,145,728, 2¹⁹), mu (245,760, 2¹⁵), mu_c (98,304, 2¹⁴) and the
+     vectors (49,152, 2¹³): per bucket j, |kernel − float64| ≤ 2⁻²³ ·
      m_j · W_j (m_j terms, W_j = Σ|x_t| over them; the atomics add in no
      fixed order), the route the plan did not take (bins or slabs, at the
      large leaves) too; the unsketch within 2⁻²³ · |value| of the plain
@@ -274,6 +291,64 @@ Phases (any failure exits non-zero):
    Two ranks sharing one card through the host measure correctness and
    the collectives' host cost, not the speed of several cards.
 
+11. The paper's pipeline stage feeding LM training (the reference's
+   ``examples/relational_data_pipeline.py``), on phase 4's resident star
+   (1,048,576 fact rows, one a document; cut from phase 2's 2²² for phase
+   4's reason: a (4, 2²², 257) complex sketch factor is ~16 GiB).  (a)
+   After phase 7: ``configs.get("paper_rbrt")`` (8 trees, depth 4,
+   sketch k 256, per-table SSR) fitted, then ``relational_example_weights``
+   by ``fact`` (one compiled pass).  Gates: segment_sum launches equal the
+   message emissions (edges) of the fit and of the pass (the join tree's,
+   tables − 1), each emission counted where ``SumProd`` makes it (under
+   per-table SSR the ``QueryCounter``'s analytic edges, printed, count more
+   than are emitted); the weights within rtol expm1(2·D) + 1e-5 of the softmax of the
+   float64 oracle's means (materialize_join + predict_rows + bincount), D
+   the largest error phase 2's gate allows a mean, 1e-4·Σ|ŷ| / count (plus
+   float32's least normal number, where a weight underflows); Σw = 1
+   within 1e-6.  Prints fit s, pass ms, the weights' min and max and
+   their effective sample size 1/Σw².  (b) Right after (a): ``launch/
+   train.py``'s ``build`` for ``--arch rwkv6_1_6b --full`` (24 layers, d
+   2,048, 32 heads of 64, vocab 65,536, bf16, ~1.58 B parameters, random
+   from a seed), its pipeline ``TokenPipeline(65536, 8, 2048, seed=1,
+   example_weights=w)``; 8 microbatches, remat, compression 8 with error
+   feedback, AdamW; 4 steps after an untimed warm-up step.  Gates: a finite
+   loss every step; launches over the 4 steps: rwkv6_chunk 2 · 24 · 8 a
+   step (forward and remat recompute), its backward 24 · 8, count_sketch
+   and its unsketch once a gradient leaf of 32 elements or more, the
+   other kernels 0; the warm-up batch's ``doc_ids`` equal to a CPU
+   ``TokenPipeline``'s for the same weights and seed; a float32 twin cut to
+   4 layers (full width, 2 × 2,048, 2 microbatches), one step served by the
+   kernels and one by the plain versions (autograd through the plain WKV)
+   with the same weights, batch and hashes: loss within 1e-5 relative and
+   each compressed gradient leaf within 1e-4 · max|g|.  Prints each step's
+   ms and loss, tokens/s, the compressor's ms, the peak memory; with
+   ``--profile`` one traced step's device time by kernel kind.
+
+12. Three dense configs served on the flash_attention kernel, the card
+   emptied of every earlier phase's model first: Granite-3-8B (40 layers,
+   d 4,096, 32 heads and 8 K/V heads of 128, tied 49,155-id vocab padded to
+   49,664; prefill 8 × 2,048), Qwen2.5-32B (64 layers, d 5,120, 40 and 8
+   heads of 128, QKV bias, θ 1e6; prefill 1 × 2,048; ~61 GiB of weights)
+   and Llama-3-405B cut to 8 of its 126 layers (d 16,384, 128 heads over 8
+   K/V heads, θ 5e5; prefill 1 × 2,048; the cut keeps it on one card),
+   bf16, random weights from a seed, each then greedy-decoding 64 tokens
+   into a cache with room for them, through phases 5 and 6's serving
+   function.  Before each full model, a float32 twin at full width cut to
+   2 layers (the first prompt, 1 × 2,048), freed after.  Gates:
+   (a) finite logits, padded ids masked; (b) in the twin, the kernel-served
+   prefill against the plain-served one within 1e-4 · max|logit| with the
+   same greedy tokens, and in the full bf16 model every layer's kernel
+   output on the model's own q, k, v within 2⁻⁷·(|o| + ‖p‖₂·max|v|) of a
+   float64 softmax (phase 6's per-layer gate); (c) in the twin, decode
+   after prefill(S) against prefill(S + t) within 1e-4 · max|logit| at t
+   = 1 and t = 64; in the bf16 model the first decode step no further from
+   the kernel-served prefill(S + 1) than twice the plain-served
+   prefill(S + 1) is from it (two bf16 roundings of one function; a cache
+   or position fault moves logits by O(1)); (d) flash_attention once a
+   layer a prefill, never while decoding.  Prints prefill ms, decode ms a
+   token and tok/s, flash_attention's share of the prefill's device time
+   and the peak memory.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  A failure ends the run where it
@@ -291,6 +366,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -314,6 +390,7 @@ SKETCH_ROUND = 2.0 ** -23          # count_sketch: |err_j| ≤ SKETCH_ROUND · m
 TRAIN_LOSS_RTOL = 1e-5             # float32 twin: kernel- vs plain-served step, loss
 TRAIN_GRAD_RTOL = 1e-4             # ... compressed gradient, of max|g| per leaf
 TRAIN_STEP_RTOL = 1e-4             # ... share of updates apart by more (printed only)
+WKV_BWD_RTOL = 1e-4                # rwkv6_chunk_bwd: |err| ≤ this · rwkv6_chunk_bwd_scale
 N_KEYS = 4096                      # dimension-table key domain of the serve path
 
 
@@ -652,6 +729,70 @@ def wkv_strong_decay(ops, ref, dev="cuda"):
     return worst
 
 
+def wkv_bwd_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda", decay=(0.01, 2.0),
+                 timed=True):
+    """One shape of the WKV backward kernel: dr, dk, dv, dlogw and du within
+    WKV_BWD_RTOL · ``ref.rwkv6_chunk_bwd_scale`` of the plain backward in
+    float64, bit-equal on a second run, and timings.  Returns the shape's
+    record."""
+    rng = np.random.default_rng(seed)
+    r, k, v, do = (rng.standard_normal((B, S, H, hs), dtype=np.float32) for _ in range(4))
+    logw = -rng.uniform(*decay, (B, S, H, hs)).astype(np.float32)
+    u = rng.standard_normal((H, hs), dtype=np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (r, k, v, logw, u, do)]
+    got = ops.rwkv6_chunk_bwd(*args, c)
+    again = ops.rwkv6_chunk_bwd(*args, c)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs of the backward kernel differ")
+    del again
+    want = ref.rwkv6_chunk_bwd_ref(*args, c, torch.float64)
+    scale = ref.rwkv6_chunk_bwd_scale(*args, c)
+    errs, over = {}, {}
+    for key, g, w, sc in zip(("dr", "dk", "dv", "dlogw", "du"), got, want, scale):
+        err = (g.double() - w).abs()
+        errs[key] = float(err.max())
+        over[key] = float((err / (WKV_BWD_RTOL * sc).clamp_min(1e-300)).max())
+        if bool((err > WKV_BWD_RTOL * sc).any()):
+            raise AssertionError(f"{name}: {key} outside {WKV_BWD_RTOL}·scale (max |err|/limit "
+                                 f"{over[key]})")
+    del got, want, scale
+    rec = {"case": name, "B": B, "S": S, "H": H, "hs": hs, "chunk": c, "decay": list(decay),
+           "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "max_err_over_limit": max(over.values()), "err_over_limit_by_grad": over}
+    if timed:
+        kernel_ms = cuda_ms(lambda: ops.rwkv6_chunk_bwd(*args, c))
+        plain_ms = cuda_ms(lambda: ref.rwkv6_chunk_bwd_ref(*args, c), max_reps=3)
+        # r, k, v, logw, do read once; dr, dk, dv, dlogw written once; u read, du written
+        nbytes = 4 * (9 * B * S * H * hs + 2 * H * hs)
+        flops = 2 * wkv_flops(B, S, H, hs, c)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
+        rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes=nbytes, flops=flops)
+    log(f"  {name:<22} B={B} S={S} H={H} hs={hs} c={c} decay {decay[0]}-{decay[1]} a token"
+        + (f"  kernel_ms {rec['ms']:.4f}  plain_ms {rec['plain_ms']:.4f}  bound_ms "
+           f"{rec['bound_ms']:.4f} ({rec['bound_by']}; {rec['flops']:.3e} flops)" if timed else "")
+        + f"  max_abs_err {rec['max_abs_err']:.3e}  max err/limit {rec['max_err_over_limit']:.3f} "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in over.items())})")
+    del args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_wkv_bwd(ops, ref, dev="cuda"):
+    cases = [
+        ("train_1x2048", 1, 2048, 32, 64, 16, {}),                     # phase 11's microbatch
+        ("ref_test_hs32", 2, 64, 2, 32, 16, {}),
+        ("ref_test_hs16_c8", 3, 48, 1, 16, 8, {}),
+        ("strong_53_59", 1, 256, 2, 64, 16, {"decay": (3.3, 3.7), "timed": False}),
+        ("strong_80_96", 1, 256, 2, 64, 16, {"decay": (5.0, 6.0), "timed": False}),
+        ("strong_53_59_c8", 1, 128, 2, 32, 8, {"decay": (6.6, 7.4), "timed": False}),
+        ("strong_80_96_c8", 1, 128, 2, 32, 8, {"decay": (10.0, 12.0), "timed": False}),
+    ]
+    return [wkv_bwd_case(ops, ref, *c[:6], dev=dev, **c[6]) for c in cases]
+
+
 def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"):
     """One flash_attention shape: the kernel within ``ref.attention_limit``
     of a dense softmax in float64, determinism, and timings.  Returns the
@@ -760,6 +901,9 @@ def phase_attn(ops, ref, dev="cuda"):
         ("prefill_8x2048_f32", 8, 2048, 32, 4, 64, True, f32),  # its float32 twin
         ("long_1x8192", 1, 8192, 32, 4, 64, True, bf16),
         ("heads_40x128", 2, 1024, 40, 8, 128, True, bf16),      # Qwen2.5-32B / Llama-3 heads
+        ("granite_8x2048", 8, 2048, 32, 8, 128, True, bf16),    # phase 12's prefills
+        ("qwen_1x2048", 1, 2048, 40, 8, 128, True, bf16),
+        ("llama3_1x2048_g16", 1, 2048, 128, 8, 128, True, bf16),   # 16 query heads a K/V head
         ("encoder_2x512", 2, 512, 16, 16, 64, False, f32),
         ("ragged_3x1000", 3, 1000, 8, 2, 32, True, f32),        # S off the 64-row tile
         ("smoke_2x24", 2, 24, 8, 1, 16, True, f32),
@@ -860,28 +1004,45 @@ def phase_sketch(ops, ref, dev="cuda"):
         ("attn_q_o_leaf", 92_274_688, 1 << 24),           # wq, wo
         ("embed_leaf", 66_060_288, 1 << 23),              # embed.tok, embed.head
         ("attn_k_v_leaf", 11_534_336, 1 << 21),           # wk, wv (22 × 2048 × 256)
+        # RWKV-6 1.6B's stacked leaves (phase 11(b)): 24 layers, d 2048, d_ff 7168
+        ("rwkv_ck_cv_leaf", 352_321_536, 1 << 26),        # ck, cv: the slabs route, 8 slabs
+        ("rwkv_embed_leaf", 134_217_728, 1 << 25),        # embed.tok, embed.head (65,536 × 2048)
+        ("rwkv_mix_leaf", 100_663_296, 1 << 24),          # wr, wk, wv, wg, wo, cr
+        ("rwkv_lora_leaf", 3_145_728, 1 << 19),           # wA, wB (24 × 2048 × 64)
+        ("rwkv_mu_leaf", 245_760, 1 << 15),               # mu (24 × 5 × 2048)
+        ("rwkv_mu_c_leaf", 98_304, 1 << 14),              # mu_c (24 × 2 × 2048)
+        ("rwkv_vec_leaf", 49_152, 1 << 13),               # ln1, ln2, w0, u, ln_x (24 × 2048)
     ]
     return [sketch_case(ops, ref, *c, dev=dev) for c in cases]
 
 
 # ------------------------------------------------------------------ phase 2 --
-def oracle_check(schema, trees, scores, tag):
-    """Counts exact and totals within 1e-4·Σ|ŷ| of materialize_join +
-    predict_rows + bincount, for every grouping table in ``scores``."""
+def oracle_sums(schema, trees, names):
+    """The float64 oracle of grouped scoring, materialize_join +
+    predict_rows + bincount: {table: (Σŷ, count, Σ|ŷ|) per row} for every
+    table in ``names``."""
     from repro_torch.core import materialize_join, predict_rows
 
     J = materialize_join(schema)
     X = torch.stack([J[c].to(torch.float32) for (_, c) in schema.features], dim=1)
     preds = predict_rows(trees, X).double()
+    out = {}
+    for name in names:
+        rows, n = J["__rows__" + name], schema.table(name).n_rows
+        out[name] = (torch.bincount(rows, weights=preds, minlength=n),
+                     torch.bincount(rows, minlength=n).double(),
+                     torch.bincount(rows, weights=preds.abs(), minlength=n))
+    return out
+
+
+def oracle_check(schema, trees, scores, tag):
+    """Counts exact and totals within 1e-4·Σ|ŷ| of the oracle
+    (``oracle_sums``), for every grouping table in ``scores``."""
     worst = 0.0
-    for name, (tot, cnt) in scores.items():
-        rows = J["__rows__" + name]
-        n = schema.table(name).n_rows
-        want_cnt = torch.bincount(rows, minlength=n)
-        if not torch.equal(cnt.double(), want_cnt.double()):
+    for name, (want_tot, want_cnt, mag) in oracle_sums(schema, trees, scores).items():
+        tot, cnt = scores[name]
+        if not torch.equal(cnt.double(), want_cnt):
             raise AssertionError(f"{tag}: counts grouped by {name} differ from the oracle")
-        want_tot = torch.bincount(rows, weights=preds, minlength=n)
-        mag = torch.bincount(rows, weights=preds.abs(), minlength=n)
         err = (tot.double() - want_tot).abs()
         if bool((err > 1e-4 * mag + 1e-6).any()):
             raise AssertionError(f"{tag}: totals grouped by {name} off by up to "
@@ -1258,10 +1419,49 @@ def layer_errors(model, params, tokens, module, name: str, plain, oracle):
     return errs
 
 
+def f32_gates(m32, p32, tokens, plain, max_len, steps: int):
+    """Gates (b) and (c) in float32 on ``m32``: the kernel-served prefill
+    against the plain-served one (``plain``: (module, name, function))
+    within LM_F32_RTOL of the largest logit with the same greedy tokens,
+    and greedy decode after prefill(S) against prefill(S + t) at t = 1 and
+    t = ``steps``, each within LM_F32_RTOL of its largest logit.  Returns
+    the kernel-served prefill's logits and the record."""
+    V = m32.cfg.vocab
+    maxdiff = lambda a, b: float((a - b).abs()[:, :V].max())
+    top = lambda a: LM_F32_RTOL * float(a[:, :V].abs().max())
+    l32, c = m32.prefill(p32, {"tokens": tokens}, max_len)
+    with swapped(*plain):
+        plain32, _ = m32.prefill(p32, {"tokens": tokens})
+    diff_b, lim_b = maxdiff(l32, plain32), top(l32)
+    same = torch.equal(l32.argmax(-1), plain32.argmax(-1))
+    ids, nxt = [], torch.argmax(l32, -1)
+    for step in range(steps):
+        ids.append(nxt)
+        dl, c = m32.decode_step(p32, c, nxt)
+        if step == 0:
+            first = dl
+        nxt = torch.argmax(dl, -1)
+    diffs, lims = {}, {}
+    for t, d in {1: first, steps: dl}.items():
+        lt, _ = m32.prefill(p32, {"tokens": torch.cat([tokens, torch.stack(ids[:t], 1)], 1)})
+        diffs[t], lims[t] = maxdiff(d, lt), top(lt)
+    rec = {"layers": m32.cfg.n_layers, "batch": tokens.shape[0],
+           "max_diff_kernel_vs_plain_f32": diff_b, "limit_b": lim_b, "same_greedy": same,
+           "max_diff_decode_vs_prefill_f32_by_step": diffs, "limits_c": lims}
+    log(f"  float32 twin ({m32.cfg.n_layers} layers, {tokens.shape[0]} x {tokens.shape[1]}): "
+        f"kernel vs plain {diff_b:.3e} (limit {lim_b:.3e}, same greedy tokens {same}); decode "
+        f"vs prefill(S + t) " + ", ".join(f"t = {t}: {diffs[t]:.3e} (limit {lims[t]:.3e})"
+                                          for t in diffs))
+    if not (diff_b <= lim_b and same and all(diffs[t] <= lims[t] for t in diffs)):
+        raise AssertionError(f"lm ({m32.cfg.name}) float32 twin: kernel and plain disagree, or "
+                             f"decode is off prefill(S + t): {rec}")
+    return l32, rec
+
+
 def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
              decode_tokens: int = 64, dev="cuda", profile: bool = False,
-             max_len=None, check_last: bool = False, oracle=None):
-    """LM serving (phases 5 and 6): prefill ``batch`` × ``prompt`` ids,
+             max_len=None, check_last: bool = False, oracle=None, twin_layers=None):
+    """LM serving (phases 5, 6 and 12): prefill ``batch`` × ``prompt`` ids,
     greedy-decode ``decode_tokens``; the gates (a)–(d) of the module
     docstring.  ``wops``: the wrapper module of the kernel on the path;
     ``plain``: (module, name, plain function) to patch in for gate (b);
@@ -1269,10 +1469,33 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     at the last decode step in float32; ``oracle``: the kernel's function
     in float64 with its per-element limit, which turns gate (b)'s bf16
     half into phase 6's (each layer's kernel output against it, and the
-    two bf16 models' distances to the float32 twin)."""
+    two bf16 models' distances to the float32 twin).  ``twin_layers``
+    (phase 12, where the model's float32 copy would not fit beside it):
+    the float32 twin is a model of that depth with weights of its own,
+    served on the first prompt before the model is built; gate (b) in
+    bf16 is then the oracle's alone, and gate (c) in bf16 holds decode
+    against the kernel-served prefill(S + 1), the plain-served one's
+    distance to it being the rounding noise."""
     from repro_torch.models import Model
 
     kname = wops.__name__.split(".")[-2]
+    V = cfg.vocab
+    maxdiff = lambda a, b: float((a - b).abs()[:, :V].max())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, V, (batch, prompt))).to(dev)
+    steps32 = decode_tokens if check_last else 1
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    twin = None
+    if twin_layers is not None:
+        m32 = Model(cfg.replace(dtype="float32", n_layers=twin_layers), device=dev)
+        with torch.inference_mode():
+            twin = f32_gates(m32, m32.init(torch.Generator(device=dev).manual_seed(1)),
+                             tokens[:1], plain, max_len, steps32)[1]
+        del m32
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -1284,9 +1507,6 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         return sum(count(v) for v in t) if isinstance(t, list) else t.numel()
 
     n_params = count(params)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (batch, prompt)))
-    tokens = tokens.to(dev)
-    V = cfg.vocab
 
     def masked(logits) -> bool:
         pad = logits[:, V:]
@@ -1320,93 +1540,83 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         times["decode_s"] = time.perf_counter() - t0
         launches = wops.launches                                       # ... and ends here
         others = {o.__name__: o.launches for o in other_ops}
+        del c, dl
 
         # (a) finite and masked
         if not (masked(logits) and bool(finite)):
-            raise AssertionError("lm: prefill or decode logits not finite, or padded ids unmasked")
+            raise AssertionError(f"lm ({cfg.name}): prefill or decode logits not finite, or "
+                                 f"padded ids unmasked")
         # (d) launches: one a layer per prefill, none while decoding
         if not (launches_prefill == cfg.n_layers and launches == launches_prefill):
-            raise AssertionError(f"lm: {kname} launched {launches_prefill} times in the "
-                                 f"prefill and {launches - launches_prefill} while decoding; "
+            raise AssertionError(f"lm ({cfg.name}): {kname} launched {launches_prefill} times in "
+                                 f"the prefill and {launches - launches_prefill} while decoding; "
                                  f"expected {cfg.n_layers} and 0")
         if any(others.values()):
-            raise AssertionError(f"lm: kernels off the LM path launched: {others}")
+            raise AssertionError(f"lm ({cfg.name}): kernels off the LM path launched: {others}")
 
-        # outside the counted run: the same weights in float32, and the plain
-        # version patched into the module in place of the kernel
-        m32 = Model(cfg.replace(dtype="float32"), device=dev)
-        p32 = upcast(params)
-        l32, c32 = m32.prefill(p32, {"tokens": tokens}, max_len)
+        # outside the counted run: (b) kernel against plain inside the model,
+        # the plain version patched into the module in place of the kernel.
+        # In float32 (f32_gates) within LM_F32_RTOL of the largest logit with
+        # the same greedy tokens.  In bf16, without an oracle (phase 5), no
+        # further apart than the served model is from its float32 twin (its
+        # own rounding).  With one (phases 6 and 12: the two bf16 attentions
+        # round at different places, so the two bf16 models are independent
+        # samples of rounding noise), each layer's kernel output on the
+        # model's own q, k, v within the oracle's per-element limit, and,
+        # with the same-weight twin, the two bf16 models no further apart
+        # than their two distances to it added.
+        # (c) decode after prefill(S) against prefill(S + t).  bf16 at t = 1:
+        # no further from a reference prefill(S + 1) than DECODE_NOISE times
+        # another prefill(S + 1)'s distance from it, over the same logits in
+        # this run (a cache or position fault moves the logits by O(1);
+        # rounding does not): the f32 twin's and the bf16 model's, or (with
+        # twin_layers) the kernel-served and the plain-served bf16 model's.
+        # The reference's band ratio is printed.  float32 in f32_gates.
+        layer_err = (None if oracle is None else
+                     layer_errors(model, params, tokens, *plain[:2], plain[2], oracle))
         with swapped(*plain):
-            plain_logits, _ = model.prefill(params, {"tokens": tokens})
-            plain32, _ = m32.prefill(p32, {"tokens": tokens})
-        maxdiff = lambda a, b: float((a - b).abs()[:, :V].max())
-        # (b) kernel against plain inside the model: in float32 within
-        # LM_F32_RTOL of the largest logit with the same greedy tokens.  In
-        # bf16, without an oracle (phase 5), no further apart than the served
-        # model is from its float32 twin (its own rounding).  With one (phase
-        # 6: the two bf16 attentions round at different places, so the two
-        # bf16 models are independent samples of rounding noise), each
-        # layer's kernel output on the model's own q, k, v within the
-        # oracle's per-element limit, and the two bf16 models no further
-        # apart than their two distances to the float32 twin added
-        diff_b, diff_b32 = maxdiff(logits, plain_logits), maxdiff(l32, plain32)
-        noise, noise_plain = maxdiff(logits, l32), maxdiff(plain_logits, l32)
-        lim_b32 = LM_F32_RTOL * float(l32[:, :V].abs().max())
-        layer_err = None
-        if oracle is None:
-            bf16_ok = diff_b <= noise
+            plain_logits = model.prefill(params, {"tokens": tokens})[0]
+        diff_b = maxdiff(logits, plain_logits)
+        tokens_c = torch.cat([tokens, seq[0][:, None]], 1)
+        longer = model.prefill(params, {"tokens": tokens_c})[0]
+        if twin_layers is None:                    # the same weights in float32
+            m32 = Model(cfg.replace(dtype="float32"), device=dev)
+            p32 = upcast(params)
+            l32, twin = f32_gates(m32, p32, tokens, plain, max_len, steps32)
+            noise, noise_plain = maxdiff(logits, l32), maxdiff(plain_logits, l32)
+            ref_c = m32.prefill(p32, {"tokens": tokens_c})[0]
+            other_c, ref_name = longer, "the f32 twin's prefill(S + 1)"
+            bf16_ok = diff_b <= (noise if oracle is None else noise + noise_plain)
+            del m32, p32, l32
         else:
-            layer_err = layer_errors(model, params, tokens, *plain[:2], plain[2], oracle)
+            noise = noise_plain = None
+            with swapped(*plain):
+                other_c = model.prefill(params, {"tokens": tokens_c})[0]
+            ref_c, ref_name, bf16_ok = longer, "prefill(S + 1)", True
+        if layer_err is not None:
+            bf16_ok = bf16_ok and all(e <= 1 for e, _ in layer_err)
             log(f"  per layer, on the served bf16 model's own q, k, v: max |err| / limit "
                 f"against the float64 oracle {max(e for e, _ in layer_err):.3f} for the "
-                f"kernel, {max(e for _, e in layer_err):.3f} for the plain version; the "
-                f"plain-served bf16 model vs the f32 twin {noise_plain:.4f}")
-            bf16_ok = (all(e <= 1 for e, _ in layer_err) and diff_b <= noise + noise_plain)
-        # (c) decode after prefill(S) against prefill(S + t).  bf16 at t = 1:
-        # no further from the float32 twin's prefill(S + 1) than DECODE_NOISE
-        # times the bf16 prefill(S + 1)'s own distance from it, over the same
-        # logits in this run (a cache or position fault moves the logits by
-        # O(1); rounding does not); the reference's band ratio is printed.
-        # float32 within LM_F32_RTOL of the largest logit at t = 1 and, with
-        # check_last, at the last step
-        tokens_c = torch.cat([tokens, seq[0][:, None]], 1)
-        longer, _ = model.prefill(params, {"tokens": tokens_c})
-        longer32, _ = m32.prefill(p32, {"tokens": tokens_c})
-        diff_c, noise_c = maxdiff(first_decode, longer32), maxdiff(longer, longer32)
-        steps32 = decode_tokens if check_last else 1
-        ids32, c = [], c32
-        nxt32 = torch.argmax(l32, -1)
-        for step in range(steps32):
-            ids32.append(nxt32)
-            dec32, c = m32.decode_step(p32, c, nxt32)
-            if step == 0:
-                first32 = dec32
-            nxt32 = torch.argmax(dec32, -1)
+                f"kernel, {max(e for _, e in layer_err):.3f} for the plain version")
+        diff_c, noise_c = maxdiff(first_decode, ref_c), maxdiff(other_c, ref_c)
+        ratio_c = diff_c / (DECODE_NOISE * noise_c) if noise_c else math.inf
         band_c = float(((first_decode[:, :V].float() - longer[:, :V].float()).abs()
                         / (LM_BAND["atol"] + LM_BAND["rtol"] * longer[:, :V].float().abs())).max())
-        diffs_c32, lims_c32 = {}, {}
-        for t, dl in {1: first32, steps32: dec32}.items():
-            lt, _ = m32.prefill(p32, {"tokens": torch.cat([tokens, torch.stack(ids32[:t], 1)],
-                                                          1)})
-            diffs_c32[t], lims_c32[t] = maxdiff(dl, lt), LM_F32_RTOL * float(lt[:, :V].abs().max())
-        diff_c32, lim_c32 = diffs_c32[1], lims_c32[1]
-        log(f"  max |Δlogit|: kernel vs plain {kname} {diff_b:.4f} bf16 (the bf16 model vs its "
-            f"f32 twin: {noise:.4f}), {diff_b32:.3e} f32 (limit {lim_b32:.3e}); bf16 decode "
-            f"vs the f32 twin's prefill(S + 1) {diff_c:.4f} (limit {DECODE_NOISE} x the bf16 "
-            f"prefill(S + 1)'s {noise_c:.4f}: {diff_c / (DECODE_NOISE * noise_c):.4f} of it; "
-            f"the reference's band, atol {LM_BAND['atol']}, rtol {LM_BAND['rtol']}, against "
-            f"the bf16 prefill(S + 1), not gated: {band_c:.4f}), f32 " + ", ".join(
-                f"t = {t}: {diffs_c32[t]:.3e} (limit {lims_c32[t]:.3e})" for t in diffs_c32))
-        if not (diff_b32 <= lim_b32 and torch.equal(l32.argmax(-1), plain32.argmax(-1))
-                and bf16_ok):
-            raise AssertionError(f"lm: kernel and plain {kname} disagree inside the model")
-        if not (diff_c <= DECODE_NOISE * noise_c
-                and all(diffs_c32[t] <= lims_c32[t] for t in diffs_c32)):
-            raise AssertionError(f"lm ({cfg.name}): decode after prefill(S) is off prefill(S + t) "
-                                 f"(bf16 {diff_c:.4f} from the f32 twin's prefill(S + 1), "
-                                 f"limit {DECODE_NOISE * noise_c:.4f})")
-        del m32, p32, c32, c, l32, plain32, dec32, first32, longer32
+        log(f"  max |Δlogit| bf16: kernel vs plain {kname} {diff_b:.4f}"
+            + ("" if noise is None else f" (the two bf16 models vs the f32 twin: {noise:.4f}, "
+                                        f"{noise_plain:.4f})")
+            + f"; decode vs {ref_name} {diff_c:.4f} (limit {DECODE_NOISE} x "
+            f"{'the bf16' if twin_layers is None else 'the plain-served'} prefill(S + 1)'s "
+            f"{noise_c:.4f}: {ratio_c:.4f} of it; the reference's band, atol "
+            f"{LM_BAND['atol']}, rtol {LM_BAND['rtol']}, against the bf16 prefill(S + 1), not "
+            f"gated: {band_c:.4f})")
+        if not bf16_ok:
+            raise AssertionError(f"lm ({cfg.name}): kernel and plain {kname} disagree inside the "
+                                 f"bf16 model")
+        if not ratio_c <= 1:
+            raise AssertionError(f"lm ({cfg.name}): decode after prefill(S) is off {ref_name} "
+                                 f"by {diff_c:.4f}, limit {DECODE_NOISE * noise_c:.4f}")
+        del plain_logits, longer, ref_c, other_c
 
         prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, max_len),
                              max_reps=5)
@@ -1428,15 +1638,13 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
            "decode_tok_per_s": batch * decode_tokens / times["decode_s"],
            "launches": launches, "launches_prefill": launches_prefill,
            "launches_decode": launches - launches_prefill,
-           "max_diff_kernel_vs_plain": diff_b, "max_diff_kernel_vs_plain_f32": diff_b32,
-           "max_diff_bf16_vs_f32": noise, "max_diff_plain_bf16_vs_f32": noise_plain,
-           "layer_err_over_limit": layer_err,
-           "max_diff_decode_vs_f32_prefill": diff_c, "max_diff_prefill_vs_f32": noise_c,
-           "decode_vs_noise_ratio": diff_c / (DECODE_NOISE * noise_c),
-           "decode_vs_prefill_band_ratio": band_c,
-           "max_diff_decode_vs_prefill_f32": diff_c32,
-           "max_diff_decode_vs_prefill_f32_by_step": diffs_c32,
-           "sample": seqs[0, :16].tolist()}
+           "max_diff_kernel_vs_plain": diff_b, "max_diff_bf16_vs_f32": noise,
+           "max_diff_plain_bf16_vs_f32": noise_plain, "layer_err_over_limit": layer_err,
+           "max_diff_decode_vs_prefill_ref": diff_c, "max_diff_prefill_vs_ref": noise_c,
+           "decode_vs_noise_ratio": ratio_c, "decode_vs_prefill_band_ratio": band_c,
+           "twin_f32": twin, "sample": seqs[0, :16].tolist(),
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                 if torch.device(dev).type == "cuda" else None)}
     log(f"  {cfg.name}: {n_params:,} parameters ({cfg.n_layers} layers, d {cfg.d_model}), "
         f"init {times['init_s']:.2f}s")
     log(f"  prefill {batch}x{prompt}: {times['prefill_s'] * 1e3:.1f} ms (counted run), "
@@ -1450,7 +1658,8 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         log(f"  profile prefill: wall {prof['wall_ms']:.1f} ms, kernels busy "
             f"{prof['device_busy_ms']:.1f} ms ({kname} {prof['split_ms']:.1f} ms, share "
             f"{out['kernel_share_of_prefill']:.3f}), idle share {prof['idle_share']:.3f}; "
-            f"by kind {prof['by_kind']}; top {prof['top']}")
+            f"by kind {prof['by_kind']}; top {prof['top']}; peak memory "
+            f"{out['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
     if decode_prof is not None:
         out["profile_decode_16"] = decode_prof
         log(f"  profile 16 decode steps: wall {decode_prof['wall_ms']:.1f} ms, kernels busy "
@@ -1485,11 +1694,15 @@ def plain_unsketch(x, sk, h, scale=1.0, est=None, state=None):
     return e if est is None else est.copy_(e)
 
 
-def train_twin(fops, cops, dev="cuda", n_layers=4, batch=2, seq=2048, n_micro=2):
-    """One float32 train step of TinyLlama at full width cut to ``n_layers``
+def train_twin(arch, swap, counted, want, dev="cuda", n_layers=4, batch=2, seq=2048,
+               n_micro=2):
+    """One float32 train step of ``arch`` at full width cut to ``n_layers``
     layers, served by the kernels and then by the plain versions (the same
-    weights, batch and hashes).  Returns the comparison's record; raises
-    outside its limits (module docstring, phase 7)."""
+    weights, batch and hashes): ``swap`` is the (module, name, plain) of the
+    model's kernel entry, the compressor's two passes are swapped too;
+    ``counted`` the wrappers whose launches the kernel-served step must
+    make, ``want`` those counts.  Returns the comparison's record; raises
+    outside its limits (module docstring, phases 7 and 11)."""
     from repro_torch import configs
     from repro_torch.kernels.count_sketch import ref as cref
     from repro_torch.launch.steps import make_train_step
@@ -1497,11 +1710,12 @@ def train_twin(fops, cops, dev="cuda", n_layers=4, batch=2, seq=2048, n_micro=2)
     from repro_torch.optim import CountSketchCompressor, adamw, grad_compress
     from repro_torch.tree import leaves, map_tree, paths
 
-    cfg = configs.get("tinyllama_1_1b").replace(dtype="float32", n_layers=n_layers)
+    cfg = configs.get(arch).replace(dtype="float32", n_layers=n_layers)
     model = Model(cfg, device=dev)
     base = stack_layers(model.init(torch.Generator(device=dev).manual_seed(0)))
     toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (batch, seq)))
     ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=5)
+    counts = lambda: tuple(getattr(o, name) for o, name in counted)
 
     def run():
         params = map_tree(torch.clone, base)
@@ -1511,23 +1725,23 @@ def train_twin(fops, cops, dev="cuda", n_layers=4, batch=2, seq=2048, n_micro=2)
             comp(g)
             rec.extend(t.clone() for t in leaves(g))
         step = make_train_step(model, ocfg, n_micro, compressor=compress)
-        for o in (fops, cops):
+        for o, _ in counted:
             o.reset_launches()
         _, _, m = step(params, adamw.init(ocfg, params), {"tokens": toks.to(dev)})
         sync(dev)
-        return float(m["loss"]), rec, params, (fops.launches, cops.launches)
+        return float(m["loss"]), rec, params, counts()
 
     loss_k, g_k, p_k, launches_k = run()
-    with swapped(fops, "flash_attention_gqa", plain_attention), \
+    with swapped(*swap), \
             swapped(grad_compress, "count_sketch_hashed", cref.count_sketch_op), \
             swapped(grad_compress, "unsketch", plain_unsketch):
         loss_p, g_p, p_p, launches_p = run()
 
-    if not (launches_k == (2 * n_layers * n_micro, 12) and launches_p == (0, 0)):
+    if not (launches_k == tuple(want) and not any(launches_p)):
         raise AssertionError(f"train twin: launches {launches_k} (kernels) and {launches_p} "
-                             f"(plain); expected ({2 * n_layers * n_micro}, 12) and (0, 0)")
-    rec = {"layers": n_layers, "batch": batch, "seq": seq, "n_micro": n_micro,
-           "loss_kernel": loss_k, "loss_plain": loss_p,
+                             f"(plain); expected {tuple(want)} and none")
+    rec = {"arch": cfg.name, "layers": n_layers, "batch": batch, "seq": seq,
+           "n_micro": n_micro, "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "leaves": {}}
     ok = rec["loss_rel_diff"] <= TRAIN_LOSS_RTOL and math.isfinite(loss_k)
     for name, gk, gp, pk, pp, p0 in zip(paths(base), g_k, g_p, leaves(p_k), leaves(p_p),
@@ -1540,9 +1754,9 @@ def train_twin(fops, cops, dev="cuda", n_layers=4, batch=2, seq=2048, n_micro=2)
             "grad_rel": g_rel, "step_rel": float(d.abs().max()) / scale,
             "frac_over": float((d.abs() > TRAIN_STEP_RTOL * scale).double().mean())}
         ok &= g_rel <= TRAIN_GRAD_RTOL
-    log(f"  float32 twin ({n_layers} layers, {batch} x {seq}, n_micro {n_micro}): loss kernel "
-        f"{loss_k:.7f} plain {loss_p:.7f} (rel {rec['loss_rel_diff']:.2e}); per leaf max "
-        f"|Δg|/max|g| {max(v['grad_rel'] for v in rec['leaves'].values()):.2e}, max "
+    log(f"  float32 twin ({cfg.name}, {n_layers} layers, {batch} x {seq}, n_micro {n_micro}): "
+        f"loss kernel {loss_k:.7f} plain {loss_p:.7f} (rel {rec['loss_rel_diff']:.2e}); per leaf "
+        f"max |Δg|/max|g| {max(v['grad_rel'] for v in rec['leaves'].values()):.2e}, max "
         f"|ΔΔp|/max|Δp| {max(v['step_rel'] for v in rec['leaves'].values()):.2e}, share of "
         f"elements over {TRAIN_STEP_RTOL}·max|Δp| "
         f"{max(v['frac_over'] for v in rec['leaves'].values()):.2e} (printed, not gated); "
@@ -1580,23 +1794,16 @@ def train_smoke_checkpoint(dev="cuda"):
         "for bit, resumed for step 4")
 
 
-def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int = 2048,
-                n_micro: int = 8, dev="cuda", profile: bool = False):
-    """TinyLlama-1.1B training at full width (phase 7 of the module
-    docstring) through ``launch/train.py``'s ``build`` (model, stacked
-    params, AdamW state, pipeline) and ``launch/steps.make_train_step``,
-    the compressor timed by CUDA events around its call."""
+def run_steps(tr, n_micro: int, steps: int, counted, read, dev="cuda", profile=False,
+              split=()):
+    """An untimed warm-up step on the trainer's next batch, then ``steps``
+    timed steps of ``launch/steps.make_train_step`` with the compressor
+    timed by CUDA events around its call; ``counted`` (wrapper modules) are
+    set to 0 after the warm-up and ``read()`` is taken right after the last
+    step.  With ``profile``, one more step traced (split by ``split``).
+    Stops the trainer's pipeline."""
     from repro_torch.launch import steps as S
-    from repro_torch.launch import train as T
 
-    args = T.parser().parse_args(["--full", "--steps", str(steps + 1), "--batch", str(batch),
-                                  "--seq", str(seq), "--n-micro", str(n_micro),
-                                  "--compress-grads", "8", "--ckpt-every", "0", "--device", dev])
-    t0 = time.perf_counter()
-    tr = T.build(args)
-    sync(dev)
-    init_s = time.perf_counter() - t0
-    cfg = tr.model.cfg
     events = []
 
     def timed(g):
@@ -1609,14 +1816,16 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
 
     step_fn = S.make_train_step(tr.model, tr.ocfg, n_micro, compressor=timed)
     params, state = tr.params, tr.opt_state
+    out = {}
     try:
         t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, tr.next_batch())           # warm-up
+        out["warm_batch"] = tr.next_batch()
+        params, state, m = step_fn(params, state, out["warm_batch"])          # warm-up
         sync(dev)
-        warm_s, warm_loss = time.perf_counter() - t0, float(m["loss"])
+        out["warm_s"], out["warm_loss"] = time.perf_counter() - t0, float(m["loss"])
         events.clear()
         torch.cuda.reset_peak_memory_stats()
-        for o in (fops, cops, *other_ops):                                   # main path starts here
+        for o in counted:                                                    # main path starts here
             o.reset_launches()
         step_s, losses, norms = [], [], []
         for _ in range(steps):
@@ -1626,16 +1835,42 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
             step_s.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        launches = {"flash_attention": fops.launches, "count_sketch": cops.launches,
-                    "count_sketch_unsketch": cops.unsketch_launches}              # ... and ends here
-        others = {o.__name__: o.launches for o in other_ops}
-        peak = torch.cuda.max_memory_allocated()
-        peak_reserved = torch.cuda.max_memory_reserved()   # the caching allocator's too
-        comp_ms = [a.elapsed_time(b) for a, b in events]
-        prof = profile_window(lambda: step_fn(params, state, tr.next_batch()),
-                              split=TRAIN_KERNELS) if profile else None
+        out["counts"] = read()                                               # ... and ends here
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["peak_reserved"] = torch.cuda.max_memory_reserved()   # the caching allocator's too
+        out["comp_ms"] = [a.elapsed_time(b) for a, b in events]
+        out["prof"] = profile_window(lambda: step_fn(params, state, tr.next_batch()),
+                                     split=split) if profile else None
     finally:
         tr.pipe.stop()
+    out.update(step_s=step_s, losses=losses, norms=norms, params=params)
+    return out
+
+
+def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int = 2048,
+                n_micro: int = 8, dev="cuda", profile: bool = False):
+    """TinyLlama-1.1B training at full width (phase 7 of the module
+    docstring) through ``launch/train.py``'s ``build`` (model, stacked
+    params, AdamW state, pipeline) and ``launch/steps.make_train_step``,
+    the compressor timed by CUDA events around its call."""
+    from repro_torch.launch import train as T
+
+    args = T.parser().parse_args(["--full", "--steps", str(steps + 1), "--batch", str(batch),
+                                  "--seq", str(seq), "--n-micro", str(n_micro),
+                                  "--compress-grads", "8", "--ckpt-every", "0", "--device", dev])
+    t0 = time.perf_counter()
+    tr = T.build(args)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg = tr.model.cfg
+    run = run_steps(tr, n_micro, steps, (fops, cops, *other_ops), lambda: (
+        {"flash_attention": fops.launches, "count_sketch": cops.launches,
+         "count_sketch_unsketch": cops.unsketch_launches},
+        {o.__name__: o.launches for o in other_ops}), dev, profile, TRAIN_KERNELS)
+    launches, others = run["counts"]
+    step_s, losses, norms, warm_loss = run["step_s"], run["losses"], run["norms"], run["warm_loss"]
+    peak, peak_reserved, comp_ms, prof = (run["peak"], run["peak_reserved"], run["comp_ms"],
+                                          run["prof"])
     want = {"flash_attention": 2 * cfg.n_layers * n_micro * steps, "count_sketch": 12 * steps,
             "count_sketch_unsketch": 12 * steps}
     if not all(math.isfinite(x) for x in losses + [warm_loss]):
@@ -1646,16 +1881,16 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
     mean_s = sum(step_s) / len(step_s)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": seq,
            "n_micro": n_micro, "steps": steps, "compress_ratio": 8, "remat": cfg.remat,
-           "init_s": init_s, "warmup_step_s": warm_s, "step_s": step_s,
+           "init_s": init_s, "warmup_step_s": run["warm_s"], "step_s": step_s,
            "step_ms_mean": mean_s * 1e3, "tokens_per_s": tokens / mean_s,
            "loss_warmup": warm_loss, "losses": losses, "grad_norms": norms,
            "compressor_ms": comp_ms, "peak_memory_bytes": peak,
            "peak_reserved_bytes": peak_reserved,
            "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
-           "compressed_bytes": tr.compressor.compressed_bytes(params)}
+           "compressed_bytes": tr.compressor.compressed_bytes(run["params"])}
     log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, global batch {batch} x {seq}, "
         f"n_micro {n_micro}, remat {cfg.remat}, compression 8; init {init_s:.2f}s, warm-up "
-        f"step {warm_s:.2f}s (loss {warm_loss:.4f})")
+        f"step {run['warm_s']:.2f}s (loss {warm_loss:.4f})")
     log(f"  steps: {', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, mean {mean_s * 1e3:.1f} ms, "
         f"{out['tokens_per_s']:.0f} tokens/s; loss {', '.join(f'{x:.4f}' for x in losses)}; "
         f"grad norm {', '.join(f'{x:.3f}' for x in norms)}")
@@ -1667,7 +1902,11 @@ def phase_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int 
         log(f"  profile one step: wall {prof['wall_ms']:.1f} ms, kernels busy "
             f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f}; by kind "
             f"{prof['by_kind']}; top {prof['top']}")
-    out["twin_f32"] = train_twin(fops, cops, dev)
+    n_layers, n_micro_twin = 4, 2
+    out["twin_f32"] = train_twin(
+        "tinyllama_1_1b", (fops, "flash_attention_gqa", plain_attention),
+        ((fops, "launches"), (cops, "launches")), (2 * n_layers * n_micro_twin, 12), dev,
+        n_layers=n_layers, n_micro=n_micro_twin)
     train_smoke_checkpoint(dev)
     return out
 
@@ -2219,7 +2458,6 @@ def follow_writer(ops, schema, trees, tmp, dev="cuda"):
     """Phase 9(c): a WAL-follower replica of a live writer (module
     docstring)."""
     import os
-    import threading
 
     from repro_torch.core import QueryCounter
     from repro_torch.incremental import MaintainedScorer
@@ -2623,6 +2861,196 @@ def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
     return out
 
 
+# ----------------------------------------------------------------- phase 11 --
+BRIDGE_TABLE = "fact"                 # the documents: one fact row each
+RWKV_TRAIN_KERNELS = ("rwkv6_chunk_bwd", "rwkv6_chunk_kernel", "count_sketch_",
+                      "unsketch_kernel")
+
+
+def phase_bridge(ops, schema, dev="cuda"):
+    """Phase 11(a): the paper's config fitted on ``schema``, then the
+    sampling weights of its fact rows from one compiled pass (module
+    docstring).  Returns (record, weights)."""
+    from repro_torch import configs
+    from repro_torch.core import Booster
+    from repro_torch.core.sumprod import SumProd
+    from repro_torch.data import relational_example_weights
+    from repro_torch.obs import get_registry
+
+    cfg = configs.get("paper_rbrt")
+    edges = get_registry().counter("sumprod.edges")
+    emitted = [0]
+    emit = SumProd._emit
+
+    def counted_emit(self, *a, **kw):                              # one message, one edge
+        emitted[0] += 1
+        return emit(self, *a, **kw)
+
+    sync(dev)
+    e0 = edges.value
+    with swapped(SumProd, "_emit", counted_emit):
+        ops.reset_launches()                                       # main path starts here
+        t0 = time.perf_counter()
+        booster = Booster(schema, cfg)
+        trees, trace = booster.fit()
+        sync(dev)
+        fit_s = time.perf_counter() - t0
+        fit_launches, fit_edges, analytic = ops.launches, emitted[0], edges.value - e0
+        ops.reset_launches()
+        emitted[0] = 0
+        t0 = time.perf_counter()
+        w = relational_example_weights(booster, trees, BRIDGE_TABLE)   # ends in a copy to the host
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        pass_launches, pass_edges = ops.launches, emitted[0]        # ... and ends here
+    if not (fit_launches == fit_edges > 0 and pass_launches == pass_edges == schema.n_tables - 1):
+        raise AssertionError(f"bridge: segment_sum launches {fit_launches} in the fit ({fit_edges} "
+                             f"edges emitted) and {pass_launches} in the weights pass "
+                             f"({pass_edges} edges emitted, {schema.n_tables - 1} in the join "
+                             f"tree)")
+    n = schema.table(BRIDGE_TABLE).n_rows
+    # the float64 softmax of the oracle's per-row means, and D, the largest
+    # error of a mean that phase 2's gate (1e-4·Σ|ŷ| a group) allows
+    tot, cnt, mag = oracle_sums(schema, trees, [BRIDGE_TABLE])[BRIDGE_TABLE]
+    cnt = cnt.clamp(min=1.0)
+    want, D = torch.softmax(tot / cnt, 0), float((1e-4 * mag / cnt).max())
+    del tot, cnt, mag
+    rtol = math.expm1(2 * D) + 1e-5
+    got = torch.from_numpy(w).to(dev).double()
+    err = (got - want).abs()
+    total = float(got.sum())
+    floor = torch.finfo(torch.float32).tiny              # a float32 weight's least normal value
+    if not (w.dtype == np.float32 and w.shape == (n,) and bool((err <= rtol * want + floor).all())
+            and abs(total - 1.0) <= 1e-6):
+        raise AssertionError(f"bridge: weights {w.dtype} {w.shape} off the oracle's softmax by "
+                             f"up to {float((err / want.clamp_min(1e-300)).max())} relative "
+                             f"(limit {rtol}), or Σw = {total}")
+    ess = 1.0 / float((got ** 2).sum())
+    rec = {"config": dataclasses.asdict(cfg), "n_fact": n, "fit_s": fit_s, "queries":
+           trace.queries, "fit_launches": fit_launches, "fit_edges": fit_edges,
+           "fit_edges_analytic": analytic,
+           "pass_ms": pass_ms, "pass_launches": pass_launches,
+           "weight_min": float(w.min()), "weight_max": float(w.max()),
+           "effective_sample_size": ess, "sum_minus_one": total - 1.0,
+           "max_rel_err": float((err / want.clamp_min(1e-300)).max()), "rtol": rtol}
+    log(f"  paper_rbrt ({cfg.n_trees} trees, depth {cfg.depth}, {cfg.mode} k {cfg.sketch_k}, "
+        f"SSR {cfg.ssr_mode}) on {n:,} documents: fit {fit_s:.2f}s ({trace.queries} queries, "
+        f"{fit_launches} segment_sum launches = edges emitted; the counter's analytic edges "
+        f"{analytic}); weights pass {pass_ms:.2f} ms "
+        f"({pass_launches} launches); weights min {rec['weight_min']:.3e} max "
+        f"{rec['weight_max']:.3e}, effective sample size {ess:,.0f} of {n:,}; Σw − 1 "
+        f"{total - 1.0:.2e}; max rel err against the oracle's softmax {rec['max_rel_err']:.2e} "
+        f"(limit {rtol:.2e})")
+    del booster, trees, want, got, err
+    return rec, w
+
+
+def phase_rwkv_train(wops, cops, other_ops, weights, steps: int = 4, batch: int = 8,
+                     seq: int = 2048, n_micro: int = 8, dev="cuda", profile: bool = False):
+    """Phase 11(b): RWKV-6 1.6B trained at full width through
+    ``launch/train.py``'s ``build``, on batches drawn by ``weights`` (module
+    docstring)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.launch import train as T
+    from repro_torch.models import rwkv6
+    from repro_torch.tree import leaves
+
+    args = T.parser().parse_args(["--arch", "rwkv6_1_6b", "--full", "--steps", str(steps + 1),
+                                  "--batch", str(batch), "--seq", str(seq), "--n-micro",
+                                  str(n_micro), "--compress-grads", "8", "--ckpt-every", "0",
+                                  "--device", dev])
+    t0 = time.perf_counter()
+    tr = T.build(args)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg = tr.model.cfg
+    tr.pipe.stop()                                  # the caller wires the weighted pipeline in
+    tr.pipe = TokenPipeline(cfg.vocab, batch, seq, seed=1, example_weights=weights)
+    host = TokenPipeline(cfg.vocab, batch, seq, seed=1, example_weights=weights)
+    try:
+        host_first = next(host)
+    finally:
+        host.stop()
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    n_sk = sum(p.numel() >= 4 * tr.compressor.ratio for p in leaves(tr.params))
+    run = run_steps(tr, n_micro, steps, (wops, cops, *other_ops), lambda: (
+        {"rwkv6_chunk": wops.launches, "rwkv6_chunk_bwd": wops.bwd_launches,
+         "count_sketch": cops.launches, "count_sketch_unsketch": cops.unsketch_launches},
+        {o.__name__: o.launches for o in other_ops}), dev, profile, RWKV_TRAIN_KERNELS)
+    launches, others = run["counts"]
+    losses, step_s = run["losses"], run["step_s"]
+    want = {"rwkv6_chunk": 2 * cfg.n_layers * n_micro * steps,
+            "rwkv6_chunk_bwd": cfg.n_layers * n_micro * steps,
+            "count_sketch": n_sk * steps, "count_sketch_unsketch": n_sk * steps}
+    if not all(math.isfinite(x) for x in losses + [run["warm_loss"]]):
+        raise AssertionError(f"rwkv train: a loss is not finite: {run['warm_loss']}, {losses}")
+    if launches != want or any(others.values()):
+        raise AssertionError(f"rwkv train: launches {launches}, expected {want}; off the path "
+                             f"{others}")
+    docs = run["warm_batch"]["doc_ids"].cpu().numpy()
+    if not np.array_equal(docs, host_first["doc_ids"]):
+        raise AssertionError("rwkv train: the first batch's doc_ids differ from a host "
+                             "TokenPipeline's for the same weights and seed")
+    mean_s = sum(step_s) / len(step_s)
+    out = {"arch": cfg.name, "n_params": n_params, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "n_micro": n_micro, "steps": steps, "compress_ratio": 8,
+           "remat": cfg.remat, "init_s": init_s, "warmup_step_s": run["warm_s"],
+           "step_s": step_s, "step_ms_mean": mean_s * 1e3,
+           "tokens_per_s": batch * seq / mean_s, "loss_warmup": run["warm_loss"],
+           "losses": losses, "grad_norms": run["norms"], "compressor_ms": run["comp_ms"],
+           "peak_memory_bytes": run["peak"], "peak_reserved_bytes": run["peak_reserved"],
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "sketched_leaves": n_sk, "first_doc_ids": docs.tolist()}
+    log(f"  {cfg.name}: {n_params:,} parameters ({cfg.n_layers} layers, d {cfg.d_model}), "
+        f"global batch {batch} x {seq} drawn by the relational weights, n_micro {n_micro}, "
+        f"remat {cfg.remat}, compression 8; init {init_s:.2f}s, warm-up step "
+        f"{run['warm_s']:.2f}s (loss {run['warm_loss']:.4f}; doc ids {docs.tolist()} = the host "
+        f"pipeline's)")
+    log(f"  steps: {', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, mean {mean_s * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s; loss {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"grad norm {', '.join(f'{x:.3f}' for x in run['norms'])}")
+    log(f"  compressor {', '.join(f'{x:.2f}' for x in run['comp_ms'])} ms a step (CUDA events); "
+        f"peak memory {run['peak'] / 2 ** 30:.2f} GiB allocated, "
+        f"{run['peak_reserved'] / 2 ** 30:.2f} reserved; launches {launches} "
+        f"({out['launches_per_step']} a step)")
+    if run["prof"] is not None:
+        prof = out["profile_step"] = run["prof"]
+        log(f"  profile one step: wall {prof['wall_ms']:.1f} ms, kernels busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f}; by kind "
+            f"{prof['by_kind']}; top {prof['top']}")
+    del tr, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_layers, n_micro_twin = 4, 2
+    twin_sk = 20                      # every leaf of the stacked RWKV-6 model is sketched
+    out["twin_f32"] = train_twin(
+        "rwkv6_1_6b", (rwkv6, "rwkv6_chunk", rwkv6_chunk_ref),      # autograd through it
+        ((wops, "launches"), (wops, "bwd_launches"), (cops, "launches")),
+        (2 * n_layers * n_micro_twin, n_layers * n_micro_twin, twin_sk), dev,
+        n_layers=n_layers, n_micro=n_micro_twin)
+    return out
+
+
+# ----------------------------------------------------------------- phase 12 --
+# (arch, batch, layers on the card: None keeps the config's depth)
+DENSE_SERVE = (("granite_3_8b", 8, None), ("qwen2_5_32b", 1, None), ("llama3_405b", 1, 8))
+
+
+def host_state(tag: str) -> dict:
+    """What the phases before ``tag`` leave in this process: threads,
+    Python objects after a full collection, obs metrics, tracing, CUDA
+    memory allocated and reserved.  Logged; returns the record."""
+    from repro_torch.obs import get_registry, tracing_enabled
+
+    gc.collect()
+    rec = {"threads": threading.active_count(), "gc_objects": len(gc.get_objects()),
+           "metrics": len(get_registry().names()), "tracing": tracing_enabled(),
+           "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+           "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    log(f"  host state before {tag}: {rec}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -2662,9 +3090,10 @@ def main() -> int:
         f"{torch.cuda.get_device_capability(0)}")
 
     t0 = time.perf_counter()
-    sources = (segment_sum, polymul, rwkv6_chunk, flash_attention, count_sketch)
+    sources = (segment_sum.build, polymul.build, rwkv6_chunk.build, rwkv6_chunk.build_bwd,
+               flash_attention.build, count_sketch.build)
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, started together
-        builds = list(pool.map(lambda m: m.build(verbose=True), sources))
+        builds = list(pool.map(lambda build: build(verbose=True), sources))
     log(f"build: {', '.join(lib.name for lib, _ in builds)} in "
         f"{time.perf_counter() - t0:.2f}s")
     for _, build_log in builds:
@@ -2672,13 +3101,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    log("phase 1: segment_sum, polymul, rwkv6_chunk, flash_attention and count_sketch kernels "
-        "vs plain versions on the card")
+    log("phase 1: segment_sum, polymul, rwkv6_chunk, its backward, flash_attention and "
+        "count_sketch kernels vs plain versions on the card")
     shapes = phase_kernel(ops, ref)
     pshapes = phase_polymul(pops, polymul)
     wshapes = phase_wkv(wops, rwkv6_chunk)
     wstrong = wkv_strong_decay(wops, rwkv6_chunk)
-    fsass = attention_sass(fops, builds[sources.index(flash_attention)][0])
+    bshapes = phase_wkv_bwd(wops, rwkv6_chunk)
+    fsass = attention_sass(fops, builds[sources.index(flash_attention.build)][0])
     fshapes = phase_attn(fops, flash_attention)
     cshapes = phase_sketch(cops, count_sketch)
     log(f"phase 2: serve path at {args.n_fact} fact rows")
@@ -2712,9 +3142,10 @@ def main() -> int:
         f"the one card over gloo (correctness and the collectives' host cost, not multi-card "
         f"speed)")
     dp = phase_data_parallel(serve_schema, serve_trees, serve_scores, serve["times"])
-    del serve_schema, serve_trees, serve_ens, serve_scores, coeff_schema   # phases 5-7 run without them
+    del serve_schema, serve_trees, serve_ens, serve_scores     # phases 5-7 run without them
     gc.collect()                          # a scorer and its snapshots hold each other
     torch.cuda.empty_cache()
+    host = {"phase 5": host_state("phase 5")}
     lm_cfg = configs.get("rwkv6_1_6b")
     log(f"phase 5: {lm_cfg.name} serving at full width: prefill 8 x 1024, decode 64 tokens")
     from repro_torch.models import layers, rwkv6
@@ -2724,18 +3155,50 @@ def main() -> int:
     dense_cfg = configs.get("tinyllama_1_1b")
     log(f"phase 6: {dense_cfg.name} serving at full width: prefill 8 x 2048 with cache room "
         f"for 64 decode tokens, decode 64 tokens")
-    dense = phase_lm(fops, (ops, pops, wops, cops), dense_cfg,
-                     (layers, "flash_attention_gqa", flash_attention.flash_attention_ref),
+    attn_plain = (layers, "flash_attention_gqa", flash_attention.flash_attention_ref)
+    dense = phase_lm(fops, (ops, pops, wops, cops), dense_cfg, attn_plain,
                      prompt=2048, max_len=2048 + 64, check_last=True, profile=args.profile,
                      oracle=flash_attention.attention_limit)
     torch.cuda.empty_cache()
     log(f"phase 7: {dense_cfg.name} training at full width: global batch 8 x 2048, n_micro 8, "
         f"count-sketch compression 8, 4 steps after a warm-up step")
+    host["phase 7"] = host_state("phase 7")
     train = phase_train(fops, cops, (ops, pops, wops), profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11 (a): the paper's config fitted on phase 4's star ({args.coeff_n_fact} fact "
+        f"rows, one a document), then its sampling weights from one pass")
+    for o in (pops, wops, fops, cops):
+        o.reset_launches()
+    bridge, weights = phase_bridge(ops, coeff_schema)
+    if any(o.launches for o in (pops, wops, fops, cops)):
+        raise AssertionError("phase 11 (a) launched a kernel other than segment_sum: "
+                             f"{[(o.__name__, o.launches) for o in (pops, wops, fops, cops)]}")
+    del coeff_schema
+    gc.collect()
+    torch.cuda.empty_cache()
+    host["phase 11 (b)"] = host_state("phase 11 (b)")
+    log("phase 11 (b): rwkv6-1.6b training at full width on batches drawn by phase 11 (a)'s "
+        "weights: global batch 8 x 2048, n_micro 8, count-sketch compression 8, 4 steps after a "
+        "warm-up step")
+    rwkv_train = phase_rwkv_train(wops, cops, (ops, pops, fops), weights, profile=args.profile)
+    dense_serve = []
+    for arch, batch, depth in DENSE_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()                        # the card holds nothing else
+        cfg = configs.get(arch)
+        cfg = cfg if depth is None else cfg.replace(n_layers=depth)
+        log(f"phase 12: {cfg.name} serving at full width, {cfg.n_layers} layers"
+            + ("" if depth is None else f" (cut from {configs.get(arch).n_layers})")
+            + f": prefill {batch} x 2048 with cache room for 64 decode tokens, decode 64 tokens")
+        dense_serve.append(phase_lm(fops, (ops, pops, wops, cops), cfg, attn_plain, batch=batch,
+                                    prompt=2048, max_len=2048 + 64, check_last=True,
+                                    oracle=flash_attention.attention_limit, twin_layers=2))
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
     whead = next(s for s in wshapes if s["case"] == "prefill_8x1024")
+    bhead = next(s for s in bshapes if s["case"] == "train_1x2048")
     fhead = next(s for s in fshapes if s["case"] == "prefill_8x2048")
     chead = next(s for s in cshapes if s["case"] == "mlp_leaf")
     kernels = [{
@@ -2755,7 +3218,9 @@ def main() -> int:
                              "operate_service": operate["launches"]["service"],
                              "operate_stacked": operate["launches"]["stacked"],
                              "operate_follow": operate["launches"]["follow"],
-                             "data_parallel_2_ranks": dp["launches"]},
+                             "data_parallel_2_ranks": dp["launches"],
+                             "bridge_fit": bridge["fit_launches"],
+                             "bridge_weights_pass": bridge["pass_launches"]},
         "shapes": shapes,
     }, {
         "name": "polymul", "route": "cuda",
@@ -2776,9 +3241,22 @@ def main() -> int:
         "bound_by": whead["bound_by"], "library_ms": None,   # no single PyTorch call
         "shape": {k: whead[k] for k in ("B", "S", "H", "hs", "chunk")},
         "launches_by_path": {"lm_prefill": lm["launches_prefill"],
-                             "lm_decode": lm["launches_decode"]},
+                             "lm_decode": lm["launches_decode"],
+                             "lm_train_4_steps": rwkv_train["launches"]["rwkv6_chunk"]},
         "strong_decay": wstrong,
         "shapes": wshapes,
+    }, {
+        "name": "rwkv6_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_chunk_bwd.cu",
+        "replaces": "src/repro/models/rwkv6.py:81 (rwkv_chunked, differentiated by jax.grad; "
+                    "the gradient of src/repro/kernels/rwkv6_chunk/rwkv6_chunk.py:60)",
+        "launches": rwkv_train["launches"]["rwkv6_chunk_bwd"],
+        "max_abs_err": bhead["max_abs_err"], "ms": bhead["ms"], "plain_ms": bhead["plain_ms"],
+        "bound_ms": bhead["bound_ms"], "bound_by": bhead["bound_by"],
+        "library_ms": None,                                  # no single PyTorch call
+        "shape": {k: bhead[k] for k in ("B", "S", "H", "hs", "chunk")},
+        "launches_by_path": {"lm_train_4_steps": rwkv_train["launches"]["rwkv6_chunk_bwd"]},
+        "shapes": bshapes,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2789,7 +3267,9 @@ def main() -> int:
         "shape": {k: fhead[k] for k in ("B", "S", "N", "Kh", "dh", "causal", "dtype")},
         "launches_by_path": {"lm_prefill": dense["launches_prefill"],
                              "lm_decode": dense["launches_decode"],
-                             "lm_train_4_steps": train["launches"]["flash_attention"]},
+                             "lm_train_4_steps": train["launches"]["flash_attention"],
+                             **{f"serve_{d['arch']}_prefill": d["launches_prefill"]
+                                for d in dense_serve}},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -2802,13 +3282,17 @@ def main() -> int:
         "shape": {k: chead[k] for k in ("n", "k")},
         "launches_by_path": {"lm_train_4_steps": train["launches"]["count_sketch"],
                              "lm_train_4_steps_unsketch":
-                                 train["launches"]["count_sketch_unsketch"]},
+                                 train["launches"]["count_sketch_unsketch"],
+                             "rwkv_train_4_steps": rwkv_train["launches"]["count_sketch"],
+                             "rwkv_train_4_steps_unsketch":
+                                 rwkv_train["launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
                     "lm_dense": dense, "lm_train": train, "maintain": maintain,
                     "retrain": retrain, "phase8_s": phase8_s, "operate": operate,
-                    "data_parallel": dp}))
+                    "data_parallel": dp, "bridge": bridge, "lm_rwkv_train": rwkv_train,
+                    "dense_serve": dense_serve, "host_state": host}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

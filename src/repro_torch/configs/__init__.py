@@ -2,18 +2,20 @@
 
 Every ported module defines ``CONFIG`` (the full published numbers) and
 ``SMOKE`` (a reduced config of the same family for CPU tests), copied
-from the reference's ``configs/``.  ``get(name)`` returns the full
-config, ``get_smoke(name)`` the reduced one; both take the module name
-or its external id (``ALIASES``).  ``PORTED`` lists the architectures
-ported so far; any other raises.
+from the reference's ``configs/``.  ``get(name)`` returns the module's
+``CONFIG``, ``get_smoke(name)`` its ``SMOKE``, whatever their type, as
+the reference's do: a ``ModelConfig`` for an LM, the paper's own
+``BoostConfig`` for ``paper_rbrt``.  Both take the module name or its
+external id (``ALIASES``).  ``PORTED`` lists the configs ported so far;
+any other raises.
 """
 from __future__ import annotations
 
 import importlib
+from typing import Any
 
-from repro_torch.models.config import ModelConfig
-
-PORTED = ("rwkv6_1_6b", "tinyllama_1_1b")
+PORTED = ("rwkv6_1_6b", "tinyllama_1_1b", "granite_3_8b", "qwen2_5_32b", "llama3_405b",
+          "paper_rbrt")
 
 # canonical external ids → module names
 ALIASES = {
@@ -38,9 +40,9 @@ def _module(name: str):
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 
-def get(name: str) -> ModelConfig:
+def get(name: str) -> Any:
     return _module(name).CONFIG
 
 
-def get_smoke(name: str) -> ModelConfig:
+def get_smoke(name: str) -> Any:
     return _module(name).SMOKE

@@ -183,6 +183,10 @@ class PolyCoeff(_ModuleSemiring):
     def norm_sq(self, vals):
         return torch.sum(torch.square(vals), dim=-1)
 
+    def to_freq(self, vals):
+        """The rfft image (…, k//2 + 1) of coefficient vectors (…, k)."""
+        return torch.fft.rfft(vals, n=self.k, dim=-1)
+
 
 @dataclasses.dataclass(frozen=True)
 class PolyFreq(_ModuleSemiring):
@@ -221,6 +225,10 @@ class PolyFreq(_ModuleSemiring):
         w = torch.full((self.k // 2 + 1,), 2.0, dtype=p.dtype, device=p.device)
         w[0] = w[-1] = 1.0
         return torch.sum(p * w, dim=-1) / self.k
+
+    def to_coeff(self, vals):
+        """The coefficient vectors (…, k) of rfft images (…, k//2 + 1)."""
+        return torch.fft.irfft(vals, n=self.k, dim=-1)
 
 
 def _scatter_reduce(vals: torch.Tensor, seg: Segments, zero, reduce: str):

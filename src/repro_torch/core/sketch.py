@@ -16,12 +16,18 @@ Hashes are Dietzfelbinger multiply-add-shift on 32-bit words.  torch
 has no uint32 add or shift, so the words live in int64 and every step
 masks with ``& 0xFFFFFFFF``: a < 2^32 and x < 2^31 keep a·x + b below
 2^63, so the mask reproduces uint32 wraparound exactly.
+
+:func:`count_sketch_dense` and :func:`tensor_sketch_dense` sketch an
+explicit vector or Kronecker product (the reference's oracles for the
+SumProd-embedded sketch and for gradient compression); on a CUDA tensor
+the signed scatter is the count_sketch kernel, given the hash's buckets
+and signs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -111,3 +117,33 @@ def sketch_factors(schema: Schema, sem, hashes: TableHashes, weight_table: str,
             m = sem.scale(m, weights)
         factors[t.name] = m
     return factors
+
+
+# ----------------------------------------------------------------------------
+# Dense sketches of explicit vectors (oracles)
+# ----------------------------------------------------------------------------
+
+def count_sketch_dense(vec: torch.Tensor, h: Hash2) -> torch.Tensor:
+    """Count sketch S·v of a dense vector (n,) under ``h``: (h.k,) float32,
+    sk[j] = Σ_{t: h(t) = j} s(t)·v[t].  On a CUDA tensor the scatter is the
+    count_sketch kernel; on a CPU tensor its plain version."""
+    from ..kernels.count_sketch import count_sketch
+
+    x = vec.to(torch.float32).contiguous()
+    idx = torch.arange(x.shape[0], device=x.device)
+    return count_sketch(x, h.bucket(idx).to(torch.int32), h.sign(idx), h.k)
+
+
+def tensor_sketch_dense(vectors: Sequence[torch.Tensor], hashes: Sequence[Hash2],
+                        k: int) -> torch.Tensor:
+    """TensorSketch of the explicit Kronecker product v_1 ⊙ … ⊙ v_τ: each
+    factor's count sketch (:func:`count_sketch_dense`) multiplied in the
+    frequency domain (``torch.fft``, as the reference computes it outside
+    any kernel), (k,) float32.  O(Σ|D_t| + τ·k log k)."""
+    acc = None
+    for v, h in zip(vectors, hashes):
+        if h.k != k:
+            raise ValueError(f"tensor_sketch_dense: a hash into {h.k} buckets, expected {k}")
+        f = torch.fft.rfft(count_sketch_dense(v, h), n=k)
+        acc = f if acc is None else acc * f
+    return torch.fft.irfft(acc, n=k)

@@ -8,18 +8,21 @@ reference's ``data/pipeline.py``, numpy only).
 - Prefetch: a background thread keeps `depth` batches ready.
 - Straggler hook: the runtime watchdog can call ``reassign(host)`` to
   redistribute a slow host's shard (runtime/fault.py).
-
-The reference's importance sampling by example weights, and the
-relational stage that computes them (``relational_example_weights``),
-wait for a later slice.
+- Relational feature stage (the paper's integration): a booster trained
+  relationally scores every fact row in one SumProd pass
+  (:func:`relational_example_weights`), and ``example_weights`` turns
+  those scores into the probabilities by which the pipeline draws its
+  documents, each batch with its ``doc_ids``.  ``make_batch`` replaces the
+  drawing altogether.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from .synthetic import SyntheticLM
 
@@ -34,11 +37,15 @@ class TokenPipeline:
         depth: int = 2,
         n_hosts: int = 1,
         host_id: int = 0,
+        example_weights: Optional[np.ndarray] = None,
+        make_batch: Optional[Callable] = None,
     ):
         self.spec = (global_batch, seq_len)
         self.n_hosts, self.host_id = n_hosts, host_id
         self.seed = seed
         self.gen = SyntheticLM(vocab, seed=seed)
+        self.make_batch = make_batch
+        self.weights = example_weights
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._step = 0
         self._gen = 0           # bumped on seek/reassign; stale batches dropped
@@ -81,6 +88,21 @@ class TokenPipeline:
         S = self.spec[1]
         per, mine = self._host_rows(step)
         rng = np.random.default_rng((self.seed, step, mine))
+        if self.make_batch is not None:
+            return self.make_batch(rng, per, S)
+        if self.weights is not None:
+            # importance-sample corpus docs by their weights, then synthesise
+            # each drawn doc from (seed, doc) alone, so a doc id gives the same
+            # token row at every step and on every host; skewed weights repeat
+            # docs, so each distinct doc is made once and indexed back
+            p = self.weights / self.weights.sum()
+            keep = rng.choice(len(p), size=per, p=p)
+            uniq, inv = np.unique(keep, return_inverse=True)
+            rows = np.stack([
+                self.gen.batch(np.random.default_rng((self.seed, int(d))), 1, S)[0]
+                for d in uniq
+            ])
+            return {"tokens": rows[inv], "doc_ids": keep.astype(np.int64)}
         return {"tokens": self.gen.batch(rng, per, S)}
 
     def _producer(self):
@@ -110,3 +132,19 @@ class TokenPipeline:
             gen, _step, b = self._q.get()
             if gen == self._gen:       # drop batches produced pre-seek
                 return b
+
+
+def relational_example_weights(booster, trees, group_table: str) -> np.ndarray:
+    """Per-row sampling weights of ``group_table`` from a relationally
+    trained booster: every row's mean prediction over ρ⋈J from one pass of
+    the compiled one-pass scorer (no join materialised, one SumProd
+    evaluation, on the booster's device), softmaxed:
+    ``score = Σŷ / max(count, 1)``, ``w = exp(score − max score) / Σ``.
+    Returns a float32 numpy array (the reference's dtype: its sums are
+    float32)."""
+    from ..serving import compile_ensemble
+
+    tot, cnt = compile_ensemble(booster.schema, trees).score_grouped(group_table)
+    score = tot.to(torch.float32) / torch.clamp(cnt.to(torch.float32), min=1.0)
+    w = torch.exp(score - score.max())
+    return (w / w.sum()).cpu().numpy()

@@ -7,7 +7,8 @@ source or header never loads a stale library.
 The library is loaded with ``ctypes``; the kernel's wrapper declares
 its functions' argument types.  Nothing here runs at import: a kernel is
 built the first time its wrapper launches it, or by ``build``.
-:func:`raw_stream` and :func:`on_device` are the wrappers' launch helpers.
+:func:`raw_stream` and :func:`on_device` are the wrappers' launch helpers,
+and :func:`refuse_grad` their guard for kernels that have no backward.
 """
 from __future__ import annotations
 
@@ -101,3 +102,15 @@ def on_device(device: torch.device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if a gradient is wanted through a kernel that has no backward:
+    a launch through ``ctypes`` returns a tensor that autograd does not see,
+    so the gradient would be dropped without a word.  Called by such a
+    wrapper for every tensor that does not lie on the CPU (whose plain
+    version autograd follows)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the kernel has no backward, so an input that requires "
+                           f"grad would get no gradient; call it under torch.no_grad() or "
+                           f"pass detached inputs")

@@ -14,7 +14,8 @@ x is a 1-D contiguous float32 tensor of fewer than 2³¹ elements; k is a
 power of two ≥ 2.  CUDA tensors go to the kernel, which is compiled with
 ``nvcc`` for sm_90a at first use (``kernels/_build.py``) and bound
 through ``ctypes``; CPU tensors go to the plain versions in ``ref.py``.
-Any other device raises, as do other dtypes, shapes and sizes.
+Any other device raises, as do other dtypes, shapes and sizes, and a
+CUDA tensor that requires grad (the kernel has no backward).
 
 :func:`plan` picks the kernel's route by the sketch's size (the source's
 header says why): a sketch of at most ``SMEM_MAX_K`` buckets is summed in
@@ -199,6 +200,8 @@ def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
                  k: int) -> torch.Tensor:
     """sketch[j] = Σ_t [buckets[t] = j] · signs[t] · x[t], (k,) float32."""
     _check_k(k)
+    if x.device.type != "cpu":
+        _build.refuse_grad("count_sketch", x, signs)
     _check_vec("x", x, torch.float32)
     n = x.shape[0]
     _check_vec("buckets", buckets, torch.int32, n, x.device)
@@ -221,6 +224,8 @@ def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
 def count_sketch_hashed(x: torch.Tensor, h: Hash2) -> torch.Tensor:
     """The sketch of x (n,) under ``h`` at t = 0..n−1, (h.k,) float32."""
     _check_k(h.k)
+    if x.device.type != "cpu":
+        _build.refuse_grad("count_sketch", x)
     _check_vec("x", x, torch.float32)
     if x.device.type == "cpu":
         return count_sketch_op(x, h)
@@ -234,6 +239,8 @@ def unsketch(x: torch.Tensor, sk: torch.Tensor, h: Hash2, scale: float = 1.0,
     ``est`` (a new tensor if None, else may be x); with ``state`` (may be
     x), also state[t] = x[t] − est[t].  Returns est."""
     _check_k(h.k)
+    if x.device.type != "cpu":
+        _build.refuse_grad("count_sketch unsketch", x, sk)
     _check_vec("x", x, torch.float32)
     n = x.shape[0]
     _check_vec("sk", sk, torch.float32, h.k, x.device)

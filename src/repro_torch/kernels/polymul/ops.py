@@ -8,8 +8,8 @@ multiple of 16 up to 128 and for 256, 512 and 1024, the direct form on
 the FMA pipe for other k; see the source's note), which is compiled with ``nvcc`` for sm_90a at first use
 (``kernels/_build.py``) and bound through ``ctypes``; CPU tensors go to
 the plain version in ``ref.py``.  Any other device raises, as do k
-outside 2..1024, a dtype other than float32/bfloat16 and operands of two
-dtypes.
+outside 2..1024, a dtype other than float32/bfloat16, operands of two
+dtypes and a CUDA operand that requires grad (the kernel has no backward).
 
 Broadcasting: an operand that is broadcast only over a prefix of the
 leading dims (the (1, n, k) factor of a one-node level against (K, n, k)
@@ -102,6 +102,7 @@ def poly_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, b)
     if a.device.type == "cpu":
         return poly_mul_ref(a, b)
+    _build.refuse_grad("poly_mul", a, b)
     if a.device.type != "cuda":
         raise RuntimeError(f"poly_mul: no route for device {a.device}")
     shape = torch.broadcast_shapes(a.shape, b.shape)

@@ -1,5 +1,6 @@
-"""Chunked RWKV-6 WKV: Hopper kernel + plain PyTorch version."""
-from .ops import build, reset_launches, rwkv6_chunk
-from .ref import rwkv6_chunk_ref
+"""Chunked RWKV-6 WKV and its backward: Hopper kernels + plain PyTorch versions."""
+from .ops import build, build_bwd, reset_launches, rwkv6_chunk, rwkv6_chunk_bwd
+from .ref import rwkv6_chunk_bwd_ref, rwkv6_chunk_bwd_scale, rwkv6_chunk_ref
 
-__all__ = ["build", "reset_launches", "rwkv6_chunk", "rwkv6_chunk_ref"]
+__all__ = ["build", "build_bwd", "reset_launches", "rwkv6_chunk", "rwkv6_chunk_bwd",
+           "rwkv6_chunk_bwd_ref", "rwkv6_chunk_bwd_scale", "rwkv6_chunk_ref"]

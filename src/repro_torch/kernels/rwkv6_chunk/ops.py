@@ -20,9 +20,18 @@ a first launch walks every segment but the last for its state alone,
 and a second walks them all, each from the state the earlier segments
 give it, so that the serial walk is shorter and the card fuller.
 
-``launches`` counts kernel calls (one a call, whether it launches once
-or, with segments, twice) since the last :func:`reset_launches`; a run
-reads it to show that its WKV went through the kernel.
+Gradients: where autograd wants one (grad mode on and an input that
+requires grad), :func:`rwkv6_chunk` goes through :class:`_WKV`, whose
+forward is the same kernel launch (its plain version on the CPU) and
+whose backward is :func:`rwkv6_chunk_bwd`: the backward kernel
+(``csrc/rwkv6_chunk_bwd.cu``) on a CUDA tensor, ``ref.rwkv6_chunk_bwd_ref``
+on a CPU tensor.  The terminal state has no backward: asking for it with
+gradients on raises.
+
+``launches`` counts forward kernel calls (one a call, whether it launches
+once or, with segments, twice) and ``bwd_launches`` backward kernel
+calls, since the last :func:`reset_launches`; a run reads them to show
+that its WKV went through the kernels.
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import rwkv6_chunk_ref
+from .ref import rwkv6_chunk_bwd_ref, rwkv6_chunk_ref
 
 HEAD_SIZES = (16, 32, 64)
 CHUNKS = (8, 16)
@@ -42,18 +51,25 @@ MAX_SEGMENTS = 8
 MIN_SEGMENT = 8               # chunks
 
 launches = 0
+bwd_launches = 0
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def build(verbose: bool = False) -> Tuple[Path, str]:
     """Compile ``csrc/rwkv6_chunk.cu`` (see ``kernels/_build.py``);
     returns the library's path and the compiler's messages."""
     return _build.build("rwkv6_chunk", verbose=verbose)
+
+
+def build_bwd(verbose: bool = False) -> Tuple[Path, str]:
+    """Compile ``csrc/rwkv6_chunk_bwd.cu``, the backward kernel."""
+    return _build.build("rwkv6_chunk_bwd", verbose=verbose)
 
 
 def _load() -> ctypes.CDLL:
@@ -67,6 +83,19 @@ def _load() -> ctypes.CDLL:
         lib.rwkv6_chunk_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _load_bwd() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("rwkv6_chunk_bwd")
+        lib.rwkv6_chunk_bwd_f32.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 3
+                                            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.rwkv6_chunk_bwd_f32.restype = ctypes.c_int
+        lib.rwkv6_chunk_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.rwkv6_chunk_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check(r, k, v, logw, u, chunk: int) -> None:
@@ -130,8 +159,19 @@ def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
                 u: torch.Tensor, chunk: int = 16, return_state: bool = False):
     """The chunked WKV (B, S, H, hs) of r, k, v, logw (B, S, H, hs) and
     the bonus u (H, hs), float32; with ``return_state``, (out, state),
-    state (B, H, hs, hs) after the last token."""
+    state (B, H, hs, hs) after the last token.  Differentiable in every
+    input (through :class:`_WKV`) when grad mode is on, without the state."""
     _check(r, k, v, logw, u, chunk)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, logw, u)):
+        if return_state:
+            raise RuntimeError("rwkv6_chunk: the terminal state has no backward; ask for it "
+                               "under torch.no_grad() (a prefill) or leave return_state off")
+        return _WKV.apply(r, k, v, logw, u, chunk)
+    return _forward(r, k, v, logw, u, chunk, return_state)
+
+
+def _forward(r, k, v, logw, u, chunk: int, return_state: bool):
+    """The WKV of checked inputs: the kernel on CUDA, the plain version on the CPU."""
     if r.device.type == "cpu":
         return rwkv6_chunk_ref(r, k, v, logw, u, chunk, return_state=return_state)
     if r.device.type != "cuda":
@@ -144,3 +184,56 @@ def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
     args = [x.contiguous() for x in (r, k, v, logw, u)]   # read in place when contiguous
     out, state = _launch(args, chunk, segments(B, H, S // chunk), return_state)
     return (out, state) if return_state else out
+
+
+def rwkv6_chunk_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+                    u: torch.Tensor, do: torch.Tensor, chunk: int = 16):
+    """Gradients (dr, dk, dv, dlogw (B, S, H, hs), du (H, hs)), float32,
+    of :func:`rwkv6_chunk`'s output (zero initial state) against ``do``:
+    the backward kernel on CUDA tensors, ``ref.rwkv6_chunk_bwd_ref`` on CPU
+    tensors; the shapes :func:`rwkv6_chunk` takes, ``do`` of r's shape."""
+    _check(r, k, v, logw, u, chunk)
+    if do.dtype != torch.float32 or do.shape != r.shape or do.device != r.device:
+        raise ValueError(f"rwkv6_chunk_bwd takes do of r's shape, dtype and device, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    if r.device.type == "cpu":
+        return rwkv6_chunk_bwd_ref(r, k, v, logw, u, do, chunk)
+    if r.device.type != "cuda":
+        raise RuntimeError(f"rwkv6_chunk_bwd: no route for device {r.device}")
+    B, S, H, hs = r.shape
+    if r.numel() == 0:
+        return (*(torch.zeros_like(r) for _ in range(4)), torch.zeros_like(u))
+    args = [x.contiguous() for x in (r, k, v, logw, u, do)]
+    grads = [torch.empty_like(args[0]) for _ in range(4)]        # dr, dk, dv, dlogw
+    du_part = torch.empty(B, H, hs, dtype=torch.float32, device=r.device)
+    states = torch.empty(B, H, S // chunk, hs, hs, dtype=torch.float32, device=r.device)
+    lib = _load_bwd()
+    with _build.on_device(r.device):
+        rc = lib.rwkv6_chunk_bwd_f32(*(x.data_ptr() for x in args),
+                                     *(g.data_ptr() for g in grads), du_part.data_ptr(),
+                                     states.data_ptr(), B, S, H, hs, chunk,
+                                     _build.raw_stream(r.device))
+    if rc != 0:
+        raise RuntimeError("rwkv6_chunk_bwd kernel launch failed: "
+                           + lib.rwkv6_chunk_bwd_error_string(rc).decode())
+    global bwd_launches
+    bwd_launches += 1
+    return (*grads, du_part.sum(0))
+
+
+class _WKV(torch.autograd.Function):
+    """The WKV with its gradient: forward :func:`_forward` (the kernel on
+    CUDA), backward :func:`rwkv6_chunk_bwd` from the saved inputs (the
+    chunk states are rebuilt by the backward, nothing else is kept).  Under
+    activation checkpointing the forward runs twice a backward pass."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk: int):
+        ctx.save_for_backward(r, k, v, logw, u)
+        ctx.chunk = chunk
+        return _forward(r, k, v, logw, u, chunk, False)
+
+    @staticmethod
+    def backward(ctx, do):
+        r, k, v, logw, u = ctx.saved_tensors
+        return (*rwkv6_chunk_bwd(r, k, v, logw, u, do.contiguous(), ctx.chunk), None)

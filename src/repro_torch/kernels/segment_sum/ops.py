@@ -5,7 +5,8 @@ and returns (K, n_keys, C) in float32.  CUDA tensors go to the kernel,
 which is compiled with ``nvcc`` for sm_90a at first use into
 ``src/repro_torch/_build/`` and bound through ``ctypes``; CPU tensors
 go to the plain version in ``ref.py``.  A tensor on any other device,
-or one the kernel does not take, raises.
+or one the kernel does not take, raises, as does a CUDA tensor that
+requires grad (the kernel has no backward).
 
 The kernel walks the CSR's :class:`WorkPlan`, built with it on the host:
 runs of at most ``ITEM_ROWS`` entries of one key, so a key that holds
@@ -203,6 +204,7 @@ def segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
                          f"{seg.offsets.shape[0] - 1} keys does not fit values of {n} rows")
     if vals.device.type == "cpu":
         return segment_sum_ref(vals, seg.order, seg.offsets)
+    _build.refuse_grad("segment_sum", vals)
     if vals.device.type != "cuda":
         raise RuntimeError(f"segment_sum: no route for device {vals.device}")
     _check_cuda(vals, seg)

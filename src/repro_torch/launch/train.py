@@ -4,9 +4,13 @@ accumulation, optional count-sketch gradient compression, clip, AdamW)
 
 The port of the reference's ``launch/train.py`` on one device: there is
 no mesh.  Weights are random from a seed; the data is the reference's
-synthetic token stream (``data/``), batch for batch the same ids.  On
-the card every training attention runs the flash_attention kernel (its
-forward, twice a block with remat) and every compressed gradient leaf
+synthetic token stream (``data/``), batch for batch the same ids; a
+caller may put a ``TokenPipeline`` with ``example_weights`` in
+``Trainer.pipe`` (the step reads a batch's tokens and ignores its
+``doc_ids``).  On the card every training attention of a dense model runs
+the flash_attention kernel (its forward, twice a block with remat), every
+WKV of an RWKV-6 model the rwkv6_chunk kernel (twice a block with remat)
+and its gradient the backward kernel, and every compressed gradient leaf
 the count_sketch kernel.  Without ``--full`` the arch's reduced (smoke)
 config is trained.  A checkpoint is labelled by the number of updates it
 holds, and holds the compressor's round and error feedback beside the
@@ -20,6 +24,7 @@ which update the state in place, ends the run, and ``--resume`` goes on
 from the newest checkpoint.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 --compress-grads 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1_6b --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 5 --batch 8 --seq 2048 \\
         --n-micro 8 --compress-grads 8 --ckpt-every 0
 """

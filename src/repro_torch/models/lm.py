@@ -1,5 +1,5 @@
-"""LM facade of the port: init / prefill / decode, for ``kind="rwkv"``
-and ``kind="dense"``, and the training loss for ``kind="dense"``.
+"""LM facade of the port: init / training loss / prefill / decode, for
+``kind="rwkv"`` and ``kind="dense"``.
 
 The port of the reference's ``models/lm.py`` for the RWKV-6 block and
 the dense (GQA transformer) block.  The reference stacks each parameter
@@ -112,27 +112,25 @@ class Model:
 
     # -------------------------------------------------------------- loss --
     def loss(self, params, batch):
-        """Next-token cross-entropy of a dense model, the reference's
-        ``Model.loss``: (ce + 1e-4 · z-loss + aux, {"ce", "aux", "tokens"}),
-        over ``batch["tokens"]`` (B, S) with an optional ``loss_mask``.
-        Each block runs under activation checkpointing when ``cfg.remat``
-        (the reference's ``jax.checkpoint``), so its attention's forward
-        runs twice a backward pass."""
+        """Next-token cross-entropy, the reference's ``Model.loss``: (ce +
+        1e-4 · z-loss + aux, {"ce", "aux", "tokens"}), over
+        ``batch["tokens"]`` (B, S) with an optional ``loss_mask``; other
+        entries of the batch (a weighted pipeline's ``doc_ids``) are not
+        read.  Each block runs under activation checkpointing when
+        ``cfg.remat`` (the reference's ``jax.checkpoint``), so its
+        attention's or its WKV's forward runs twice a backward pass."""
         cfg = self.cfg
-        if cfg.kind != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: training a {cfg.kind!r} model is not ported yet; the rwkv6_chunk "
-                f"kernel has no backward (ROADMAP §1 item 7)")
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
         h = L.embed(params["embed"], tokens)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device).repeat(B, 1)
+        block = self._block_train if cfg.kind == "dense" else self._block_train_rwkv
         for p in params["layers"]:
             if cfg.remat:
-                h = torch.utils.checkpoint.checkpoint(self._block_train, p, h, positions,
+                h = torch.utils.checkpoint.checkpoint(block, p, h, positions,
                                                       use_reentrant=False)
             else:
-                h = self._block_train(p, h, positions)
+                h = block(p, h, positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
         logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h[:, :-1]).float())
@@ -155,6 +153,16 @@ class Model:
         x = x + L.attend(p["attn"], q, k, v, kv_chunk=cfg.kv_chunk)
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], cfg, h2)
+
+    def _block_train_rwkv(self, p, x, positions=None):
+        """One RWKV-6 block of the training forward, the reference's
+        ``block_train``: its WKV carries a gradient through the
+        rwkv6_chunk kernels' ``autograd.Function``, from a zero state."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+        x = x + RWKV.time_mix(p["mix"], cfg, h)
+        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+        return x + RWKV.channel_mix(p["mix"], cfg, h2)
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, params, batch, max_len: Optional[int] = None):

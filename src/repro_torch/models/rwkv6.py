@@ -4,11 +4,14 @@ Recurrence per head (k-dim = v-dim = head_size):
     S_t = diag(w_t) S_{t-1} + k_tᵀ v_t
     o_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)
 
-The port of the reference's ``models/rwkv6.py``.  The prefill computes
-the WKV in the chunked form through ``kernels/rwkv6_chunk``: the
-hand-written CUDA kernel for a CUDA tensor, the plain chunked version
-(``kernels/rwkv6_chunk/ref.py``) for a CPU tensor.  Decode is the O(1) recurrent step
-in plain torch.  Casts follow the reference: the weights and the token
+The port of the reference's ``models/rwkv6.py``.  Training and the
+prefill compute the WKV in the chunked form through
+``kernels/rwkv6_chunk``: the hand-written CUDA kernel for a CUDA tensor,
+the plain chunked version (``kernels/rwkv6_chunk/ref.py``) for a CPU
+tensor.  Where a gradient is wanted (training, from a zero state), that
+call carries it through the kernel's ``autograd.Function``, whose
+backward is the hand-written backward kernel (its plain version on the
+CPU).  Decode is the O(1) recurrent step in plain torch.  Casts follow the reference: the weights and the token
 mixes are in the model dtype, the decay and the WKV in float32, and the
 WKV output is normed in float32 and cast back before the gate and ``wo``.
 """
@@ -110,7 +113,7 @@ def time_mix_out(p, cfg: ModelConfig, x, heads, g, return_state: bool = False):
 
 
 def time_mix(p, cfg: ModelConfig, x):
-    """Prefill path.  x: (B, S, D)."""
+    """Training and prefill path.  x: (B, S, D)."""
     heads, g = wkv_inputs(p, cfg, x)
     return time_mix_out(p, cfg, x, heads, g)
 

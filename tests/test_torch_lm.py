@@ -141,7 +141,7 @@ def test_configs_match_reference():
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(type(ref_configs.get("rwkv6_1_6b")))]
     with pytest.raises(NotImplementedError, match="item 7"):
-        configs.get("qwen2_5_32b")
+        configs.get("dbrx_132b")
     with pytest.raises(NotImplementedError, match="item 7"):
         Model(full.replace(kind="moe"), device="cpu")
 
