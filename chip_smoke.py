@@ -49,12 +49,15 @@ Phases (any failure exits non-zero):
      shape (1, 2048, 32, 64, c 16), the reference test's (2, 64, 2, 32, 16)
      and (3, 48, 1, 16, 8), and in strong-decay chunks ((1, 256, 2, 64, 16)
      and (1, 128, 2, 32, 8), every chunk decaying by 53–59, just inside the
-     −60 clip, or by 80–96, past it): dr, dk, dv, dlogw and du each within
+     −60 clip, or by 80–96, past it) and at the training shape with every
+     other chunk decaying by 80–96 (the kernel switching between its
+     factored and pairwise decays): dr, dk, dv, dlogw and du each within
      1e-4 · scale per element, the scale ``ref.rwkv6_chunk_bwd_scale`` (the
      same formulas on |r|, |k|, |v|, |u|, |do|, the decays' two cancelling
-     sums as magnitudes), and bit-equal on a second run.  Prints kernel,
-     plain (float32) and bound times; no single PyTorch call computes the
-     WKV's gradient;
+     sums as magnitudes), and bit-equal on a second run.  Prints the launch
+     (the design, the split, CTAs, shared bytes a CTA and CTAs an SM),
+     kernel, plain (float32) and bound times; no single PyTorch call
+     computes the WKV's gradient;
    - the flash_attention kernel (``flash_attention.cu``) against a dense
      softmax in float64 over the same inputs at the TinyLlama prefill's
      shape (B 8, S 2048, 32 query heads, 4 K/V heads, dh 64, causal) in
@@ -730,14 +733,19 @@ def wkv_strong_decay(ops, ref, dev="cuda"):
 
 
 def wkv_bwd_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda", decay=(0.01, 2.0),
-                 timed=True):
+                 timed=True, mixed=False):
     """One shape of the WKV backward kernel: dr, dk, dv, dlogw and du within
     WKV_BWD_RTOL · ``ref.rwkv6_chunk_bwd_scale`` of the plain backward in
-    float64, bit-equal on a second run, and timings.  Returns the shape's
-    record."""
+    float64, bit-equal on a second run, and timings.  With ``mixed`` every
+    other chunk decays by 80-96 (5-6 a token at c 16), past the kernel's
+    switch from factored to pairwise decays at −60.  Returns the shape's
+    record, with the launch the card takes (``ops.bwd_info``)."""
     rng = np.random.default_rng(seed)
     r, k, v, do = (rng.standard_normal((B, S, H, hs), dtype=np.float32) for _ in range(4))
     logw = -rng.uniform(*decay, (B, S, H, hs)).astype(np.float32)
+    if mixed:
+        odd = (np.arange(S) // c) % 2 == 1
+        logw[:, odd] = -rng.uniform(5.0, 6.0, (B, int(odd.sum()), H, hs)) * (16 / c)
     u = rng.standard_normal((H, hs), dtype=np.float32)
     args = [torch.from_numpy(x).to(dev) for x in (r, k, v, logw, u, do)]
     got = ops.rwkv6_chunk_bwd(*args, c)
@@ -756,7 +764,9 @@ def wkv_bwd_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda", decay=(0.01
             raise AssertionError(f"{name}: {key} outside {WKV_BWD_RTOL}·scale (max |err|/limit "
                                  f"{over[key]})")
     del got, want, scale
+    info = ops.bwd_info(hs, c)
     rec = {"case": name, "B": B, "S": S, "H": H, "hs": hs, "chunk": c, "decay": list(decay),
+           "mixed": mixed, "launch": {**info, "ctas": B * H * info["split"]},
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "max_err_over_limit": max(over.values()), "err_over_limit_by_grad": over}
     if timed:
@@ -771,6 +781,9 @@ def wkv_bwd_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda", decay=(0.01
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bytes=nbytes, flops=flops)
     log(f"  {name:<22} B={B} S={S} H={H} hs={hs} c={c} decay {decay[0]}-{decay[1]} a token"
+        + (" (every other chunk 80-96)" if mixed else "")
+        + f"  design {info['design']}, split {info['split']}, {B * H * info['split']} CTAs, "
+        f"{info['smem_bytes']} shared bytes a CTA, {info['ctas_per_sm']} CTAs an SM"
         + (f"  kernel_ms {rec['ms']:.4f}  plain_ms {rec['plain_ms']:.4f}  bound_ms "
            f"{rec['bound_ms']:.4f} ({rec['bound_by']}; {rec['flops']:.3e} flops)" if timed else "")
         + f"  max_abs_err {rec['max_abs_err']:.3e}  max err/limit {rec['max_err_over_limit']:.3f} "
@@ -789,6 +802,7 @@ def phase_wkv_bwd(ops, ref, dev="cuda"):
         ("strong_80_96", 1, 256, 2, 64, 16, {"decay": (5.0, 6.0), "timed": False}),
         ("strong_53_59_c8", 1, 128, 2, 32, 8, {"decay": (6.6, 7.4), "timed": False}),
         ("strong_80_96_c8", 1, 128, 2, 32, 8, {"decay": (10.0, 12.0), "timed": False}),
+        ("mixed_1x2048", 1, 2048, 32, 64, 16, {"mixed": True, "timed": False}),
     ]
     return [wkv_bwd_case(ops, ref, *c[:6], dev=dev, **c[6]) for c in cases]
 

@@ -26,7 +26,9 @@ forward is the same kernel launch (its plain version on the CPU) and
 whose backward is :func:`rwkv6_chunk_bwd`: the backward kernel
 (``csrc/rwkv6_chunk_bwd.cu``) on a CUDA tensor, ``ref.rwkv6_chunk_bwd_ref``
 on a CPU tensor.  The terminal state has no backward: asking for it with
-gradients on raises.
+gradients on raises.  The backward kernel runs a cluster of CTAs a
+(b, h), each owning hs / split value columns of the state; the kernel
+chooses the split by hs, and :func:`bwd_info` reports it.
 
 ``launches`` counts forward kernel calls (one a call, whether it launches
 once or, with segments, twice) and ``bwd_launches`` backward kernel
@@ -92,6 +94,8 @@ def _load_bwd() -> ctypes.CDLL:
         lib.rwkv6_chunk_bwd_f32.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 3
                                             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.rwkv6_chunk_bwd_f32.restype = ctypes.c_int
+        lib.rwkv6_chunk_bwd_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        lib.rwkv6_chunk_bwd_info.restype = ctypes.c_int
         lib.rwkv6_chunk_bwd_error_string.argtypes = [ctypes.c_int]
         lib.rwkv6_chunk_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
@@ -127,6 +131,29 @@ def segments(B: int, H: int, n_chunks: int) -> int:
            and n_chunks // (2 * p) >= MIN_SEGMENT):
         p *= 2
     return p
+
+
+def bwd_info(hs: int, chunk: int) -> dict:
+    """The backward kernel's launch for (hs, chunk) as the card sees it:
+    the split (CTAs a (b, h), a thread-block cluster; the grid has
+    B·H·split), the shared memory a CTA takes and the CTAs an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Needs the card."""
+    split, smem, per_sm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    lib = _load_bwd()
+    rc = lib.rwkv6_chunk_bwd_info(hs, chunk, ctypes.byref(split), ctypes.byref(smem),
+                                  ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError("rwkv6_chunk_bwd_info failed: "
+                           + lib.rwkv6_chunk_bwd_error_string(rc).decode())
+    return {"split": split.value, "design": "A: a cluster of split CTAs a (b, h)",
+            "smem_bytes": smem.value, "ctas_per_sm": per_sm.value}
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte address (the backward kernel reads rows
+    as float4): read in place when it is, else a copy."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(args, chunk: int, n_seg: int, return_state: bool):
@@ -203,7 +230,7 @@ def rwkv6_chunk_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: tor
     B, S, H, hs = r.shape
     if r.numel() == 0:
         return (*(torch.zeros_like(r) for _ in range(4)), torch.zeros_like(u))
-    args = [x.contiguous() for x in (r, k, v, logw, u, do)]
+    args = [_aligned(x) for x in (r, k, v, logw, u, do)]
     grads = [torch.empty_like(args[0]) for _ in range(4)]        # dr, dk, dv, dlogw
     du_part = torch.empty(B, H, hs, dtype=torch.float32, device=r.device)
     states = torch.empty(B, H, S // chunk, hs, hs, dtype=torch.float32, device=r.device)

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, and importing every
-module of the port loads neither."""
+"""The PyTorch port stands alone: no file of ``src/repro_torch`` nor the
+card's harnesses (``HARNESSES``) imports JAX or the JAX package, and
+importing every module of the port loads neither."""
 import os
 import re
 import subprocess
@@ -11,13 +11,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+HARNESSES = ("chip_smoke.py", "compare_rwkv_train.py", "profile_rwkv_bwd.py")
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s)"
     r"|from\s+\.\.+\s+import\s+repro\b)", re.M)
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / name for name in HARNESSES]
 
 
 def _modules():

@@ -40,6 +40,31 @@ def _inputs(B, S, H, hs, seed, dev, decay=(0.01, 2.0)):
     return [torch.from_numpy(x).to(dev) for x in (r, k, v, logw, u, do)]
 
 
+def _strong(logw, chunk, which):
+    """logw with 'mixed' chunks (every other chunk decays by 80-96, past the
+    kernel's switch at −60) or 'one_column' (key column hs // 3 does, in
+    every chunk); the rest keep their mild decays."""
+    B, S, H, hs = logw.shape
+    rng = np.random.default_rng(S + hs)
+    w = logw.cpu().numpy().copy()
+    strong = -rng.uniform(5.0, 6.0, (B, S, H, hs)).astype(np.float32) * (16 / chunk)
+    if which == "mixed":
+        odd = (np.arange(S) // chunk) % 2 == 1
+        w[:, odd] = strong[:, odd]
+    else:
+        w[..., hs // 3] = strong[..., hs // 3]
+    return torch.from_numpy(w).to(logw.device)
+
+
+def _twice_within(args, chunk):
+    """Two launches bit-equal (no atomics), and within the tolerance."""
+    got = ops.rwkv6_chunk_bwd(*args, chunk)
+    again = ops.rwkv6_chunk_bwd(*args, chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _within(got, args, chunk)
+
+
 def _within(got, args, chunk):
     want = rwkv6_chunk_bwd_ref(*args, chunk, torch.float64)
     scale = rwkv6_chunk_bwd_scale(*args, chunk)
@@ -72,8 +97,35 @@ def test_strong_decay(dev, hs, chunk, decay):
     """Chunks that decay by 53-59 (just inside the clip at c 16) and by
     80-96 at c 16 (past it: the clipped pairs' gradient is below e^{−60})."""
     per = tuple(x * 16 / chunk for x in decay)
-    args = _inputs(1, 16 * chunk, 2, hs, hs + chunk, dev, per)
-    _within(ops.rwkv6_chunk_bwd(*args, chunk), args, chunk)
+    _twice_within(_inputs(1, 16 * chunk, 2, hs, hs + chunk, dev, per), chunk)
+
+
+@pytest.mark.parametrize("which", ["mixed", "one_column"])
+@pytest.mark.parametrize("hs,chunk", [(64, 16), (32, 8), (16, 16)])
+def test_decays_that_switch_form(dev, which, hs, chunk):
+    """Chunks that alternate between the factored and the pairwise form,
+    and a sequence where only one key column passes −60."""
+    args = _inputs(1, 16 * chunk, 2, hs, hs * chunk, dev)
+    args[3] = _strong(args[3], chunk, which)
+    _twice_within(args, chunk)
+
+
+@pytest.mark.parametrize("B,S,H,hs,chunk", [(1, 128, 3, 64, 16), (3, 96, 5, 32, 8),
+                                            (1, 64, 7, 16, 16), (8, 256, 4, 64, 16)])
+def test_odd_heads_and_shared_sms(dev, B, S, H, hs, chunk):
+    """B·H odd (15, 7: a cluster's rank pattern cannot hide an off-by-one)
+    and B = 8 at (8, 256, 4, 64, 16), where several CTAs share an SM."""
+    _twice_within(_inputs(B, S, H, hs, B + S + H, dev), chunk)
+
+
+def test_launch_info(dev):
+    """The launch the card takes: a cluster of 4 CTAs a (b, h) (2 at hs 16),
+    at least one CTA an SM, shared memory under the card's 227 KB a CTA."""
+    for hs in (16, 32, 64):
+        for chunk in (8, 16):
+            info = ops.bwd_info(hs, chunk)
+            assert info["split"] == {16: 2, 32: 4, 64: 4}[hs]
+            assert 0 < info["smem_bytes"] <= 227 * 1024 and info["ctas_per_sm"] >= 1
 
 
 def test_autograd_function_launches_both_kernels(dev):
