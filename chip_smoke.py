@@ -76,7 +76,18 @@ Phases (any failure exits non-zero):
      called by the port) and bound times, the kernel's and the library's
      TFLOP/s and their ratio, and the largest |err| / limit.  The
      log-sum-exp output of the training forward, at every shape, within
-     1e-4 + 1e-5 · |lse| of a float64 log-sum-exp.  Before the cases, the
+     1e-4 + 1e-5 · |lse| of a float64 log-sum-exp.  With a sliding window
+     (query i sees keys (i − w, i]; the oracle is the softmax over that
+     band, the limits the same): Hymba-1.5B's windowed and global
+     prefill attentions (8, 2176, 25, 5, 64) at w 1,024 and without, bf16;
+     one long prompt (1, 16384, 25, 5, 64) at w 1,024 and causal, whose
+     ratio of times is printed beside their ratio of key-query pairs (the
+     band's skipped tiles); the float32 twin's shape (1, 2176, 25, 5, 64)
+     at w 1,024 and 48; a windowed row also within twice that limit of the
+     plain version (two roundings; every row's distance printed).  A
+     windowed row's bound counts the band's pairs, Σ_i min(i + 1, w), and
+     its library call is ``scaled_dot_product_attention`` with a boolean
+     band mask.  Before the cases, the
      built library's SASS (``cuobjdump``, found beside ``nvcc`` or in
      Triton's package): per bf16 kernel the count of HGMMA (wgmma),
      UTMALDG (TMA loads) and SYNCS (mbarrier) instructions and its shared
@@ -352,6 +363,27 @@ Phases (any failure exits non-zero):
    token and tok/s, flash_attention's share of the prefill's device time
    and the peak memory.
 
+13. Hymba-1.5B (``hymba_1_5b``, arXiv:2411.13676) served at its full
+   published width and depth (32 layers, d 1,600, 25 query and 5 K/V heads
+   of 64, d_ff 5,504, vocab 32,001, 25 SSM heads of state 16, chunk 16,
+   128 meta tokens, a window of 1,024 on every layer but 0, 15 and 31;
+   bf16), random weights from a seed, the card emptied first, through
+   phase 12's serving function: prefill 8 × 2,048 ids (2,176 positions
+   with the meta tokens, so the window bites) into a cache with room for
+   64 decode tokens, then 64 greedy tokens.  Before it, a float32 twin at
+   full width cut to 2 layers with layer 0 global (one windowed layer and
+   one global layer), on the first prompt.  Gates as phase 12's: (a)
+   finite logits; (b) the twin's kernel-served prefill within 1e-4 ·
+   max|logit| of its plain-served one, the same greedy tokens; every bf16
+   layer's attention within 2⁻⁷·(|o| + ‖p‖₂·max|v|) of the float64 band
+   oracle; (c) the twin's decode ≡ prefill(S + t) at t = 1 and 64 (1e-4 ·
+   max|logit|), the bf16 decode within twice the plain-served
+   prefill(S + 1)'s distance; (d) 32 flash_attention launches a prefill,
+   none in decode.  Prints prefill ms and its idle share, the prefill's
+   device time by kind with the SSM branch (its ``record_function``
+   range ``ssm_branch``) as a kind of its own, decode ms a token, tok/s
+   and the peak memory.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  A failure ends the run where it
@@ -361,6 +393,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import bisect
 import contextlib
 import dataclasses
 import gc
@@ -389,6 +422,7 @@ LM_BAND = dict(atol=0.08, rtol=0.05)   # the reference's bf16 band (tests/test_a
 DECODE_NOISE = 2.0                 # bf16 decode: |Δ| to the f32 twin ≤ this × bf16 prefill's
 LM_F32_RTOL = 1e-4                 # float32 LM logits: |Δ| ≤ LM_F32_RTOL · max|logit|
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5    # flash lse: |err| ≤ LSE_ATOL + LSE_RTOL · |lse|
+PLAIN_FACTOR = 2.0                 # windowed flash rows: |kernel − plain| ≤ this × the f64 limit
 SKETCH_ROUND = 2.0 ** -23          # count_sketch: |err_j| ≤ SKETCH_ROUND · m_j · W_j per bucket
 TRAIN_LOSS_RTOL = 1e-5             # float32 twin: kernel- vs plain-served step, loss
 TRAIN_GRAD_RTOL = 1e-4             # ... compressed gradient, of max|g| per leaf
@@ -807,52 +841,79 @@ def phase_wkv_bwd(ops, ref, dev="cuda"):
     return [wkv_bwd_case(ops, ref, *c[:6], dev=dev, **c[6]) for c in cases]
 
 
-def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"):
-    """One flash_attention shape: the kernel within ``ref.attention_limit``
-    of a dense softmax in float64, determinism, and timings.  Returns the
-    shape's record."""
+def band_pairs(S: int, causal: bool, window=None) -> int:
+    """Key-query pairs of one (b, head): S² full, S(S + 1)/2 causal, and
+    Σ_{i<S} min(i + 1, w) in a causal band of w."""
+    if not causal:
+        return S * S
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda", window=None):
+    """One flash_attention shape (with ``window``, a causal band of w
+    keys): the kernel within ``ref.attention_limit`` of a dense softmax in
+    float64, determinism, and timings.  Returns the shape's record."""
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, S, N, dh), dtype=np.float32)).to(dev, dtype)
     k, v = (torch.from_numpy(rng.standard_normal((B, S, Kh, dh), dtype=np.float32))
             .to(dev, dtype) for _ in range(2))
-    got = ops.flash_attention_gqa(q, k, v, causal)
-    if not torch.equal(got, ops.flash_attention_gqa(q, k, v, causal)):
+    got = ops.flash_attention_gqa(q, k, v, causal, window=window)
+    if not torch.equal(got, ops.flash_attention_gqa(q, k, v, causal, window=window)):
         raise AssertionError(f"{name}: two runs of the kernel differ")
-    want, lim = ref.attention_limit(q, k, v, causal)
+    want, lim = ref.attention_limit(q, k, v, causal, window)
     err = (got.double() - want).abs()
     vmax, max_abs_err = float(v.abs().max()), float(err.max())
     err_over_limit = float((err / lim).max())
     if not err_over_limit <= 1:
         raise AssertionError(f"{name}: attention outside its limit (max |err| / limit "
                              f"{err_over_limit}, max |err| {max_abs_err}, max|v| {vmax})")
+    # against the plain version too: two roundings, each within the limit (a windowed row
+    # gated, the others printed: the plain bf16 version rounds each kv block's P·V to bf16,
+    # past the limit on peaked rows, phase 6)
+    plain_over = float(((got.double() - ref.flash_attention_ref(q, k, v, causal, window).double())
+                        .abs() / lim).max())
+    if window is not None and not plain_over <= PLAIN_FACTOR:
+        raise AssertionError(f"{name}: kernel and plain version {plain_over} limits apart, more "
+                             f"than {PLAIN_FACTOR}")
     del got, want, lim, err
     # the log-sum-exp output of the training forward, against float64
-    out_l, lse = ops.flash_attention_gqa(q, k, v, causal, return_lse=True)
-    want_l = ref.attention_lse_dense(q, k, causal)
+    out_l, lse = ops.flash_attention_gqa(q, k, v, causal, return_lse=True, window=window)
+    want_l = ref.attention_lse_dense(q, k, causal, window)
     lse_err = (lse.double() - want_l).abs()
     lse_over = float((lse_err / (LSE_ATOL + LSE_RTOL * want_l.abs())).max())
-    if not (lse_over <= 1 and torch.equal(out_l, ops.flash_attention_gqa(q, k, v, causal))):
+    if not (lse_over <= 1 and torch.equal(out_l, ops.flash_attention_gqa(q, k, v, causal,
+                                                                          window=window))):
         raise AssertionError(f"{name}: lse outside {LSE_ATOL} + {LSE_RTOL}·|lse| (max |err| "
                              f"{float(lse_err.max())}), or its output differs without lse")
     lse_max_err = float(lse_err.max())
     del out_l, lse, want_l, lse_err
 
-    kernel_ms = cuda_ms(lambda: ops.flash_attention_gqa(q, k, v, causal))
-    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal), max_reps=3)
+    kernel_ms = cuda_ms(lambda: ops.flash_attention_gqa(q, k, v, causal, window=window))
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal, window), max_reps=3)
     # yardstick only: one PyTorch call computing the same function, which
-    # the port never calls
+    # the port never calls (a band as a boolean mask, True where a key is seen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
+    else:
+        i = torch.arange(S, device=dev)
+        seen = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=seen, enable_gqa=True))
+        del seen, i
     size = q.element_size()
     nbytes = (2 * B * S * N + 2 * B * S * Kh) * dh * size   # q, k, v read once, out written once
-    pairs = S * (S + 1) // 2 if causal else S * S
+    pairs = band_pairs(S, causal, window)
     flops = 4 * B * N * dh * pairs
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     rec = {"case": name, "B": B, "S": S, "N": N, "Kh": Kh, "dh": dh, "causal": causal,
+           "window": window, "pairs_per_head": pairs,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max_abs_err,
            "max_err_over_limit": err_over_limit, "max_abs_v": vmax,
+           "max_diff_to_plain_over_limit": plain_over,
            "lse_max_abs_err": lse_max_err, "lse_err_over_limit": lse_over,
            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -860,13 +921,14 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
            "bytes": nbytes, "flops": flops, "tflops_per_s": flops / kernel_ms / 1e9,
            "library_tflops_per_s": flops / library_ms / 1e9,
            "ms_over_library_ms": kernel_ms / library_ms}
-    log(f"  {name:<22} B={B} S={S} N={N} Kh={Kh} dh={dh} {'causal' if causal else 'full'} "
+    log(f"  {name:<22} B={B} S={S} N={N} Kh={Kh} dh={dh} {'causal' if causal else 'full'}"
+        f"{'' if window is None else f' window {window}'} "
         f"{rec['dtype']:<8} kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
         f"{library_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
         f"{rec['tflops_per_s']:.1f} TFLOP/s, library {rec['library_tflops_per_s']:.1f}; "
         f"kernel/library {rec['ms_over_library_ms']:.3f})  max_abs_err {max_abs_err:.3e}  "
-        f"max err/limit {err_over_limit:.3f}  lse max |err| {lse_max_err:.3e} (err/limit "
-        f"{lse_over:.3f})")
+        f"max err/limit {err_over_limit:.3f} (to plain {plain_over:.3f})  lse max |err| "
+        f"{lse_max_err:.3e} (err/limit {lse_over:.3f})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
@@ -921,8 +983,22 @@ def phase_attn(ops, ref, dev="cuda"):
         ("encoder_2x512", 2, 512, 16, 16, 64, False, f32),
         ("ragged_3x1000", 3, 1000, 8, 2, 32, True, f32),        # S off the 64-row tile
         ("smoke_2x24", 2, 24, 8, 1, 16, True, f32),
+        # Hymba-1.5B (phase 13): 2,048 tokens + 128 meta positions, G 5
+        ("hymba_8x2176_w1024", 8, 2176, 25, 5, 64, True, bf16, 1024),
+        ("hymba_8x2176_global", 8, 2176, 25, 5, 64, True, bf16, None),
+        ("long_1x16384_w1024", 1, 16384, 25, 5, 64, True, bf16, 1024),
+        ("long_1x16384_causal", 1, 16384, 25, 5, 64, True, bf16, None),
+        ("hymba_1x2176_w1024_f32", 1, 2176, 25, 5, 64, True, f32, 1024),   # the twin's
+        ("hymba_1x2176_w48_f32", 1, 2176, 25, 5, 64, True, f32, 48),
     ]
-    return [attn_case(ops, ref, *c, dev=dev) for c in cases]
+    recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None)
+            for c in cases]
+    band, full = (next(r for r in recs if r["case"] == n)
+                  for n in ("long_1x16384_w1024", "long_1x16384_causal"))
+    log(f"  band against causal at (1, 16384, 25, 5, 64): {band['ms']:.4f} / {full['ms']:.4f} ms "
+        f"= {band['ms'] / full['ms']:.4f} of the time, for "
+        f"{band['pairs_per_head'] / full['pairs_per_head']:.4f} of the key-query pairs")
+    return recs
 
 
 def sketch_case(ops, ref, name, n, k, seed=0, dev="cuda"):
@@ -1166,12 +1242,15 @@ def kernel_kind(name: str, split=()) -> str:
     return next((t for t in ("elementwise", "reduce") if t in name), "other")
 
 
-def profile_window(fn, split=()) -> dict:
+def profile_window(fn, split=(), annotated=()) -> dict:
     """Device busy and idle share of one call, from a torch.profiler trace:
     the union of the CUDA kernels' intervals over the host wall time of the
     call (the profiler's own host overhead counts as idle).  ``split``
     names a kernel, or a tuple of them: their summed time comes back as
-    ``split_ms``; ``by_kind`` sums the kernels' time by ``kernel_kind``."""
+    ``split_ms``; ``by_kind`` sums the kernels' time by ``kernel_kind``,
+    except that a kernel launched inside a ``record_function`` range named
+    in ``annotated`` counts under that name (matched through the launch's
+    correlation id)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1186,16 +1265,30 @@ def profile_window(fn, split=()) -> dict:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"],
+                   e.get("args", {}).get("correlation"))
                   for e in events if e.get("cat") == "kernel")
     if not kern:
         raise AssertionError("profiler trace holds no CUDA kernel")
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+                    for e in events
+                    if e.get("cat") == "user_annotation" and e.get("name") in annotated)
+    starts = [r[0] for r in ranges]
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def range_of(corr):
+        t = launched.get(corr)
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        return ranges[i][2] if i >= 0 and t <= ranges[i][1] else None
+
     busy, end, by_name, by_kind = 0.0, -1.0, {}, {}
-    for s, e, name in kern:
+    for s, e, name, corr in kern:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
-        kind = kernel_kind(name, split)
+        kind = (ranges and range_of(corr)) or kernel_kind(name, split)
         by_kind[kind] = by_kind.get(kind, 0.0) + (e - s) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
@@ -1421,11 +1514,11 @@ def layer_errors(model, params, tokens, module, name: str, plain, oracle):
     kernel = getattr(module, name)
     errs = []
 
-    def checking(q, k, v, causal=True):
-        out = kernel(q, k, v, causal)
-        want, lim = oracle(q, k, v, causal)
+    def checking(q, k, v, causal=True, window=None):
+        out = kernel(q, k, v, causal, window=window)
+        want, lim = oracle(q, k, v, causal, window)
         errs.append((float(((out.double() - want).abs() / lim).max()),
-                     float(((plain(q, k, v, causal).double() - want).abs() / lim).max())))
+                     float(((plain(q, k, v, causal, window).double() - want).abs() / lim).max())))
         return out
 
     with swapped(module, name, checking):
@@ -1474,8 +1567,9 @@ def f32_gates(m32, p32, tokens, plain, max_len, steps: int):
 
 def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
              decode_tokens: int = 64, dev="cuda", profile: bool = False,
-             max_len=None, check_last: bool = False, oracle=None, twin_layers=None):
-    """LM serving (phases 5, 6 and 12): prefill ``batch`` × ``prompt`` ids,
+             max_len=None, check_last: bool = False, oracle=None, twin_cfg=None,
+             annotated=()):
+    """LM serving (phases 5, 6, 12 and 13): prefill ``batch`` × ``prompt`` ids,
     greedy-decode ``decode_tokens``; the gates (a)–(d) of the module
     docstring.  ``wops``: the wrapper module of the kernel on the path;
     ``plain``: (module, name, plain function) to patch in for gate (b);
@@ -1483,13 +1577,15 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     at the last decode step in float32; ``oracle``: the kernel's function
     in float64 with its per-element limit, which turns gate (b)'s bf16
     half into phase 6's (each layer's kernel output against it, and the
-    two bf16 models' distances to the float32 twin).  ``twin_layers``
-    (phase 12, where the model's float32 copy would not fit beside it):
-    the float32 twin is a model of that depth with weights of its own,
-    served on the first prompt before the model is built; gate (b) in
-    bf16 is then the oracle's alone, and gate (c) in bf16 holds decode
-    against the kernel-served prefill(S + 1), the plain-served one's
-    distance to it being the rounding noise."""
+    two bf16 models' distances to the float32 twin).  ``twin_cfg``
+    (phases 12 and 13, where the model's float32 copy would not fit beside
+    it): the float32 twin is a model of that config (the model's, cut in
+    depth) with weights of its own, served on the first prompt before the
+    model is built; gate (b) in bf16 is then the oracle's alone, and gate
+    (c) in bf16 holds decode against the kernel-served prefill(S + 1), the
+    plain-served one's distance to it being the rounding noise.
+    ``annotated``: ``record_function`` ranges whose kernels the prefill's
+    profile counts as kinds of their own (``profile_window``)."""
     from repro_torch.models import Model
 
     kname = wops.__name__.split(".")[-2]
@@ -1500,8 +1596,8 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     twin = None
-    if twin_layers is not None:
-        m32 = Model(cfg.replace(dtype="float32", n_layers=twin_layers), device=dev)
+    if twin_cfg is not None:
+        m32 = Model(twin_cfg, device=dev)
         with torch.inference_mode():
             twin = f32_gates(m32, m32.init(torch.Generator(device=dev).manual_seed(1)),
                              tokens[:1], plain, max_len, steps32)[1]
@@ -1584,7 +1680,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         # another prefill(S + 1)'s distance from it, over the same logits in
         # this run (a cache or position fault moves the logits by O(1);
         # rounding does not): the f32 twin's and the bf16 model's, or (with
-        # twin_layers) the kernel-served and the plain-served bf16 model's.
+        # twin_cfg) the kernel-served and the plain-served bf16 model's.
         # The reference's band ratio is printed.  float32 in f32_gates.
         layer_err = (None if oracle is None else
                      layer_errors(model, params, tokens, *plain[:2], plain[2], oracle))
@@ -1593,7 +1689,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         diff_b = maxdiff(logits, plain_logits)
         tokens_c = torch.cat([tokens, seq[0][:, None]], 1)
         longer = model.prefill(params, {"tokens": tokens_c})[0]
-        if twin_layers is None:                    # the same weights in float32
+        if twin_cfg is None:                       # the same weights in float32
             m32 = Model(cfg.replace(dtype="float32"), device=dev)
             p32 = upcast(params)
             l32, twin = f32_gates(m32, p32, tokens, plain, max_len, steps32)
@@ -1620,7 +1716,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
             + ("" if noise is None else f" (the two bf16 models vs the f32 twin: {noise:.4f}, "
                                         f"{noise_plain:.4f})")
             + f"; decode vs {ref_name} {diff_c:.4f} (limit {DECODE_NOISE} x "
-            f"{'the bf16' if twin_layers is None else 'the plain-served'} prefill(S + 1)'s "
+            f"{'the bf16' if twin_cfg is None else 'the plain-served'} prefill(S + 1)'s "
             f"{noise_c:.4f}: {ratio_c:.4f} of it; the reference's band, atol "
             f"{LM_BAND['atol']}, rtol {LM_BAND['rtol']}, against the bf16 prefill(S + 1), not "
             f"gated: {band_c:.4f})")
@@ -1635,7 +1731,8 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, max_len),
                              max_reps=5)
         prof = profile_window(lambda: model.prefill(params, {"tokens": tokens}, max_len),
-                              split=kname) if torch.device(dev).type == "cuda" else None
+                              split=kname, annotated=annotated) \
+            if torch.device(dev).type == "cuda" else None
         decode_prof = None
         if profile:
             def steps(n=16):
@@ -1669,9 +1766,14 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     if prof is not None:
         out["profile_prefill"] = prof
         out["kernel_share_of_prefill"] = prof["split_ms"] / prof["device_busy_ms"]
+        for name in annotated:
+            out[f"{name}_share_of_prefill"] = (prof["by_kind"].get(name, 0.0)
+                                               / prof["device_busy_ms"])
         log(f"  profile prefill: wall {prof['wall_ms']:.1f} ms, kernels busy "
             f"{prof['device_busy_ms']:.1f} ms ({kname} {prof['split_ms']:.1f} ms, share "
-            f"{out['kernel_share_of_prefill']:.3f}), idle share {prof['idle_share']:.3f}; "
+            f"{out['kernel_share_of_prefill']:.3f}"
+            + "".join(f", {n} share {out[f'{n}_share_of_prefill']:.3f}" for n in annotated)
+            + f"), idle share {prof['idle_share']:.3f}; "
             f"by kind {prof['by_kind']}; top {prof['top']}; peak memory "
             f"{out['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
     if decode_prof is not None:
@@ -3207,7 +3309,20 @@ def main() -> int:
             + f": prefill {batch} x 2048 with cache room for 64 decode tokens, decode 64 tokens")
         dense_serve.append(phase_lm(fops, (ops, pops, wops, cops), cfg, attn_plain, batch=batch,
                                     prompt=2048, max_len=2048 + 64, check_last=True,
-                                    oracle=flash_attention.attention_limit, twin_layers=2))
+                                    oracle=flash_attention.attention_limit,
+                                    twin_cfg=cfg.replace(dtype="float32", n_layers=2)))
+    gc.collect()
+    torch.cuda.empty_cache()                            # the card holds nothing else
+    hymba_cfg = configs.get("hymba_1_5b")
+    log(f"phase 13: {hymba_cfg.name} serving at full width, {hymba_cfg.n_layers} layers (window "
+        f"{hymba_cfg.window}, global layers {hymba_cfg.global_layers}, "
+        f"{hymba_cfg.meta_tokens} meta tokens): prefill 8 x 2048 with cache room for 64 decode "
+        f"tokens, decode 64 tokens")
+    hymba = phase_lm(fops, (ops, pops, wops, cops), hymba_cfg, attn_plain, batch=8, prompt=2048,
+                     max_len=2048 + 64, check_last=True, profile=args.profile,
+                     oracle=flash_attention.attention_limit,
+                     twin_cfg=hymba_cfg.replace(dtype="float32", n_layers=2, global_layers=(0,)),
+                     annotated=("ssm_branch",))
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -3283,7 +3398,9 @@ def main() -> int:
                              "lm_decode": dense["launches_decode"],
                              "lm_train_4_steps": train["launches"]["flash_attention"],
                              **{f"serve_{d['arch']}_prefill": d["launches_prefill"]
-                                for d in dense_serve}},
+                                for d in dense_serve},
+                             "serve_hymba_1_5b_prefill": hymba["launches_prefill"],
+                             "serve_hymba_1_5b_decode": hymba["launches_decode"]},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -3306,7 +3423,7 @@ def main() -> int:
                     "lm_dense": dense, "lm_train": train, "maintain": maintain,
                     "retrain": retrain, "phase8_s": phase8_s, "operate": operate,
                     "data_parallel": dp, "bridge": bridge, "lm_rwkv_train": rwkv_train,
-                    "dense_serve": dense_serve, "host_state": host}))
+                    "dense_serve": dense_serve, "hymba_serve": hymba, "host_state": host}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,9 @@
 //
 // over j ≤ i when causal, every j < S otherwise, by online softmax over
 // K/V tiles: a running max m, a running sum l and a float32 accumulator,
-// rescaled by exp(m_old − m_new) as each tile arrives.
+// rescaled by exp(m_old − m_new) as each tile arrives.  A causal call may
+// take a sliding window w ≥ 1 (0: none): then only i − w < j ≤ i, the mask
+// of the reference's models/layers._attn_mask, for Hymba's windowed layers.
 // Masked scores are −1e30 (not −inf), as in the reference.  In bf16 the
 // probabilities are rounded to bf16 before P·V and l sums them unrounded,
 // as _block_attn_fwd does.  Optionally (a non-null lse pointer) each row's
@@ -30,7 +32,10 @@
 //
 // Bound: operations.  At the TinyLlama prefill (8, 2048, 32, 4, 64) the
 // products are 4·B·N·dh·S(S+1)/2 = 137.4 GFLOP, 0.139 ms at 989 TFLOP/s
-// bf16, against 151 MB of q, k, v and output (0.045 ms at 3.35 TB/s).
+// bf16, against 151 MB of q, k, v and output (0.045 ms at 3.35 TB/s).  With
+// a window the pairs are Σ_i min(i + 1, w): at Hymba's (8, 2176, 25, 5, 64),
+// w 1,024, 1.70 · 10⁶ a (b, head) against 2.37 · 10⁶ causal; at (1, 16384),
+// 16.3 · 10⁶ against 134.2 · 10⁶.
 //
 // Design, bf16 (384 threads = 3 warpgroups a block, 128-row query tiles,
 // 128-row K/V tiles), after FlashAttention-3's warp specialisation:
@@ -63,6 +68,20 @@
 //   at dh 128.
 // - Causal masking touches only the diagonal tile (and a ragged last tile);
 //   the loop stops at the diagonal.
+// - Window (both kernels): query tile qt, rows [T·qt, T·qt + T), reads only
+//   the K/V tiles from ⌊max(0, T·qt − w + 1) / T⌋ to its diagonal; the
+//   tiles wholly below the band are never loaded or multiplied.  A tile
+//   whose first key lies below T·qt + T − w is masked at its low edge too
+//   (key < row − w + 1).  The band's first tile may hold no key of a row
+//   (w 1,024, T 128: row T·qt + 127 there), and only that tile: that row's
+//   max is then the mask value itself, and the bf16 kernel's one-FFMA
+//   exponent x·c − m·c of two equal −1e30 scores need not be 0, so on the
+//   first tile a row whose max is the mask value takes 0 for its
+//   exponent's offset (FlashAttention-3's Check_inf) and its masked scores
+//   give p = 0.  The float32 kernel subtracts before scaling, exactly, as
+//   the reference does: p = 1 on such a tile, wiped by the next tile's
+//   correction of 0.  The band's masks sit in a block of their own, so the
+//   causal kernel's loop is the one it had without a window.
 // Design, float32 (128 threads = 4 warps, 64 query rows, 64-row K/V tiles):
 //   plain FMA, no TF32.  A thread owns 4 rows × 8 columns of the 64 × 64
 //   score tile and 4 rows × dh/8 columns of the output; the 8 lanes of a row
@@ -114,6 +133,7 @@ struct Args {
   int S;                            // sequence length (queries and keys)
   int G;                            // query heads a K/V head
   float scale;                      // 1 / sqrt(dh)
+  int window;                       // causal band width, 0 for none
 };
 
 struct Bf16Args {
@@ -122,6 +142,7 @@ struct Bf16Args {
   float* lse;
   Strides so;
   int B, S, N, G;
+  int window;                       // causal band width, 0 for none
   float scale_log2;                 // log2(e) / sqrt(dh)
 };
 
@@ -173,7 +194,10 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
     b = (int)(bn / N);
     n = (int)(bn % N);
   };
-  auto kv_tiles = [&](int qt) { return CAUSAL ? qt + 1 : n_qt; };
+  // the K/V tiles a query tile reads: first_tile(qt) .. last_tile(qt)
+  const int window = CAUSAL ? a.window : 0;
+  auto first_tile = [&](int qt) { return window ? max(0, qt * kTile - window + 1) / kTile : 0; };
+  auto last_tile = [&](int qt) { return CAUSAL ? qt : n_qt - 1; };
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -207,7 +231,7 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
         for (int p = 0; p < L::kParts; ++p)
           sm90::tma_load_4d(base + L::kQ + p * L::kPartBytes, &a.tq, q_full, p * L::kInner, n,
                             qt * kTile, b);
-        for (int j = 0; j < kv_tiles(qt); ++j, ++it) {
+        for (int j = first_tile(qt); j <= last_tile(qt); ++j, ++it) {
           const int s = it % kStages;
           if (it >= kStages) sm90::mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
           sm90::mbar_arrive_expect_tx(k_full + 8 * s, L::kTileBytes);
@@ -273,14 +297,16 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
     };
     // Online softmax of K/V tile j's scores, in place: x becomes
     // p = 2^(x·c − m·c) with c = log2(e)/√dh folded into one FFMA; corr is
-    // exp(m_old − m_new).
-    auto softmax = [&](int j, int row0, bool edge) {
+    // exp(m_old − m_new).  edge: mask keys past the row (or past S); low:
+    // mask keys below the row's band; first: the tile opens the row's
+    // state, and only a band's first tile can hold none of a row's keys.
+    auto softmax = [&](int j, int row0, bool edge, bool low, bool first) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) sm90::fence_operand(x[i]);
+      const int kv0 = j * kTile;
       if (edge) {
         // key kv0 + 2t + (8(i / 4) + i % 2) is valid up to min(S − 1, row):
         // one compare of the constant against a per-row bound
-        const int kv0 = j * kTile;
         int lim[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -288,6 +314,15 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
 #pragma unroll
         for (int i = 0; i < 64; ++i)
           if (8 * (i / 4) + (i & 1) > lim[(i >> 1) & 1]) x[i] = kMasked;
+      }
+      if (low) {
+        // ... and from row − w + 1 (a row past S takes row S − 1's band)
+        int lo[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) lo[r] = min(S - 1, row0 + 8 * r) - window + 1 - kv0 - 2 * t;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (8 * (i / 4) + (i & 1) < lo[(i >> 1) & 1]) x[i] = kMasked;
       }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -299,7 +334,8 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         corr[r] = ex2((m[r] - mx[r]) * a.scale_log2);   // 0 on the first tile (m = −inf)
         m[r] = mx[r];
-        ms[r] = mx[r] * a.scale_log2;
+        // a row with no key in the band's first tile: p = 0, not 2^(residue)
+        ms[r] = first && mx[r] == kMasked ? 0.f : mx[r] * a.scale_log2;
         sum[r] = 0.f;
       }
 #pragma unroll
@@ -330,9 +366,11 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
     for (long long w = blockIdx.x; w < n_work; w += gridDim.x, ++round) {
       int b, n, qt;
       tile_of(w, b, n, qt);
-      const int n_tiles = kv_tiles(qt);
+      const int j0 = first_tile(qt), n_tiles = last_tile(qt) - j0 + 1;
       const int row0 = qt * kTile + 64 * c + 16 * warp + g;   // this thread's rows: row0, row0 + 8
-      auto edge = [&](int j) { return (CAUSAL && j == n_tiles - 1) || (j + 1) * kTile > S; };
+      // masked: the diagonal and a ragged last tile; the band's low edge
+      auto edge = [&](int j) { return (CAUSAL && j == qt) || (j + 1) * kTile > S; };
+      auto low = [&](int j) { return window && j * kTile < qt * kTile + kTile - window; };
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;
@@ -341,13 +379,13 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
       sm90::mbar_wait(q_full, round & 1);
       scores(it);
       sm90::wgmma_wait<0>();
-      softmax(0, row0, edge(0));
+      softmax(j0, row0, edge(j0), low(j0), true);
       fold();
       for (int j = 1; j < n_tiles; ++j) {
         scores(it + j);
         accumulate(it + j - 1);
         sm90::wgmma_wait<1>();                       // the scores have landed
-        softmax(j, row0, edge(j));
+        softmax(j0 + j, row0, edge(j0 + j), low(j0 + j), false);
         sm90::wgmma_wait<0>();                       // P·V of tile j − 1 is done
 #pragma unroll
         for (int i = 0; i < DH / 2; ++i) sm90::fence_operand(o[i]);
@@ -435,7 +473,9 @@ flash_attention_f32_kernel(const Args a) {
   const float* Q = static_cast<const float*>(a.q) + b * a.sq.b + n * a.sq.h;
   const float* K = static_cast<const float*>(a.k) + b * a.sk.b + kh * a.sk.h;
   const float* V = static_cast<const float*>(a.v) + b * a.sv.b + kh * a.sv.h;
-  const int n_tiles = CAUSAL ? qt + 1 : (S + kF32Tile - 1) / kF32Tile;
+  const int window = CAUSAL ? a.window : 0;
+  const int j0 = window ? max(0, q0 - window + 1) / kF32Tile : 0;   // the band's first tile
+  const int j1 = CAUSAL ? qt : (S + kF32Tile - 1) / kF32Tile - 1;
 
   // rows 4ty .. 4ty + 3; score columns tx + 8c (c < 8); output columns tx + 8c (c < NC)
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
@@ -450,7 +490,7 @@ flash_attention_f32_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j0; j <= j1; ++j) {
     const int kv0 = j * kF32Tile;
     load_tile<float, DH, kF32Tile, LD>(sK, K, a.sk.s, kv0, S);
     load_tile<float, DH, kF32Tile, LD>(sV, V, a.sv.s, kv0, S);
@@ -482,17 +522,19 @@ flash_attention_f32_kernel(const Args a) {
           s[i][c] = acc;
         }
     }
-    const bool edge = (CAUSAL && j == qt) || kv0 + kF32Tile > S;
+    const bool edge = (CAUSAL && j == qt) || kv0 + kF32Tile > S ||
+                      (window && kv0 < q0 + kF32Tile - window);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
+      const int low = window ? min(row, S - 1) - window + 1 : 0;   // a row past S keeps a key
       float mx = m[i], sum = 0.f;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         float x = s[i][c] * a.scale;
         if (edge) {
           const int key = kv0 + tx + 8 * c;
-          if (key >= S || (CAUSAL && key > row)) x = kMasked;
+          if (key >= S || (CAUSAL && key > row) || key < low) x = kMasked;
         }
         s[i][c] = x;
         mx = fmaxf(mx, x);
@@ -592,6 +634,7 @@ int launch_bf16(const Args& a, long long B, long long S, long long N, long long 
   h.S = a.S;
   h.N = (int)N;
   h.G = a.G;
+  h.window = a.window;
   h.scale_log2 = a.scale * kLog2e;
   // per device, once: the shared-memory opt-in and the SM count (a launch's
   // host time is on the path of short calls)
@@ -655,13 +698,14 @@ extern "C" {
 // is 16-byte aligned; the last dimension is contiguous.  lse: null, or a contiguous
 // float32 (B, N, S) for each row's log-sum-exp.  The caller checks shapes: dh
 // in {16, 32, 64, 128}, N % Kh == 0, B and ceil(S / tile) at most 65,535, the
-// tile 128 rows in bf16 and 64 in float32.
+// tile 128 rows in bf16 and 64 in float32.  window: 0, or the causal band
+// width w ≥ 1 (a window on a non-causal call is refused).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                         int is_bf16, long long B, long long S, long long N, long long Kh, int dh,
-                        int causal, const long long* strides, void* stream) {
+                        int causal, int window, const long long* strides, void* stream) {
   const long long tile = is_bf16 ? kTile : kF32Tile;
   if (B <= 0 || S <= 0 || N <= 0 || Kh <= 0 || N % Kh != 0 || B > 65535 || N > 0x7fffffffLL ||
-      (S + tile - 1) / tile > 65535)
+      (S + tile - 1) / tile > 65535 || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -676,6 +720,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
   a.S = (int)S;
   a.G = (int)(N / Kh);
   a.scale = (float)(1.0 / sqrt((double)dh));
+  a.window = window;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
     case 16: return dispatch<16>(a, is_bf16, causal, B, S, N, Kh, st);

@@ -4,7 +4,12 @@
 and returns softmax(q·kᵀ/√dh)·v as (B, S, N·dh) in q's dtype, causal or
 not, query head n reading K/V head n // (N // Kh); the reference's
 ``kernels/flash_attention/ops.flash_attention_gqa`` has the same call,
-without its repeat of K/V.  CUDA tensors go to the kernel, which is
+without its repeat of K/V.  A causal call may take a sliding ``window``
+w ≥ 1: query i then sees the w keys (i − w, i], as the reference's
+``models/layers._attn_mask`` masks them; None or w ≥ 2²⁹
+(``ref.GLOBAL_WINDOW``, the reference's test in ``models/lm.py``) is full
+causal attention, and a window on a non-causal call raises (the
+reference bands only causal calls).  CUDA tensors go to the kernel, which is
 compiled with ``nvcc`` for sm_90a at first use (``kernels/_build.py``)
 and bound through ``ctypes``; it reads the operands in place through
 their strides (a copy only where the last dimension is not contiguous,
@@ -39,8 +44,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import (KERNEL_TILE, KV_CHUNK, Q_CHUNK, block_attn_bwd, block_attn_fwd,
-                  flash_attention_ref)
+from .ref import (GLOBAL_WINDOW, KERNEL_TILE, KV_CHUNK, Q_CHUNK, block_attn_bwd,
+                  block_attn_fwd, flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -67,7 +72,7 @@ def _load() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         lib.flash_attention_fwd.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
-            + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+            + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_bf16_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_attention_bf16_smem_bytes.restype = ctypes.c_int
@@ -119,18 +124,33 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def band(window: Optional[int], causal: bool) -> Optional[int]:
+    """The window a call runs with: None for full attention (None or w ≥
+    2²⁹), else w; raises for w < 1 and for a window on a non-causal call."""
+    if window is None or window >= GLOBAL_WINDOW:
+        return None
+    if not causal:
+        raise ValueError(f"flash_attention: a window ({window}) needs a causal call")
+    if window < 1:
+        raise ValueError(f"flash_attention: a window is at least 1 key, got {window}")
+    return int(window)
+
+
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, return_lse: bool = False):
+                        causal: bool = True, return_lse: bool = False,
+                        window: Optional[int] = None):
     """softmax(q·kᵀ/√dh)·v of q (B, S, N, dh) and k, v (B, S, Kh, dh),
-    as (B, S, N·dh) in q's dtype; with ``return_lse``, (out, lse (B, N, S)
+    as (B, S, N·dh) in q's dtype, each query over the keys its causal
+    mask and ``window`` leave it; with ``return_lse``, (out, lse (B, N, S)
     float32)."""
     _check(q, k, v)
+    window = band(window, causal)
     B, S, N, dh = q.shape
     if q.device.type == "cpu":
         if not return_lse:
-            return flash_attention_ref(q, k, v, causal)
+            return flash_attention_ref(q, k, v, causal, window)
         pos = torch.arange(S, dtype=torch.int32).expand(B, S)
-        out, lse = block_attn_fwd(q, k, v, pos, pos, causal, None, Q_CHUNK, KV_CHUNK)
+        out, lse = block_attn_fwd(q, k, v, pos, pos, causal, window, Q_CHUNK, KV_CHUNK)
         return out.to(q.dtype), lse.reshape(B, N, S)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no route for device {q.device}")
@@ -145,7 +165,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N,
-            k.shape[2], dh, int(causal), (ctypes.c_longlong * 12)(*strides),
+            k.shape[2], dh, int(causal), window or 0, (ctypes.c_longlong * 12)(*strides),
             _build.raw_stream(q.device))
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "

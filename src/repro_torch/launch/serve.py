@@ -1,11 +1,14 @@
 """Batched LM serving: prefill a prompt batch, then decode N tokens greedily.
 
 The port of the reference's ``launch/serve.py`` for the ported configs
-(``rwkv6_1_6b``, whose prefill runs the rwkv6_chunk kernel, and
-``tinyllama_1_1b``, whose prefill attention runs the flash_attention
-kernel).  Weights are random, drawn from ``--seed``; prompts are token
-ids from numpy's ``default_rng(seed)``.  The prefill gives a dense
-model's KV cache room for the prompt and every decode token.  PyTorch
+(``rwkv6_1_6b``, whose prefill runs the rwkv6_chunk kernel; the dense
+configs such as ``tinyllama_1_1b``, whose prefill attention runs the
+flash_attention kernel; and ``hymba_1_5b``, whose windowed and global
+attentions run that kernel beside the SSM branch).  Weights are random,
+drawn from ``--seed``; prompts are token ids from numpy's
+``default_rng(seed)``.  The prefill gives the KV cache room for the
+prompt and every decode token (``max_len`` = prompt + decode tokens; a
+model with meta tokens adds their positions itself).  PyTorch
 compiles nothing ahead of a call, so the times printed are of the steady
 state: each of prefill and decode runs once untimed first (building the
 CUDA kernel on its first call).  Without ``--full`` the arch's reduced
@@ -16,6 +19,9 @@ CUDA kernel on its first call).  Without ``--full`` the arch's reduced
         --batch 8 --prompt-len 2048 --decode-tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b --full \\
         --batch 8 --prompt-len 1024 --decode-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --full \\
+        --batch 8 --prompt-len 2048 --decode-tokens 64
 """
 from __future__ import annotations
 

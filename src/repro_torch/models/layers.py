@@ -9,15 +9,16 @@ back, the prefill's attention scores in float32 and its probabilities
 rounded to v's dtype before P·V) except in the decode step's attention,
 which runs in float32 throughout (see :func:`decode_attention`).
 
-The prefill's attention (causal self-attention with no window at
-positions 0..S−1) goes to ``kernels/flash_attention``: the hand-written
-CUDA kernel for a CUDA tensor, its plain version (the port of the
-reference's blockwise ``_block_attn``) for a CPU tensor.  Where a
+The prefill's attention (causal self-attention at positions 0..S−1, with
+or without a sliding window) goes to ``kernels/flash_attention``: the
+hand-written CUDA kernel for a CUDA tensor, its plain version (the port
+of the reference's blockwise ``_block_attn``) for a CPU tensor.  Where a
 gradient is wanted (training), the attention is the kernel's
 ``attention_train``, whose backward is the port of the reference's
-custom VJP.  Everything here is differentiable and updates nothing in
-place.  Windowed and cross-attention wait for the configs that use them
-(ROADMAP §1 item 7).
+custom VJP; it has no window yet, so a windowed attention that wants a
+gradient raises.  Everything here is differentiable and updates nothing
+in place.  Cross-attention waits for the config that uses it (ROADMAP §1
+item 7).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import attention_train, flash_attention_gqa
+from ..kernels.flash_attention.ops import band
 from ..kernels.flash_attention.ref import KV_CHUNK
 from .config import ModelConfig
 
@@ -92,23 +94,30 @@ def attention_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v.reshape(B, S, Kh, dh)
 
 
-def attend(p, q, k, v, causal: bool = True, kv_chunk: int = KV_CHUNK):
+def attend(p, q, k, v, causal: bool = True, kv_chunk: int = KV_CHUNK, window=None):
     """Self-attention of q over k, v at positions 0..S−1 (a prefill or a
     training step), projected by ``wo``: the reference's ``attention``
-    after :func:`attention_qkv`, through the flash_attention kernel.  With
-    gradients on and an input that wants one, the attention carries the
-    backward (over kv blocks of ``kv_chunk`` keys)."""
+    after :func:`attention_qkv`, through the flash_attention kernel, with
+    the layer's sliding ``window`` (None or ≥ 2²⁹: full).  With gradients
+    on and an input that wants one, the attention carries the backward
+    (over kv blocks of ``kv_chunk`` keys); with a window that raises."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if band(window, causal) is not None:
+            raise NotImplementedError(
+                "the windowed attention's backward is not ported yet (Hymba training, ROADMAP "
+                "§1 item 7)")
         return attention_train(q, k, v, causal, kv_chunk) @ p["wo"]
-    return flash_attention_gqa(q, k, v, causal) @ p["wo"]
+    return flash_attention_gqa(q, k, v, causal, window=window) @ p["wo"]
 
 
-def decode_attention(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos):
+def decode_attention(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos, layer_window=None):
     """Single-token decode against a (B, S_max, Kh, dh) KV cache.
 
     kpos: (B, S_max) the absolute position in each cache slot (−1 =
-    empty); pos: (B,) the current position.  Returns (out, new k entry,
-    new v entry); the caller updates the cache.
+    empty); pos: (B,) the current position; ``layer_window``: the layer's
+    sliding window (None: full), which leaves the keys at pos − w + 1 ..
+    pos, as the reference's.  Returns (out, new k entry, new v entry); the
+    caller updates the cache.
 
     The scores, the probabilities and P·V are float32 whatever the cache's
     dtype.  The reference rounds the scores, the probabilities and the
@@ -121,6 +130,8 @@ def decode_attention(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos):
     N, Kh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q, k, v = attention_qkv(p, cfg, x, pos[:, None])
     valid = (kpos >= 0) & (kpos < pos[:, None])
+    if layer_window is not None:
+        valid &= (pos[:, None] - kpos) < layer_window
     G = N // Kh
     qg = q.reshape(B, Kh, G, dh).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, cache_k.float()) / math.sqrt(dh)

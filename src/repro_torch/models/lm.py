@@ -1,33 +1,52 @@
 """LM facade of the port: init / training loss / prefill / decode, for
-``kind="rwkv"`` and ``kind="dense"``.
+``kind="rwkv"``, ``kind="dense"`` and ``kind="hybrid"`` (Hymba).
 
-The port of the reference's ``models/lm.py`` for the RWKV-6 block and
-the dense (GQA transformer) block.  The reference stacks each parameter
-over the layers and scans them; the port keeps a list of per-layer dicts
-and loops over it (``convert.lm_params`` unstacks the reference's).  The
-other block kinds (moe, hybrid, encdec), sliding-window attention and
-the modality front ends wait for later slices (ROADMAP §1 item 7) and
-raise.
+The port of the reference's ``models/lm.py`` for the RWKV-6 block, the
+dense (GQA transformer) block and the hybrid block, whose attention and
+SSM branch (``models/ssm.py``) read the same normed input and are
+averaged after a norm each, 0.5·(rmsnorm(attn, bn_a) + rmsnorm(ssm,
+bn_s)).  The reference stacks each parameter over the layers and scans
+them; the port keeps a list of per-layer dicts and loops over it
+(``convert.lm_params`` unstacks the reference's).  The other block kinds
+(moe, encdec) and the modality front ends wait for later slices (ROADMAP
+§1 item 7) and raise; so does the training loss of a config with a
+window, meta tokens or the SSM branch (Hymba training).
 
-Parameters: ``{"embed": {"tok", "head"}, "layers": [...], "ln_f"}``, a
-layer ``{"ln1", "ln2", "mix"}`` (rwkv) or ``{"ln1", "ln2", "attn",
-"mlp"}`` (dense).  :func:`stack_layers` gives the reference's layout, the
-layers as one dict of tensors stacked over a leading layer axis (the
-trainer's and the checkpoint's), and :func:`layer_views` the list of
-per-layer views of such stacked tensors.  Decode cache: ``{"layers":
-[...], "pos" (B,) int32}``, a layer
+Sliding windows: layer i attends over a window of ``cfg.window`` keys
+unless i is one of ``cfg.global_layers`` (``Model.windows[i]``, None for
+full attention; global layers past the model's depth, as in a config cut
+to fewer layers, are ignored).  Meta tokens: ``cfg.meta_tokens`` learned
+embeddings are put before the tokens at positions 0..M−1, the tokens
+from M on, as the reference's ``_embed_inputs`` does.  They fall out of
+a query's window like any other position, as in the reference; the Hymba
+paper keeps them visible to every query (ROADMAP §3).
+
+Parameters: ``{"embed": {"tok", "head"}, "layers": [...], "ln_f"}`` (and
+``"meta"`` (M, D) with meta tokens), a layer ``{"ln1", "ln2", "mix"}``
+(rwkv), ``{"ln1", "ln2", "attn", "mlp"}`` (dense) or that with ``"ssm",
+"bn_a", "bn_s"`` (hybrid).  :func:`stack_layers` gives the reference's
+layout, the layers as one dict of tensors stacked over a leading layer
+axis (the trainer's and the checkpoint's), and :func:`layer_views` the
+list of per-layer views of such stacked tensors.  Decode cache:
+``{"layers": [...], "pos" (B,) int32}``, a layer
 - rwkv: ``{"S" (B, H, hs, hs) float32, "x_last_tm", "x_last_cm" (B, D)
   in the model dtype}``, the two ``x_last`` the *normed* inputs of the
   time mix and the channel mix at the last position;
-- dense: ``{"k", "v" (B, span, Kh, dh) in the model dtype, "kpos" (B,
-  span) int32}``, the absolute position held in each slot (−1: empty).
-  Decode writes position p at slot p mod span, as the reference does,
-  and a step at position p reads positions 0..p−1: a step at p > span,
-  whose context the cache no longer holds, raises.  (The reference's
-  prefill cache has span = S, and its second decode step runs without
-  position 0, which its first overwrote: ROADMAP §3.)
-  ``prefill(..., max_len)`` gives the cache room for the decode tokens
-  (span = max(max_len, S)).
+- dense and hybrid: ``{"k", "v" (B, span, Kh, dh) in the model dtype,
+  "kpos" (B, span) int32}``, the absolute position held in each slot (−1:
+  empty), and for hybrid ``"ssm": {"h" (B, H, N, P) float32, "conv" (B,
+  4, d_inner)}``.  Position p sits at slot p mod span, in prefill and in
+  decode.  A global layer's span is every position the model will see,
+  a windowed layer's min(w, that): the window needs no more.  A step at
+  position p reads positions p − w + 1..p − 1 (0..p − 1 for a global
+  layer); a step whose context the cache no longer holds raises.  (The
+  reference's prefill cache has span = S, and its second decode step runs
+  without position 0, which its first overwrote; its windowed layers
+  keep the prompt's last min(w, S) positions and shift, which drops
+  in-window positions when S < w: ROADMAP §3.)  ``prefill(...,
+  max_len)`` gives the cache room for the decode tokens: ``max_len``
+  counts the caller's token positions (prompt and decode tokens); the
+  model adds its M meta positions itself, here and in :meth:`Model.init_cache`.
 """
 from __future__ import annotations
 
@@ -39,9 +58,10 @@ import torch.utils.checkpoint
 from ..core.schema import resolve_device
 from . import layers as L
 from . import rwkv6 as RWKV
+from . import ssm as SSM
 from .config import ModelConfig
 
-KINDS = ("rwkv", "dense")
+KINDS = ("rwkv", "dense", "hybrid")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -49,11 +69,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_kind(cfg: ModelConfig) -> None:
-    if cfg.kind not in KINDS or cfg.frontend or cfg.meta_tokens or cfg.window:
+    if cfg.kind not in KINDS or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: block kind {cfg.kind!r} (frontend {cfg.frontend!r}, "
-            f"{cfg.meta_tokens} meta tokens, window {cfg.window}) is not ported yet; the "
-            f"port runs kinds {KINDS} with full attention on token ids alone (ROADMAP §1 "
+            f"{cfg.name}: block kind {cfg.kind!r} (frontend {cfg.frontend!r}) is not ported "
+            f"yet; the port runs kinds {KINDS} on token ids and meta tokens alone (ROADMAP §1 "
             f"item 7)")
 
 
@@ -63,9 +82,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, devic
          "ln2": L.init_rmsnorm(cfg.d_model, dtype, device)}
     if cfg.kind == "rwkv":
         p["mix"] = RWKV.init_rwkv_block(gen, cfg, dtype, device)
-    else:
-        p["attn"] = L.init_attention(gen, cfg, dtype, device)
-        p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+        return p
+    p["attn"] = L.init_attention(gen, cfg, dtype, device)
+    p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+    if cfg.kind == "hybrid":
+        p["ssm"] = SSM.init_ssm(gen, cfg, dtype, cfg.n_heads * cfg.head_dim, device)
+        p["bn_a"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        p["bn_s"] = L.init_rmsnorm(cfg.d_model, dtype, device)
     return p
 
 
@@ -98,17 +121,31 @@ class Model:
         _check_kind(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.windows = [None if not cfg.window or i in cfg.global_layers else cfg.window
+                        for i in range(cfg.n_layers)]
 
     # ------------------------------------------------------------- init --
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random weights drawn from ``gen`` (on its own device), placed
         on the model's device."""
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
-        return {
+        params = {
             "embed": L.init_embed(gen, cfg, dt, dev),
             "layers": [init_block(gen, cfg, dt, dev) for _ in range(cfg.n_layers)],
             "ln_f": L.init_rmsnorm(cfg.d_model, dt, dev),
         }
+        if cfg.meta_tokens:
+            meta = torch.randn((cfg.meta_tokens, cfg.d_model), generator=gen, device=gen.device)
+            params["meta"] = (meta * 0.02).to(device=dev, dtype=dt)
+        return params
+
+    def _embed_inputs(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings (B, S, D), after the meta tokens' (B, M, D)."""
+        h = L.embed(params["embed"], tokens)
+        if not self.cfg.meta_tokens:
+            return h
+        meta = params["meta"][None].expand(h.shape[0], -1, -1)
+        return torch.cat([meta, h], 1)
 
     # -------------------------------------------------------------- loss --
     def loss(self, params, batch):
@@ -120,6 +157,11 @@ class Model:
         ``cfg.remat`` (the reference's ``jax.checkpoint``), so its
         attention's or its WKV's forward runs twice a backward pass."""
         cfg = self.cfg
+        if cfg.kind == "hybrid" or cfg.meta_tokens or cfg.window:
+            raise NotImplementedError(
+                f"{cfg.name}: training with the SSM branch, meta tokens or a window (Hymba "
+                f"training: the windowed attention's backward, then the SSM's gradient) is not "
+                f"ported yet (ROADMAP §1 item 7)")
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
         h = L.embed(params["embed"], tokens)
         B, S = tokens.shape
@@ -167,20 +209,24 @@ class Model:
     # ----------------------------------------------------------- prefill --
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Full-sequence forward building the decode cache.  batch:
-        ``{"tokens": (B, S) int}``; ``max_len``: the positions the dense
-        cache holds (S + the decode tokens to come; None: S, the
-        reference's layout, which has room for one decode step).  Returns (last_logits (B, padded vocab)
+        ``{"tokens": (B, S) int}``; ``max_len``: the token positions the
+        cache makes room for (S + the decode tokens to come; None: S, the
+        reference's layout, which has room for one decode step), the meta
+        tokens not counted.  Returns (last_logits (B, padded vocab)
         float32, ids ≥ vocab at −1e30, cache)."""
         cfg = self.cfg
-        h = L.embed(params["embed"], batch["tokens"].to(self.device))
-        B, S = h.shape[:2]
+        h = self._embed_inputs(params, batch["tokens"].to(self.device))
+        B, S = h.shape[:2]                     # S counts the meta tokens
+        total = S if max_len is None else max(cfg.meta_tokens + max_len, S)
         positions = torch.arange(S, dtype=torch.int32, device=self.device).repeat(B, 1)
         layers = []
-        for p in params["layers"]:
+        for i, p in enumerate(params["layers"]):
             if cfg.kind == "rwkv":
                 h, lc = self._prefill_rwkv(p, h)
             else:
-                h, lc = self._prefill_dense(p, h, positions, max_len)
+                w = self.windows[i]
+                h, lc = self._prefill_attn(p, h, positions, total if w is None else min(w, total),
+                                           w)
             layers.append(lc)
         cache = {"layers": layers,
                  "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
@@ -201,22 +247,23 @@ class Model:
         x = x + RWKV.channel_mix(p["mix"], cfg, h2)
         return x, {"S": S_fin, "x_last_tm": h[:, -1], "x_last_cm": h2[:, -1]}
 
-    def _prefill_dense(self, p, x, positions, max_len):
-        """One block: K and V are computed once, for the attention and for
-        the cache (the reference computes them twice)."""
+    def _prefill_attn(self, p, x, positions, span: int, window: Optional[int]):
+        """One dense or hybrid block with the layer's window; its cache
+        holds the last min(span, S) positions.  K and V are computed once,
+        for the attention and for the cache, and the hybrid block's SSM
+        branch gives its terminal state as it runs (the reference computes
+        both twice)."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
-        x = x + L.attend(p["attn"], q, k, v)
+        out = L.attend(p["attn"], q, k, v, window=window)
+        lc = _ring(k, v, positions, span)
+        if cfg.kind == "hybrid":
+            s, lc["ssm"] = SSM.ssm_branch(p["ssm"], cfg, h, return_state=True)
+            out = _mix(p, cfg, out, s)
+        x = x + out
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], cfg, h2)
-        B, S = positions.shape
-        room = max(max_len or S, S) - S
-        if not room:
-            return x, {"k": k, "v": v, "kpos": positions}
-        pad = lambda t: torch.cat([t, t.new_zeros((B, room) + t.shape[2:])], 1)
-        return x, {"k": pad(k), "v": pad(v),
-                   "kpos": torch.cat([positions, positions.new_full((B, room), -1)], 1)}
+        return x + L.mlp(p["mlp"], cfg, h2), lc
 
     # ------------------------------------------------------------ decode --
     def decode_step(self, params, cache, tokens):
@@ -225,20 +272,15 @@ class Model:
         the cache lacks room for the position (see the module docstring)."""
         cfg = self.cfg
         pos = cache["pos"]
-        if cfg.kind == "dense":
-            span = cache["layers"][0]["k"].shape[1]
-            if int(pos.max()) > span:
-                raise ValueError(
-                    f"decode at position {int(pos.max())} needs the {int(pos.max())} positions "
-                    f"before it, but the KV cache holds {span}: give prefill a max_len of the "
-                    f"prompt plus every decode token")
+        if cfg.kind != "rwkv":
+            self._check_room(cache, int(pos.max()))
         h = L.embed(params["embed"], tokens.to(self.device)[:, None])
         layers = []
-        for p, lc in zip(params["layers"], cache["layers"]):
+        for i, (p, lc) in enumerate(zip(params["layers"], cache["layers"])):
             if cfg.kind == "rwkv":
                 h, new_lc = self._decode_rwkv(p, h, lc)
             else:
-                h, new_lc = self._decode_dense(p, h, lc, pos)
+                h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i])
             layers.append(new_lc)
         h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
         logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h).float()[:, 0])
@@ -253,34 +295,81 @@ class Model:
         x = x + RWKV.channel_mix(p["mix"], cfg, h2, x_last=lc["x_last_cm"])
         return x, {"S": st["S"], "x_last_tm": h[:, 0], "x_last_cm": h2[:, 0]}
 
-    def _decode_dense(self, p, x, lc, pos):
+    def _check_room(self, cache, pos: int) -> None:
+        """Raises where a layer's cache no longer holds the positions that a
+        step at ``pos`` reads: min(pos, w − 1) of them (pos for a global
+        layer) against the layer's span."""
+        for lc, w in zip(cache["layers"], self.windows):
+            span = lc["k"].shape[1]
+            need = pos if w is None else min(pos, w - 1)
+            if need > span:
+                raise ValueError(
+                    f"decode at position {pos} needs the {need} positions before it, but the KV "
+                    f"cache holds {span}: give prefill a max_len of the prompt plus every decode "
+                    f"token")
+
+    def _decode_attn(self, p, x, lc, pos, window: Optional[int]):
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         out, k_new, v_new = L.decode_attention(p["attn"], cfg, h, lc["k"], lc["v"], lc["kpos"],
-                                               pos)
+                                               pos, layer_window=window)
         slot = pos[:1].long() % lc["k"].shape[1]    # every row at pos[0]'s slot, as the reference
         new_lc = {"k": lc["k"].index_copy(1, slot, k_new),
                   "v": lc["v"].index_copy(1, slot, v_new),
                   "kpos": lc["kpos"].index_copy(1, slot, pos[:, None])}
+        if cfg.kind == "hybrid":
+            s, new_lc["ssm"] = SSM.ssm_step(p["ssm"], cfg, h, lc["ssm"])
+            out = _mix(p, cfg, out, s)
         x = x + out
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], cfg, h2), new_lc
 
     # ------------------------------------------------------- cache specs --
     def init_cache(self, batch_size: int, max_len: int):
-        """Zero-filled decode cache at position ``max_len``."""
+        """Zero-filled decode cache at position ``max_len`` + M (``max_len``
+        token positions after the M meta tokens), a layer of span s holding
+        the positions before it at their slots p mod s (the reference's
+        ``init_cache``)."""
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
-        B = batch_size
+        B, total = batch_size, max_len + cfg.meta_tokens
         layers = []
-        for _ in range(cfg.n_layers):
+        for w in self.windows:
             if cfg.kind == "rwkv":
                 H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
                 layers.append({"S": torch.zeros(B, H, hs, hs, dtype=torch.float32, device=dev),
                                "x_last_tm": torch.zeros(B, cfg.d_model, dtype=dt, device=dev),
                                "x_last_cm": torch.zeros(B, cfg.d_model, dtype=dt, device=dev)})
                 continue
-            kv = lambda: torch.zeros(B, max_len, cfg.kv_heads, cfg.head_dim, dtype=dt, device=dev)
-            kpos = torch.arange(max_len, dtype=torch.int32, device=dev)
-            layers.append({"k": kv(), "v": kv(), "kpos": kpos.repeat(B, 1)})
+            span = total if w is None else min(w, total)
+            kv = lambda: torch.zeros(B, span, cfg.kv_heads, cfg.head_dim, dtype=dt, device=dev)
+            held = torch.arange(total - span, total, dtype=torch.int32, device=dev)
+            kpos = torch.empty_like(held).index_copy_(0, held.long() % span, held)
+            lc = {"k": kv(), "v": kv(), "kpos": kpos.repeat(B, 1)}
+            if cfg.kind == "hybrid":
+                H, d_inner = SSM._heads(cfg), cfg.n_heads * cfg.head_dim
+                lc["ssm"] = {"h": torch.zeros(B, H, cfg.ssm_state, d_inner // H,
+                                              dtype=torch.float32, device=dev),
+                             "conv": torch.zeros(B, SSM.CONV, d_inner, dtype=dt, device=dev)}
+            layers.append(lc)
         return {"layers": layers,
-                "pos": torch.full((B,), max_len, dtype=torch.int32, device=dev)}
+                "pos": torch.full((B,), total, dtype=torch.int32, device=dev)}
+
+
+def _mix(p, cfg: ModelConfig, attn: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:
+    """The hybrid block's branch output, 0.5·(rmsnorm(attn, bn_a) +
+    rmsnorm(ssm, bn_s))."""
+    return 0.5 * (L.rmsnorm(attn, p["bn_a"]["scale"], cfg.norm_eps)
+                  + L.rmsnorm(ssm, p["bn_s"]["scale"], cfg.norm_eps))
+
+
+def _ring(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, span: int):
+    """A prefill's cache of ``span`` slots: its last min(span, S) positions
+    at slots p mod span, the other slots empty (zero k and v, kpos −1)."""
+    B, S = positions.shape
+    if span == S:                      # every position at its own slot
+        return {"k": k, "v": v, "kpos": positions}
+    n = min(span, S)
+    slots = torch.arange(S - n, S, device=k.device) % span
+    place = lambda t, fill: t.new_full((B, span) + t.shape[2:], fill).index_copy_(
+        1, slots, t[:, S - n:])
+    return {"k": place(k, 0), "v": place(v, 0), "kpos": place(positions, -1)}

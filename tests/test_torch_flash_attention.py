@@ -221,8 +221,10 @@ def test_decode_attention_runs_in_float32_on_a_bf16_cache():
 
 def test_attention_routes():
     """The prefill's attention takes the kernel's wrapper (which has no
-    route for a meta tensor); a windowed config is refused where the model
-    is built, on every device, rather than run some other way."""
+    route for a meta tensor), with a window too; a windowed config builds,
+    its layers' windows as the config gives them, while a front end or a
+    moe config is still refused where the model is built, on every
+    device, rather than run some other way."""
     _, cfg = _cfg()
     w = {k: _t(v) for k, v in _attn_weights(cfg, 8).items()}
     B, S, N, Kh, dh = 2, 8, cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -230,8 +232,13 @@ def test_attention_routes():
     k = v = torch.randn(B, S, Kh, dh, device="meta")
     with pytest.raises(RuntimeError, match="no route"):
         L.attend(w, q, k, v)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Model(cfg.replace(window=4, global_layers=(0,)), device="cpu")
+    with pytest.raises(RuntimeError, match="no route"):
+        L.attend(w, q, k, v, window=4)
+    windowed = Model(cfg.replace(window=4, global_layers=(0,)), device="cpu")
+    assert windowed.windows == [None] + [4] * (cfg.n_layers - 1)
+    for bad in (cfg.replace(frontend="patches"), cfg.replace(kind="moe")):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            Model(bad, device="cpu")
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-HARNESSES = ("chip_smoke.py", "compare_rwkv_train.py", "profile_rwkv_bwd.py")
+HARNESSES = ("chip_smoke.py", "compare_rwkv_train.py", "profile_rwkv_bwd.py", "compare_attention.py")
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s)"
     r"|from\s+\.\.+\s+import\s+repro\b)", re.M)
