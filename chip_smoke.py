@@ -84,7 +84,12 @@ Phases (any failure exits non-zero):
      ratio of times is printed beside their ratio of key-query pairs (the
      band's skipped tiles); the float32 twin's shape (1, 2176, 25, 5, 64)
      at w 1,024 and 48; a windowed row also within twice that limit of the
-     plain version (two roundings; every row's distance printed).  A
+     plain version (two roundings; every row's distance printed).  Phase
+     14's training forward, the call that also writes the log-sum-exp, at
+     Hymba's microbatch (1, 2176, 25, 5, 64), w 1,024 and causal, bf16
+     (timed with its lse; its plain version the blockwise forward with its
+     lse, ``plain_attention``), and DBRX-132B's prefill (1, 2048, 48, 8,
+     128: 6 query heads a K/V head), bf16.  A
      windowed row's bound counts the band's pairs, Σ_i min(i + 1, w), and
      its library call is ``scaled_dot_product_attention`` with a boolean
      band mask.  Before the cases, the
@@ -102,7 +107,12 @@ Phases (any failure exits non-zero):
      11: ck/cv (352,321,536, 2²⁶: the slabs route, 8 slabs), embed and
      head (134,217,728, 2²⁵), wr/wk/wv/wg/wo/cr (100,663,296, 2²⁴), wA/wB
      (3,145,728, 2¹⁹), mu (245,760, 2¹⁵), mu_c (98,304, 2¹⁴) and the
-     vectors (49,152, 2¹³): per bucket j, |kernel − float64| ≤ 2⁻²³ ·
+     vectors (49,152, 2¹³), and at every Hymba-1.5B leaf of phase 14:
+     w_up/w_gate/w_down (281,804,800, 2²⁶: slabs, 8 slabs), wq/wo and the
+     SSM's wx/wo (81,920,000, 2²⁴), embed and head (51,609,600, 2²³), wB/wC
+     (20,480,000, 2²²), wk/wv (16,384,000, 2²¹), wdt (1,280,000, 2¹⁸),
+     meta and conv (204,800, 2¹⁵), the norms and Dskip (51,200, 2¹³), ln_f
+     (1,600, 2⁸), dt_bias and A_log (800, 2⁷): per bucket j, |kernel − float64| ≤ 2⁻²³ ·
      m_j · W_j (m_j terms, W_j = Σ|x_t| over them; the atomics add in no
      fixed order), the route the plan did not take (bins or slabs, at the
      large leaves) too; the unsketch within 2⁻²³ · |value| of the plain
@@ -383,6 +393,55 @@ Phases (any failure exits non-zero):
    device time by kind with the SSM branch (its ``record_function``
    range ``ssm_branch``) as a kind of its own, decode ms a token, tok/s
    and the peak memory.
+
+14. Hymba-1.5B trained at its full published width and depth (bf16,
+   random weights from a seed), the card emptied first, through
+   ``launch/train.py``'s ``build`` and ``launch/steps.make_train_step``:
+   global batch 8 × 2,048 tokens (2,176 positions a row with the 128 meta
+   tokens), 8 microbatches, remat, count-sketch compression 8 with error
+   feedback, AdamW; 4 steps after an untimed warm-up step.  Every training
+   attention's forward is the flash_attention kernel with the layer's
+   window and its lse; its backward is the plain ``ref.block_attn_bwd``
+   over the window's band (the reference has no backward kernel).  Gates:
+   a finite loss every step; over the 4 steps flash_attention 2 · 32 · 8
+   = 512 times a step, 2 · 29 · 8 = 464 of them windowed (the wrapper's
+   ``windowed_launches``), count_sketch and its unsketch once a sketched
+   leaf a step, the other kernels 0; phase 1 held count_sketch at every
+   (n, k) the compressor sketches; a float32 twin cut to 2 layers (layer
+   0 global, layer 1 windowed: the band bites at 2,176 positions), 2 ×
+   2,048 tokens, 2 microbatches, one step served by the kernels and one by
+   the plain versions with the same weights, batch and hashes: loss within
+   1e-5 relative and each compressed gradient leaf within 1e-4 · max|g|.
+   Prints each step's ms and loss, tokens/s, the compressor's ms, the peak
+   memory, and one traced step's idle share and device time by kind, the
+   SSM branch (its forward and remat recompute, ``record_function``
+   ``ssm_branch``, and its backward, between the marks
+   ``ssm_branch.bwd_begin`` and ``.bwd_end``) and the attention backward
+   (``attention_bwd``) as kinds of their own.
+
+15. MoE serving at full width, the card emptied before each model:
+   DBRX-132B (d 6,144, 48 query and 8 K/V heads of 128, 16 experts of d_ff
+   10,752, top 4, vocab 100,352) and Llama-4-Scout-17B-16E (d 5,120, 40 and
+   8 heads of 128, 16 experts of d_ff 8,192, top 1 and a shared expert, θ
+   5e5, vocab 202,048), each cut to 8 layers (of 40 and 48) as Llama-3-405B
+   in phase 12, bf16, random weights from a seed, through phase 12's
+   serving function: prefill 1 × 2,048 into a cache with room for 64
+   decode tokens, then 64 greedy tokens, every block's FFN the MoE at
+   capacity factor 4.0 (the reference's serving factor).  Before each, a
+   float32 twin at full width cut to 2 layers, freed before the bf16 model.
+   Gates as phase 12's: (a) finite logits; (b) the twin's kernel-served
+   prefill within 1e-4 · max|logit| of its plain-served one, the same
+   greedy tokens, and every bf16 layer's attention within 2⁻⁷·(|o| +
+   ‖p‖₂·max|v|) of float64; (c) the twin's decode ≡ prefill(S + t) at t =
+   1 and 64 (1e-4 · max|logit|), the bf16 decode within twice the
+   plain-served prefill(S + 1)'s distance; (d) flash_attention once a layer
+   a prefill, none in decode; and before (b) and (c), in the twin and in
+   the model, no (token, expert) pair of the prefill dropped (decode ≡
+   prefill(S + t) means nothing where one is).  Prints the routing
+   (capacity, tokens dropped and each expert's load by layer), prefill ms,
+   its idle share and device time by kind with the expert products
+   (``record_function`` ``moe_experts``: their three GEMMs and the SwiGLU)
+   as a kind of their own, decode ms a token, tok/s and the peak memory.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -851,10 +910,15 @@ def band_pairs(S: int, causal: bool, window=None) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda", window=None):
+def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda", window=None,
+              with_lse=False):
     """One flash_attention shape (with ``window``, a causal band of w
     keys): the kernel within ``ref.attention_limit`` of a dense softmax in
-    float64, determinism, and timings.  Returns the shape's record."""
+    float64, determinism, and timings; with ``with_lse`` the call timed is the
+    training forward's, which also writes the log-sum-exp (its plain
+    version ``plain_attention``; its bound counts the lse's bytes; the
+    library call stays SDPA, which returns no lse).  Returns the shape's
+    record."""
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, S, N, dh), dtype=np.float32)).to(dev, dtype)
     k, v = (torch.from_numpy(rng.standard_normal((B, S, Kh, dh), dtype=np.float32))
@@ -890,8 +954,11 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
     lse_max_err = float(lse_err.max())
     del out_l, lse, want_l, lse_err
 
-    kernel_ms = cuda_ms(lambda: ops.flash_attention_gqa(q, k, v, causal, window=window))
-    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal, window), max_reps=3)
+    kernel_ms = cuda_ms(lambda: ops.flash_attention_gqa(q, k, v, causal, return_lse=with_lse,
+                                                        window=window))
+    plain_ms = (cuda_ms(lambda: plain_attention(q, k, v, causal, True, window), max_reps=3)
+                if with_lse else
+                cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal, window), max_reps=3))
     # yardstick only: one PyTorch call computing the same function, which
     # the port never calls (a band as a boolean mask, True where a key is seen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -905,12 +972,13 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
         del seen, i
     size = q.element_size()
     nbytes = (2 * B * S * N + 2 * B * S * Kh) * dh * size   # q, k, v read once, out written once
+    nbytes += 4 * B * N * S if with_lse else 0               # ... and the float32 lse
     pairs = band_pairs(S, causal, window)
     flops = 4 * B * N * dh * pairs
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     rec = {"case": name, "B": B, "S": S, "N": N, "Kh": Kh, "dh": dh, "causal": causal,
-           "window": window, "pairs_per_head": pairs,
+           "window": window, "lse": with_lse, "pairs_per_head": pairs,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max_abs_err,
            "max_err_over_limit": err_over_limit, "max_abs_v": vmax,
            "max_diff_to_plain_over_limit": plain_over,
@@ -922,7 +990,7 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
            "library_tflops_per_s": flops / library_ms / 1e9,
            "ms_over_library_ms": kernel_ms / library_ms}
     log(f"  {name:<22} B={B} S={S} N={N} Kh={Kh} dh={dh} {'causal' if causal else 'full'}"
-        f"{'' if window is None else f' window {window}'} "
+        f"{'' if window is None else f' window {window}'}{' with lse' if with_lse else ''} "
         f"{rec['dtype']:<8} kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
         f"{library_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
         f"{rec['tflops_per_s']:.1f} TFLOP/s, library {rec['library_tflops_per_s']:.1f}; "
@@ -990,9 +1058,13 @@ def phase_attn(ops, ref, dev="cuda"):
         ("long_1x16384_causal", 1, 16384, 25, 5, 64, True, bf16, None),
         ("hymba_1x2176_w1024_f32", 1, 2176, 25, 5, 64, True, f32, 1024),   # the twin's
         ("hymba_1x2176_w48_f32", 1, 2176, 25, 5, 64, True, f32, 48),
+        # phase 14's training forward (with the lse) at Hymba's microbatch, 1 x 2,048 + 128
+        ("hymba_train_1x2176_w1024_lse", 1, 2176, 25, 5, 64, True, bf16, 1024, True),
+        ("hymba_train_1x2176_causal_lse", 1, 2176, 25, 5, 64, True, bf16, None, True),
+        ("dbrx_1x2048", 1, 2048, 48, 8, 128, True, bf16),       # phase 15: DBRX's G 6
     ]
-    recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None)
-            for c in cases]
+    recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None,
+                      with_lse=len(c) > 9 and c[9]) for c in cases]
     band, full = (next(r for r in recs if r["case"] == n)
                   for n in ("long_1x16384_w1024", "long_1x16384_causal"))
     log(f"  band against causal at (1, 16384, 25, 5, 64): {band['ms']:.4f} / {full['ms']:.4f} ms "
@@ -1102,6 +1174,17 @@ def phase_sketch(ops, ref, dev="cuda"):
         ("rwkv_mu_leaf", 245_760, 1 << 15),               # mu (24 × 5 × 2048)
         ("rwkv_mu_c_leaf", 98_304, 1 << 14),              # mu_c (24 × 2 × 2048)
         ("rwkv_vec_leaf", 49_152, 1 << 13),               # ln1, ln2, w0, u, ln_x (24 × 2048)
+        # Hymba-1.5B's stacked leaves (phase 14): 32 layers, d 1600, d_ff 5504, 25 heads
+        ("hymba_mlp_leaf", 281_804_800, 1 << 26),         # w_up, w_gate, w_down: slabs, 8 slabs
+        ("hymba_q_o_x_leaf", 81_920_000, 1 << 24),        # attn wq, wo; ssm wx, wo
+        ("hymba_embed_leaf", 51_609_600, 1 << 23),        # embed.tok, embed.head (32,256 × 1600)
+        ("hymba_b_c_leaf", 20_480_000, 1 << 22),          # ssm wB, wC (32 × 1600 × 400)
+        ("hymba_k_v_leaf", 16_384_000, 1 << 21),          # attn wk, wv (32 × 1600 × 320)
+        ("hymba_dt_leaf", 1_280_000, 1 << 18),            # ssm wdt (32 × 1600 × 25)
+        ("hymba_meta_conv_leaf", 204_800, 1 << 15),       # meta (128 × 1600); conv (32 × 4 × 1600)
+        ("hymba_vec_leaf", 51_200, 1 << 13),              # ln1, ln2, bn_a, bn_s; ssm Dskip
+        ("hymba_ln_f_leaf", 1_600, 1 << 8),               # ln_f
+        ("hymba_decay_leaf", 800, 1 << 7),                # ssm dt_bias, A_log (32 × 25)
     ]
     return [sketch_case(ops, ref, *c, dev=dev) for c in cases]
 
@@ -1250,7 +1333,9 @@ def profile_window(fn, split=(), annotated=()) -> dict:
     ``split_ms``; ``by_kind`` sums the kernels' time by ``kernel_kind``,
     except that a kernel launched inside a ``record_function`` range named
     in ``annotated`` counts under that name (matched through the launch's
-    correlation id)."""
+    correlation id), and so does one launched between an empty range
+    ``<name>.bwd_begin`` and the next ``<name>.bwd_end`` (the marks that
+    ``models/ssm.py`` puts around its branch's backward)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1270,9 +1355,19 @@ def profile_window(fn, split=(), annotated=()) -> dict:
                   for e in events if e.get("cat") == "kernel")
     if not kern:
         raise AssertionError("profiler trace holds no CUDA kernel")
-    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
-                    for e in events
-                    if e.get("cat") == "user_annotation" and e.get("name") in annotated)
+    notes = [e for e in events if e.get("cat") == "user_annotation"]
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+              for e in notes if e.get("name") in annotated]
+    opened = {}
+    for t, name in sorted((float(e["ts"]), e["name"]) for e in notes if ".bwd_" in e["name"]):
+        base, edge = name.rsplit(".bwd_", 1)
+        if base not in annotated:
+            continue
+        if edge == "begin":
+            opened[base] = t
+        elif base in opened:
+            ranges.append((opened.pop(base), t, base))
+    ranges.sort()
     starts = [r[0] for r in ranges]
     launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -1568,7 +1663,7 @@ def f32_gates(m32, p32, tokens, plain, max_len, steps: int):
 def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
              decode_tokens: int = 64, dev="cuda", profile: bool = False,
              max_len=None, check_last: bool = False, oracle=None, twin_cfg=None,
-             annotated=()):
+             annotated=(), inspect=None):
     """LM serving (phases 5, 6, 12 and 13): prefill ``batch`` × ``prompt`` ids,
     greedy-decode ``decode_tokens``; the gates (a)–(d) of the module
     docstring.  ``wops``: the wrapper module of the kernel on the path;
@@ -1585,7 +1680,11 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     (c) in bf16 holds decode against the kernel-served prefill(S + 1), the
     plain-served one's distance to it being the rounding noise.
     ``annotated``: ``record_function`` ranges whose kernels the prefill's
-    profile counts as kinds of their own (``profile_window``)."""
+    profile counts as kinds of their own (``profile_window``).
+    ``inspect(model, params, tokens)``: run on the float32 twin and, right
+    after the counted run and before gates (b) and (c), on the model; it
+    raises where the model's own state makes those gates meaningless (phase
+    15: an MoE prefill that dropped tokens) and returns a record."""
     from repro_torch.models import Model
 
     kname = wops.__name__.split(".")[-2]
@@ -1595,13 +1694,15 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     steps32 = decode_tokens if check_last else 1
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    twin = None
+    twin = twin_seen = None
     if twin_cfg is not None:
         m32 = Model(twin_cfg, device=dev)
         with torch.inference_mode():
-            twin = f32_gates(m32, m32.init(torch.Generator(device=dev).manual_seed(1)),
-                             tokens[:1], plain, max_len, steps32)[1]
-        del m32
+            p32 = m32.init(torch.Generator(device=dev).manual_seed(1))
+            if inspect is not None:
+                twin_seen = inspect(m32, p32, tokens[:1])
+            twin = f32_gates(m32, p32, tokens[:1], plain, max_len, steps32)[1]
+        del m32, p32
         gc.collect()
         if torch.device(dev).type == "cuda":
             torch.cuda.empty_cache()
@@ -1663,6 +1764,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
                                  f"expected {cfg.n_layers} and 0")
         if any(others.values()):
             raise AssertionError(f"lm ({cfg.name}): kernels off the LM path launched: {others}")
+        seen = None if inspect is None else inspect(model, params, tokens)
 
         # outside the counted run: (b) kernel against plain inside the model,
         # the plain version patched into the module in place of the kernel.
@@ -1753,7 +1855,8 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
            "max_diff_plain_bf16_vs_f32": noise_plain, "layer_err_over_limit": layer_err,
            "max_diff_decode_vs_prefill_ref": diff_c, "max_diff_prefill_vs_ref": noise_c,
            "decode_vs_noise_ratio": ratio_c, "decode_vs_prefill_band_ratio": band_c,
-           "twin_f32": twin, "sample": seqs[0, :16].tolist(),
+           "twin_f32": twin, "inspect": seen, "inspect_twin_f32": twin_seen,
+           "sample": seqs[0, :16].tolist(),
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if torch.device(dev).type == "cuda" else None)}
     log(f"  {cfg.name}: {n_params:,} parameters ({cfg.n_layers} layers, d {cfg.d_model}), "
@@ -1789,14 +1892,15 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
 TRAIN_KERNELS = ("flash_attention", "count_sketch_", "unsketch_kernel")
 
 
-def plain_attention(q, k, v, causal, return_lse):
+def plain_attention(q, k, v, causal, return_lse, window=None):
     """The training forward's plain version: the model's blockwise attention
-    at the config's chunks, with its log-sum-exp as the kernel gives it."""
+    at the config's chunks, with the layer's window and its log-sum-exp as
+    the kernel gives them."""
     from repro_torch.kernels.flash_attention.ref import KV_CHUNK, Q_CHUNK, block_attn_fwd
 
     B, S, N, _ = q.shape
     pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
-    out, lse = block_attn_fwd(q, k, v, pos, pos, causal, None, Q_CHUNK, KV_CHUNK)
+    out, lse = block_attn_fwd(q, k, v, pos, pos, causal, window, Q_CHUNK, KV_CHUNK)
     return out.to(q.dtype), lse.reshape(B, N, S)
 
 
@@ -1911,12 +2015,13 @@ def train_smoke_checkpoint(dev="cuda"):
 
 
 def run_steps(tr, n_micro: int, steps: int, counted, read, dev="cuda", profile=False,
-              split=()):
+              split=(), annotated=()):
     """An untimed warm-up step on the trainer's next batch, then ``steps``
     timed steps of ``launch/steps.make_train_step`` with the compressor
     timed by CUDA events around its call; ``counted`` (wrapper modules) are
     set to 0 after the warm-up and ``read()`` is taken right after the last
-    step.  With ``profile``, one more step traced (split by ``split``).
+    step.  With ``profile``, one more step traced (split by ``split``, the
+    ``record_function`` ranges ``annotated`` as kinds of their own).
     Stops the trainer's pipeline."""
     from repro_torch.launch import steps as S
 
@@ -1956,7 +2061,7 @@ def run_steps(tr, n_micro: int, steps: int, counted, read, dev="cuda", profile=F
         out["peak_reserved"] = torch.cuda.max_memory_reserved()   # the caching allocator's too
         out["comp_ms"] = [a.elapsed_time(b) for a, b in events]
         out["prof"] = profile_window(lambda: step_fn(params, state, tr.next_batch()),
-                                     split=split) if profile else None
+                                     split=split, annotated=annotated) if profile else None
     finally:
         tr.pipe.stop()
     out.update(step_s=step_s, losses=losses, norms=norms, params=params)
@@ -3147,6 +3252,126 @@ def phase_rwkv_train(wops, cops, other_ops, weights, steps: int = 4, batch: int 
     return out
 
 
+HYMBA_TRAIN_KINDS = ("ssm_branch", "attention_bwd")    # record_function ranges, phase 14
+
+
+def phase_hymba_train(fops, cops, other_ops, sketch_shapes, steps: int = 4, batch: int = 8,
+                      seq: int = 2048, n_micro: int = 8, dev="cuda"):
+    """Phase 14: Hymba-1.5B trained at full width and depth through
+    ``launch/train.py``'s ``build`` (module docstring); ``sketch_shapes``
+    are phase 1's count_sketch records, which must hold every (n, k) that
+    the compressor sketches here."""
+    from repro_torch.launch import train as T
+    from repro_torch.tree import leaves
+
+    args = T.parser().parse_args(["--arch", "hymba_1_5b", "--full", "--steps", str(steps + 1),
+                                  "--batch", str(batch), "--seq", str(seq), "--n-micro",
+                                  str(n_micro), "--compress-grads", "8", "--ckpt-every", "0",
+                                  "--device", dev])
+    t0 = time.perf_counter()
+    tr = T.build(args)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg, comp = tr.model.cfg, tr.compressor
+    n_windowed = sum(w is not None for w in tr.model.windows)
+    sizes = [p.numel() for p in leaves(tr.params)]
+    sketched = {(n, comp.sketch_size(n)) for n in sizes if n >= 4 * comp.ratio}
+    n_sk = sum(n >= 4 * comp.ratio for n in sizes)
+    missing = sketched - {(r["n"], r["k"]) for r in sketch_shapes}
+    if missing:
+        raise AssertionError(f"hymba train: phase 1 held count_sketch at no (n, k) of {missing}")
+    run = run_steps(tr, n_micro, steps, (fops, cops, *other_ops), lambda: (
+        {"flash_attention": fops.launches, "flash_attention_windowed": fops.windowed_launches,
+         "count_sketch": cops.launches, "count_sketch_unsketch": cops.unsketch_launches},
+        {o.__name__: o.launches for o in other_ops}), dev, True, TRAIN_KERNELS,
+        HYMBA_TRAIN_KINDS)
+    launches, others = run["counts"]
+    losses, step_s, prof = run["losses"], run["step_s"], run["prof"]
+    want = {"flash_attention": 2 * cfg.n_layers * n_micro * steps,
+            "flash_attention_windowed": 2 * n_windowed * n_micro * steps,
+            "count_sketch": n_sk * steps, "count_sketch_unsketch": n_sk * steps}
+    if not all(math.isfinite(x) for x in losses + [run["warm_loss"]]):
+        raise AssertionError(f"hymba train: a loss is not finite: {run['warm_loss']}, {losses}")
+    if launches != want or any(others.values()):
+        raise AssertionError(f"hymba train: launches {launches}, expected {want}; off the path "
+                             f"{others}")
+    mean_s = sum(step_s) / len(step_s)
+    out = {"arch": cfg.name, "n_params": sum(sizes), "layers": cfg.n_layers,
+           "windowed_layers": n_windowed, "meta_tokens": cfg.meta_tokens, "batch": batch,
+           "seq": seq, "n_micro": n_micro, "steps": steps, "compress_ratio": comp.ratio,
+           "remat": cfg.remat, "init_s": init_s, "warmup_step_s": run["warm_s"],
+           "step_s": step_s, "step_ms_mean": mean_s * 1e3,
+           "tokens_per_s": batch * seq / mean_s, "loss_warmup": run["warm_loss"],
+           "losses": losses, "grad_norms": run["norms"], "compressor_ms": run["comp_ms"],
+           "peak_memory_bytes": run["peak"], "peak_reserved_bytes": run["peak_reserved"],
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "sketched_leaves": n_sk, "sketched_shapes": sorted(sketched), "profile_step": prof}
+    log(f"  {cfg.name}: {sum(sizes):,} parameters ({cfg.n_layers} layers, {n_windowed} windowed, "
+        f"d {cfg.d_model}, {cfg.meta_tokens} meta tokens), global batch {batch} x {seq} "
+        f"(+{cfg.meta_tokens} meta positions a row), n_micro {n_micro}, remat {cfg.remat}, "
+        f"compression {comp.ratio}; init {init_s:.2f}s, warm-up step {run['warm_s']:.2f}s "
+        f"(loss {run['warm_loss']:.4f})")
+    log(f"  steps: {', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, mean {mean_s * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s; loss {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"grad norm {', '.join(f'{x:.3f}' for x in run['norms'])}")
+    log(f"  compressor {', '.join(f'{x:.2f}' for x in run['comp_ms'])} ms a step (CUDA events); "
+        f"peak memory {run['peak'] / 2 ** 30:.2f} GiB allocated, "
+        f"{run['peak_reserved'] / 2 ** 30:.2f} reserved; launches {launches} "
+        f"({out['launches_per_step']} a step); {n_sk} leaves sketched")
+    log(f"  profile one step: wall {prof['wall_ms']:.1f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.1f} ms ({prof['kernels']} kernels), idle share "
+        f"{prof['idle_share']:.3f}; by kind {prof['by_kind']} (ssm_branch: its forward, remat "
+        f"recompute and backward; attention_bwd: the plain windowed backward); top {prof['top']}")
+    del tr, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_layers, n_micro_twin = 2, 2                  # layer 0 global, layer 1 windowed (1,024)
+    twin_sk = 24                      # every leaf of the stacked 2-layer model is sketched
+    out["twin_f32"] = train_twin(
+        "hymba_1_5b", (fops, "flash_attention_gqa", plain_attention),
+        ((fops, "launches"), (fops, "windowed_launches"), (cops, "launches")),
+        (2 * n_layers * n_micro_twin, 2 * n_micro_twin, twin_sk), dev, n_layers=n_layers,
+        n_micro=n_micro_twin)
+    return out
+
+
+# ----------------------------------------------------------------- phase 15 --
+# (arch, layers on the card): each cut to 8 layers, as Llama-3-405B in phase 12
+MOE_SERVE = (("dbrx_132b", 8), ("llama4_scout_17b_a16e", 8))
+
+
+def moe_routing(model, params, tokens) -> dict:
+    """One prefill of ``tokens`` with ``models/moe.route`` recorded: each
+    layer's capacity, dropped (token, expert) pairs and tokens, and load
+    (pairs an expert).  Raises where a pair was dropped: decode ≡ prefill(S
+    + t) is meaningless there."""
+    from repro_torch.models import moe
+    from repro_torch.models.lm import SERVE_CAPACITY
+
+    seen, route = [], moe.route
+
+    def recording(*a, **kw):
+        r = route(*a, **kw)
+        seen.append(r)
+        return r
+    with swapped(moe, "route", recording):
+        model.prefill(params, {"tokens": tokens})
+    E = model.cfg.n_experts
+    rec = {"capacity": [r.capacity for r in seen],
+           "dropped_pairs": [int((~r.keep).sum()) for r in seen],
+           "dropped_tokens": [int((~r.keep).view(r.expert.shape).any(1).sum()) for r in seen],
+           "load": [torch.bincount(r.expert.reshape(-1), minlength=E).tolist() for r in seen]}
+    log(f"  {model.cfg.name} ({model.cfg.dtype}, {tokens.shape[0]} x {tokens.shape[1]}) routing "
+        f"at factor {SERVE_CAPACITY}: capacity {rec['capacity'][0]} a layer; tokens dropped by "
+        f"layer {rec['dropped_tokens']}; experts' load (pairs an expert) by layer, min/max "
+        f"{[(min(l), max(l)) for l in rec['load']]}; layer 0 {rec['load'][0]}")
+    if any(rec["dropped_pairs"]):
+        raise AssertionError(f"moe serve ({model.cfg.name}): the prefill at factor "
+                             f"{SERVE_CAPACITY} dropped tokens {rec['dropped_tokens']} by layer, "
+                             f"so decode against prefill(S + t) would be meaningless")
+    return rec
+
+
 # ----------------------------------------------------------------- phase 12 --
 # (arch, batch, layers on the card: None keeps the config's depth)
 DENSE_SERVE = (("granite_3_8b", 8, None), ("qwen2_5_32b", 1, None), ("llama3_405b", 1, 8))
@@ -3323,6 +3548,27 @@ def main() -> int:
                      oracle=flash_attention.attention_limit,
                      twin_cfg=hymba_cfg.replace(dtype="float32", n_layers=2, global_layers=(0,)),
                      annotated=("ssm_branch",))
+    gc.collect()
+    torch.cuda.empty_cache()                            # the card holds nothing else
+    host["phase 14"] = host_state("phase 14")
+    log(f"phase 14: {hymba_cfg.name} training at full width and depth: global batch 8 x 2048 "
+        f"(+{hymba_cfg.meta_tokens} meta positions a row), n_micro 8, count-sketch compression "
+        f"8, 4 steps after a warm-up step")
+    hymba_train = phase_hymba_train(fops, cops, (ops, pops, wops), cshapes)
+    moe_serve = []
+    for arch, depth in MOE_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()                        # the card holds nothing else
+        cfg = configs.get(arch).replace(n_layers=depth)
+        log(f"phase 15: {cfg.name} serving at full width, {depth} layers (cut from "
+            f"{configs.get(arch).n_layers}; {cfg.n_experts} experts, top {cfg.top_k}"
+            f"{', a shared expert' if cfg.shared_expert else ''}): prefill 1 x 2048 with cache "
+            f"room for 64 decode tokens, decode 64 tokens")
+        moe_serve.append(phase_lm(fops, (ops, pops, wops, cops), cfg, attn_plain, batch=1,
+                                  prompt=2048, max_len=2048 + 64, check_last=True,
+                                  oracle=flash_attention.attention_limit,
+                                  twin_cfg=cfg.replace(dtype="float32", n_layers=2),
+                                  annotated=("moe_experts",), inspect=moe_routing))
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -3400,7 +3646,15 @@ def main() -> int:
                              **{f"serve_{d['arch']}_prefill": d["launches_prefill"]
                                 for d in dense_serve},
                              "serve_hymba_1_5b_prefill": hymba["launches_prefill"],
-                             "serve_hymba_1_5b_decode": hymba["launches_decode"]},
+                             "serve_hymba_1_5b_decode": hymba["launches_decode"],
+                             "lm_train_hymba_1_5b_4_steps":
+                                 hymba_train["launches"]["flash_attention"],
+                             "lm_train_hymba_1_5b_4_steps_windowed":
+                                 hymba_train["launches"]["flash_attention_windowed"],
+                             **{f"serve_{d['arch']}_prefill": d["launches_prefill"]
+                                for d in moe_serve},
+                             **{f"serve_{d['arch']}_decode": d["launches_decode"]
+                                for d in moe_serve}},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -3416,14 +3670,18 @@ def main() -> int:
                                  train["launches"]["count_sketch_unsketch"],
                              "rwkv_train_4_steps": rwkv_train["launches"]["count_sketch"],
                              "rwkv_train_4_steps_unsketch":
-                                 rwkv_train["launches"]["count_sketch_unsketch"]},
+                                 rwkv_train["launches"]["count_sketch_unsketch"],
+                             "hymba_train_4_steps": hymba_train["launches"]["count_sketch"],
+                             "hymba_train_4_steps_unsketch":
+                                 hymba_train["launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
                     "lm_dense": dense, "lm_train": train, "maintain": maintain,
                     "retrain": retrain, "phase8_s": phase8_s, "operate": operate,
                     "data_parallel": dp, "bridge": bridge, "lm_rwkv_train": rwkv_train,
-                    "dense_serve": dense_serve, "hymba_serve": hymba, "host_state": host}))
+                    "dense_serve": dense_serve, "hymba_serve": hymba,
+                    "hymba_train": hymba_train, "moe_serve": moe_serve, "host_state": host}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

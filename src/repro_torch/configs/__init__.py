@@ -15,7 +15,7 @@ import importlib
 from typing import Any
 
 PORTED = ("rwkv6_1_6b", "tinyllama_1_1b", "granite_3_8b", "qwen2_5_32b", "llama3_405b",
-          "paper_rbrt", "hymba_1_5b")
+          "paper_rbrt", "hymba_1_5b", "dbrx_132b", "llama4_scout_17b_a16e")
 
 # canonical external ids → module names
 ALIASES = {

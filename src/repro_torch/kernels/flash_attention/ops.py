@@ -28,12 +28,14 @@ float32 (B, N, S) in natural log (the kernel writes it in its epilogue;
 on the CPU it is :func:`ref.block_attn_fwd`'s).  :func:`attention_train`
 is the differentiable form that the training path calls: an
 ``autograd.Function`` whose forward is this call with ``return_lse`` and
-whose backward is the plain :func:`ref.block_attn_bwd` (the reference
-has no backward kernel either: its custom VJP is plain jnp).
+the layer's window and whose backward is the plain
+:func:`ref.block_attn_bwd` with that window (the reference has no
+backward kernel either: its custom VJP is plain jnp).
 
 ``launches`` counts kernel launches since the last
-:func:`reset_launches`; a run reads it to show that its attention went
-through the kernel.
+:func:`reset_launches`, and ``windowed_launches`` those of them made with
+a window; a run reads them to show that its attention went through the
+kernel.
 """
 from __future__ import annotations
 
@@ -52,12 +54,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 GRID_MAX = 65535                   # B and the query-tile count are grid dimensions
 
 launches = 0
+windowed_launches = 0              # those of ``launches`` made with a window
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, windowed_launches
+    launches = windowed_launches = 0
 
 
 def build(verbose: bool = False) -> Tuple[Path, str]:
@@ -170,39 +173,45 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
-    global launches
+    global launches, windowed_launches
     launches += 1
+    windowed_launches += window is not None
     return (out, lse) if return_lse else out
 
 
 class _Attention(torch.autograd.Function):
-    """Forward: :func:`flash_attention_gqa` with the log-sum-exp (the
-    kernel on CUDA); backward: :func:`ref.block_attn_bwd`, which recomputes
-    the probabilities from q, k and that log-sum-exp per kv block.  Under
+    """Forward: :func:`flash_attention_gqa` with the log-sum-exp and the
+    layer's window (the kernel on CUDA); backward: :func:`ref.block_attn_bwd`
+    with the same window, which recomputes the probabilities from q, k and
+    that log-sum-exp per kv block, over the band's query rows only.  Under
     activation checkpointing the forward runs twice (the pass and the
-    recompute); nothing is kept between the two runs."""
+    recompute); nothing is kept between the two runs.  The backward runs
+    inside a ``record_function`` range ``attention_bwd``, which a profile
+    counts as a kind of its own."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, kv_chunk: int):
-        out, lse = flash_attention_gqa(q, k, v, causal, return_lse=True)
+    def forward(ctx, q, k, v, causal: bool, kv_chunk: int, window: Optional[int]):
+        out, lse = flash_attention_gqa(q, k, v, causal, return_lse=True, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.kv_chunk = causal, kv_chunk
+        ctx.causal, ctx.kv_chunk, ctx.window = causal, kv_chunk, band(window, causal)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        B, S, N, _ = q.shape
-        Kh = k.shape[2]
-        pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
-        dq, dk, dv = block_attn_bwd(q, k, v, out, lse.reshape(B, Kh, N // Kh, S), dout, pos,
-                                    pos, ctx.causal, None, ctx.kv_chunk)
-        return dq, dk, dv, None, None
+        with torch.profiler.record_function("attention_bwd"):
+            q, k, v, out, lse = ctx.saved_tensors
+            B, S, N, _ = q.shape
+            Kh = k.shape[2]
+            pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+            dq, dk, dv = block_attn_bwd(q, k, v, out, lse.reshape(B, Kh, N // Kh, S), dout,
+                                        pos, pos, ctx.causal, ctx.window, ctx.kv_chunk)
+        return dq, dk, dv, None, None, None
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-                    kv_chunk: int = KV_CHUNK) -> torch.Tensor:
-    """:func:`flash_attention_gqa` with gradients for q, k and v; the
-    backward scans kv blocks of ``kv_chunk`` keys (the model's
-    ``cfg.kv_chunk``, as the reference's custom VJP does)."""
-    return _Attention.apply(q, k, v, causal, kv_chunk)
+                    kv_chunk: int = KV_CHUNK, window: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_attention_gqa` with gradients for q, k and v, each query
+    over the keys its causal mask and ``window`` leave it; the backward
+    scans kv blocks of ``kv_chunk`` keys (the model's ``cfg.kv_chunk``, as
+    the reference's custom VJP does)."""
+    return _Attention.apply(q, k, v, causal, kv_chunk, window)

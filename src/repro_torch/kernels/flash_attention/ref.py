@@ -12,8 +12,10 @@ window, where the reference gathers only the band: the masked blocks
 add zeros, so the result is the same.
 
 :func:`block_attn_bwd` is the port of the reference's backward
-(``_block_attn_vjp_bwd``, its global-window branch): it scans kv blocks,
-recomputes p = exp(s − lse) and accumulates dq, dk and dv in float32.
+(``_block_attn_vjp_bwd``): it scans kv blocks, recomputes p = exp(s −
+lse) and accumulates dq, dk and dv in float32; with a window, each kv
+block meets only the query rows of its band, as the reference's
+static-window branch.
 
 :func:`flash_attention_ref` is the forward at positions 0..S−1, causal
 or not, with an optional window (query i sees keys j ≤ i with i − j < w,
@@ -112,17 +114,25 @@ def block_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     """Gradients (dq, dk, dv) of :func:`block_attn_fwd`'s output, given
     its out (B, Sq, N·dh) and lse (B, Kh, G, Sq) and the cotangent dout of
     out.  As the reference: q·scale, k, v, dout and out in float32 (float64
-    for float64 inputs), D = Σ dout·out per row, every kv block visited and
-    masked by position (no window band), the results cast back to the
-    inputs' dtypes.  Here ``out`` is the forward's output in q's dtype, where
-    the reference keeps its float32 output: in bf16, D then sees the output
-    rounded to bf16."""
+    for float64 inputs), D = Σ dout·out per row, kv blocks scanned and
+    masked by position, the results cast back to the inputs' dtypes.  Here
+    ``out`` is the forward's output in q's dtype, where the reference keeps
+    its float32 output: in bf16, D then sees the output rounded to bf16.
+
+    With a causal ``window`` w, kv block j (keys [j·kc, (j + 1)·kc)) meets
+    only the query rows [j·kc, min(Sq, j·kc + kc + w − 1)): the band of the
+    reference's static-window branch, whose span is rounded up and clamped
+    where this one stops at Sq.  The rows outside it hold exact zeros of
+    p, so the gradients are the same as over every row.  The band counts
+    rows, so it takes query row i at the position of key row i (the
+    self-attention of a prefill or a training step, the only caller)."""
     B, Sq, N, dh = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     G = N // Kh
     acc_t = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = 1.0 / math.sqrt(dh)
     win = GLOBAL_WINDOW if window is None else window
+    banded = causal and window is not None and window < GLOBAL_WINDOW
     qg = (q.to(acc_t) * scale).reshape(B, Sq, Kh, G, dh)
     dog = dout.to(acc_t).reshape(B, Sq, Kh, G, dh)
     D = (dog * out.to(acc_t).reshape(B, Sq, Kh, G, dh)).sum(-1)        # (B, Sq, Kh, G)
@@ -143,13 +153,15 @@ def block_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     dks, dvs = [], []
     for j in range(nk):
         kj, vj = kf[:, j * kc:(j + 1) * kc], vf[:, j * kc:(j + 1) * kc]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj)
-        mask = attn_mask(q_pos, kv_pos[:, j * kc:(j + 1) * kc], causal, win)
-        p = torch.exp(torch.where(mask[:, None, None], s, neg) - lse)   # (B, Kh, G, Sq, kc)
-        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, dog))
-        ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, vj) - Dt)
-        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kj)
-        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qg))             # qg pre-scaled
+        r0, r1 = (j * kc, min(Sq, j * kc + kc + window - 1)) if banded else (0, Sq)
+        qs, ds_o = qg[:, r0:r1], dog[:, r0:r1]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kj)
+        mask = attn_mask(q_pos[:, r0:r1], kv_pos[:, j * kc:(j + 1) * kc], causal, win)
+        p = torch.exp(torch.where(mask[:, None, None], s, neg) - lse[..., r0:r1, :])
+        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, ds_o))           # p (B, Kh, G, rows, kc)
+        ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", ds_o, vj) - Dt[..., r0:r1, :])
+        dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kj)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qs))             # qg pre-scaled
     dq = (dq * scale).reshape(B, Sq, N, dh).to(q.dtype)
     dk = torch.cat(dks, 1)[:, :Sk].to(k.dtype)
     dv = torch.cat(dvs, 1)[:, :Sk].to(v.dtype)

@@ -3,8 +3,10 @@
 The port of the reference's ``launch/serve.py`` for the ported configs
 (``rwkv6_1_6b``, whose prefill runs the rwkv6_chunk kernel; the dense
 configs such as ``tinyllama_1_1b``, whose prefill attention runs the
-flash_attention kernel; and ``hymba_1_5b``, whose windowed and global
-attentions run that kernel beside the SSM branch).  Weights are random,
+flash_attention kernel; ``hymba_1_5b``, whose windowed and global
+attentions run that kernel beside the SSM branch; and the MoE configs
+``dbrx_132b`` and ``llama4_scout_17b_a16e``, whose FFN is the routed
+experts at capacity factor 4.0).  Weights are random,
 drawn from ``--seed``; prompts are token ids from numpy's
 ``default_rng(seed)``.  The prefill gives the KV cache room for the
 prompt and every decode token (``max_len`` = prompt + decode tokens; a
@@ -22,6 +24,8 @@ CUDA kernel on its first call).  Without ``--full`` the arch's reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --full \\
         --batch 8 --prompt-len 2048 --decode-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4_scout_17b_a16e --device cpu
 """
 from __future__ import annotations
 

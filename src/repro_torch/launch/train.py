@@ -7,10 +7,12 @@ no mesh.  Weights are random from a seed; the data is the reference's
 synthetic token stream (``data/``), batch for batch the same ids; a
 caller may put a ``TokenPipeline`` with ``example_weights`` in
 ``Trainer.pipe`` (the step reads a batch's tokens and ignores its
-``doc_ids``).  On the card every training attention of a dense model runs
-the flash_attention kernel (its forward, twice a block with remat), every
-WKV of an RWKV-6 model the rwkv6_chunk kernel (twice a block with remat)
-and its gradient the backward kernel, and every compressed gradient leaf
+``doc_ids``).  On the card every training attention of a dense or hybrid
+(Hymba) model runs the flash_attention kernel with the layer's window (its
+forward, twice a block with remat; its backward is the plain blockwise
+VJP over the window's band), every WKV of an RWKV-6 model the
+rwkv6_chunk kernel (twice a block with remat) and its gradient the
+backward kernel, and every compressed gradient leaf
 the count_sketch kernel.  Without ``--full`` the arch's reduced (smoke)
 config is trained.  A checkpoint is labelled by the number of updates it
 holds, and holds the compressor's round and error feedback beside the
@@ -25,6 +27,8 @@ from the newest checkpoint.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 --compress-grads 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1_6b --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1_5b --device cpu --steps 3 \\
+        --seq 72 --compress-grads 8
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 5 --batch 8 --seq 2048 \\
         --n-micro 8 --compress-grads 8 --ckpt-every 0
 """

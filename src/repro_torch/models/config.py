@@ -2,9 +2,10 @@
 
 The port's own copy of the reference's ``ModelConfig``: the same fields,
 defaults and properties, so a config carries over field for field.  The
-port runs ``kind="rwkv"`` and ``kind="dense"`` so far (``models/lm.py``);
-on the card their WKV and prefill attention take the hand-written kernels
-whatever ``use_pallas`` says.
+port runs ``kind="rwkv"``, ``"dense"``, ``"hybrid"`` and, for prefill and
+decode, ``"moe"`` (``models/lm.py``); ``"encdec"`` and the modality front
+ends raise.  On the card their WKV and their prefill and training
+attention take the hand-written kernels whatever ``use_pallas`` says.
 
 ``kind`` selects the block wiring:
   dense  — decoder-only transformer (GQA)            [qwen2.5, tinyllama,

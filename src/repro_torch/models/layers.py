@@ -14,9 +14,8 @@ or without a sliding window) goes to ``kernels/flash_attention``: the
 hand-written CUDA kernel for a CUDA tensor, its plain version (the port
 of the reference's blockwise ``_block_attn``) for a CPU tensor.  Where a
 gradient is wanted (training), the attention is the kernel's
-``attention_train``, whose backward is the port of the reference's
-custom VJP; it has no window yet, so a windowed attention that wants a
-gradient raises.  Everything here is differentiable and updates nothing
+``attention_train``, with the layer's window, whose backward is the port
+of the reference's custom VJP.  Everything here is differentiable and updates nothing
 in place.  Cross-attention waits for the config that uses it (ROADMAP §1
 item 7).
 """
@@ -28,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import attention_train, flash_attention_gqa
-from ..kernels.flash_attention.ops import band
 from ..kernels.flash_attention.ref import KV_CHUNK
 from .config import ModelConfig
 
@@ -100,13 +98,9 @@ def attend(p, q, k, v, causal: bool = True, kv_chunk: int = KV_CHUNK, window=Non
     after :func:`attention_qkv`, through the flash_attention kernel, with
     the layer's sliding ``window`` (None or ≥ 2²⁹: full).  With gradients
     on and an input that wants one, the attention carries the backward
-    (over kv blocks of ``kv_chunk`` keys); with a window that raises."""
+    (over kv blocks of ``kv_chunk`` keys, each over its window's band)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if band(window, causal) is not None:
-            raise NotImplementedError(
-                "the windowed attention's backward is not ported yet (Hymba training, ROADMAP "
-                "§1 item 7)")
-        return attention_train(q, k, v, causal, kv_chunk) @ p["wo"]
+        return attention_train(q, k, v, causal, kv_chunk, window) @ p["wo"]
     return flash_attention_gqa(q, k, v, causal, window=window) @ p["wo"]
 
 

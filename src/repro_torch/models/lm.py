@@ -1,16 +1,18 @@
 """LM facade of the port: init / training loss / prefill / decode, for
-``kind="rwkv"``, ``kind="dense"`` and ``kind="hybrid"`` (Hymba).
+``kind="rwkv"``, ``kind="dense"``, ``kind="hybrid"`` (Hymba) and
+``kind="moe"`` (DBRX, Llama-4-Scout; prefill and decode only).
 
 The port of the reference's ``models/lm.py`` for the RWKV-6 block, the
-dense (GQA transformer) block and the hybrid block, whose attention and
+dense (GQA transformer) block, the hybrid block, whose attention and
 SSM branch (``models/ssm.py``) read the same normed input and are
 averaged after a norm each, 0.5·(rmsnorm(attn, bn_a) + rmsnorm(ssm,
-bn_s)).  The reference stacks each parameter over the layers and scans
-them; the port keeps a list of per-layer dicts and loops over it
-(``convert.lm_params`` unstacks the reference's).  The other block kinds
-(moe, encdec) and the modality front ends wait for later slices (ROADMAP
-§1 item 7) and raise; so does the training loss of a config with a
-window, meta tokens or the SSM branch (Hymba training).
+bn_s)), and the MoE block, the dense block with its MLP replaced by
+``models/moe.py``'s FFN (capacity factor 4.0 in prefill and decode, as
+the reference's).  The reference stacks each parameter over the layers
+and scans them; the port keeps a list of per-layer dicts and loops over
+it (``convert.lm_params`` unstacks the reference's).  The encdec block
+and the modality front ends wait for later slices (ROADMAP §1 item 7)
+and raise; so does the training loss of the MoE block.
 
 Sliding windows: layer i attends over a window of ``cfg.window`` keys
 unless i is one of ``cfg.global_layers`` (``Model.windows[i]``, None for
@@ -23,16 +25,17 @@ paper keeps them visible to every query (ROADMAP §3).
 
 Parameters: ``{"embed": {"tok", "head"}, "layers": [...], "ln_f"}`` (and
 ``"meta"`` (M, D) with meta tokens), a layer ``{"ln1", "ln2", "mix"}``
-(rwkv), ``{"ln1", "ln2", "attn", "mlp"}`` (dense) or that with ``"ssm",
-"bn_a", "bn_s"`` (hybrid).  :func:`stack_layers` gives the reference's
-layout, the layers as one dict of tensors stacked over a leading layer
-axis (the trainer's and the checkpoint's), and :func:`layer_views` the
-list of per-layer views of such stacked tensors.  Decode cache:
+(rwkv), ``{"ln1", "ln2", "attn", "mlp"}`` (dense), that with ``"ssm",
+"bn_a", "bn_s"`` (hybrid), or with ``"moe"`` in place of ``"mlp"``
+(moe).  :func:`stack_layers` gives the reference's layout, the layers as
+one dict of tensors stacked over a leading layer axis (the trainer's and
+the checkpoint's), and :func:`layer_views` the list of per-layer views of
+such stacked tensors.  Decode cache:
 ``{"layers": [...], "pos" (B,) int32}``, a layer
 - rwkv: ``{"S" (B, H, hs, hs) float32, "x_last_tm", "x_last_cm" (B, D)
   in the model dtype}``, the two ``x_last`` the *normed* inputs of the
   time mix and the channel mix at the last position;
-- dense and hybrid: ``{"k", "v" (B, span, Kh, dh) in the model dtype,
+- dense, hybrid and moe: ``{"k", "v" (B, span, Kh, dh) in the model dtype,
   "kpos" (B, span) int32}``, the absolute position held in each slot (−1:
   empty), and for hybrid ``"ssm": {"h" (B, H, N, P) float32, "conv" (B,
   4, d_inner)}``.  Position p sits at slot p mod span, in prefill and in
@@ -57,11 +60,13 @@ import torch.utils.checkpoint
 
 from ..core.schema import resolve_device
 from . import layers as L
+from . import moe as MOE
 from . import rwkv6 as RWKV
 from . import ssm as SSM
 from .config import ModelConfig
 
-KINDS = ("rwkv", "dense", "hybrid")
+KINDS = ("rwkv", "dense", "hybrid", "moe")
+SERVE_CAPACITY = 4.0               # the MoE capacity factor of prefill and decode
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -84,6 +89,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, devic
         p["mix"] = RWKV.init_rwkv_block(gen, cfg, dtype, device)
         return p
     p["attn"] = L.init_attention(gen, cfg, dtype, device)
+    if cfg.kind == "moe":
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+        return p
     p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
     if cfg.kind == "hybrid":
         p["ssm"] = SSM.init_ssm(gen, cfg, dtype, cfg.n_heads * cfg.head_dim, device)
@@ -153,28 +161,30 @@ class Model:
         1e-4 · z-loss + aux, {"ce", "aux", "tokens"}), over
         ``batch["tokens"]`` (B, S) with an optional ``loss_mask``; other
         entries of the batch (a weighted pipeline's ``doc_ids``) are not
-        read.  Each block runs under activation checkpointing when
-        ``cfg.remat`` (the reference's ``jax.checkpoint``), so its
-        attention's or its WKV's forward runs twice a backward pass."""
+        read.  The meta tokens go before the tokens (positions 0..M + S −
+        1), each layer attends over its own window, and the M meta
+        positions are dropped after ``ln_f``, before the logits.  Each
+        block runs under activation checkpointing when ``cfg.remat`` (the
+        reference's ``jax.checkpoint``), so its attention's or its WKV's
+        forward runs twice a backward pass."""
         cfg = self.cfg
-        if cfg.kind == "hybrid" or cfg.meta_tokens or cfg.window:
+        if cfg.kind == "moe":
             raise NotImplementedError(
-                f"{cfg.name}: training with the SSM branch, meta tokens or a window (Hymba "
-                f"training: the windowed attention's backward, then the SSM's gradient) is not "
-                f"ported yet (ROADMAP §1 item 7)")
+                f"{cfg.name}: training the MoE block (the gradient of its routed expert "
+                f"products and its aux loss) is not ported yet (ROADMAP §1 item 7)")
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
-        h = L.embed(params["embed"], tokens)
-        B, S = tokens.shape
+        h = self._embed_inputs(params, tokens)
+        B, S = h.shape[:2]                     # S counts the meta tokens
         positions = torch.arange(S, dtype=torch.int32, device=self.device).repeat(B, 1)
-        block = self._block_train if cfg.kind == "dense" else self._block_train_rwkv
-        for p in params["layers"]:
+        block = self._block_train_rwkv if cfg.kind == "rwkv" else self._block_train
+        for p, w in zip(params["layers"], self.windows):
             if cfg.remat:
-                h = torch.utils.checkpoint.checkpoint(block, p, h, positions,
+                h = torch.utils.checkpoint.checkpoint(block, p, h, positions, w,
                                                       use_reentrant=False)
             else:
-                h = block(p, h, positions)
+                h = block(p, h, positions, w)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
+        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)[:, cfg.meta_tokens:]
         logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h[:, :-1]).float())
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
@@ -187,16 +197,20 @@ class Model:
         zloss = 1e-4 * torch.square(lse * mask).sum() / denom
         return loss + zloss + aux, {"ce": loss, "aux": aux, "tokens": denom}
 
-    def _block_train(self, p, x, positions):
-        """One dense block of the training forward (no cache)."""
+    def _block_train(self, p, x, positions, window: Optional[int] = None):
+        """One dense or hybrid block of the training forward (no cache),
+        its attention over ``window``."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
-        x = x + L.attend(p["attn"], q, k, v, kv_chunk=cfg.kv_chunk)
+        out = L.attend(p["attn"], q, k, v, kv_chunk=cfg.kv_chunk, window=window)
+        if cfg.kind == "hybrid":
+            out = _mix(p, cfg, out, SSM.ssm_branch(p["ssm"], cfg, h))
+        x = x + out
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], cfg, h2)
 
-    def _block_train_rwkv(self, p, x, positions=None):
+    def _block_train_rwkv(self, p, x, positions=None, window=None):
         """One RWKV-6 block of the training forward, the reference's
         ``block_train``: its WKV carries a gradient through the
         rwkv6_chunk kernels' ``autograd.Function``, from a zero state."""
@@ -248,7 +262,7 @@ class Model:
         return x, {"S": S_fin, "x_last_tm": h[:, -1], "x_last_cm": h2[:, -1]}
 
     def _prefill_attn(self, p, x, positions, span: int, window: Optional[int]):
-        """One dense or hybrid block with the layer's window; its cache
+        """One dense, hybrid or moe block with the layer's window; its cache
         holds the last min(span, S) positions.  K and V are computed once,
         for the attention and for the cache, and the hybrid block's SSM
         branch gives its terminal state as it runs (the reference computes
@@ -263,7 +277,7 @@ class Model:
             out = _mix(p, cfg, out, s)
         x = x + out
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], cfg, h2), lc
+        return x + _ffn(p, cfg, h2), lc
 
     # ------------------------------------------------------------ decode --
     def decode_step(self, params, cache, tokens):
@@ -322,7 +336,7 @@ class Model:
             out = _mix(p, cfg, out, s)
         x = x + out
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], cfg, h2), new_lc
+        return x + _ffn(p, cfg, h2), new_lc
 
     # ------------------------------------------------------- cache specs --
     def init_cache(self, batch_size: int, max_len: int):
@@ -353,6 +367,14 @@ class Model:
             layers.append(lc)
         return {"layers": layers,
                 "pos": torch.full((B,), total, dtype=torch.int32, device=dev)}
+
+
+def _ffn(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A serving block's FFN: the MLP, or the MoE FFN at capacity factor
+    4.0 (the reference's ``_prefill_block`` and ``_decode_block``)."""
+    if cfg.kind == "moe":
+        return MOE.moe_ffn(p["moe"], cfg, h, capacity_factor=SERVE_CAPACITY)[0]
+    return L.mlp(p["mlp"], cfg, h)
 
 
 def _mix(p, cfg: ModelConfig, attn: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:

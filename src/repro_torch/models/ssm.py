@@ -131,12 +131,38 @@ def ssm_chunked(x, Bm, Cm, dt, loga, Dskip, chunk: int, return_state: bool = Fal
     return (y, hs[:, nc]) if return_state else y
 
 
+class _Edge(torch.autograd.Function):
+    """The identity, whose backward marks the moment the gradient passes
+    with an empty ``record_function`` range ``name``: at the branch's output
+    it marks where the branch's backward starts, at its input where it
+    ends (every gradient of the branch has then reached its input)."""
+
+    @staticmethod
+    def forward(ctx, x, name: str):
+        ctx.name = name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.profiler.record_function(ctx.name):
+            pass
+        return g, None
+
+
 def ssm_branch(p, cfg: ModelConfig, u: torch.Tensor, chunk=None, return_state: bool = False):
     """Prefill (or a training forward): u (B, S, D) → (B, S, D) in u's
     dtype; with ``return_state``, (out, {"h" (B, H, N, P) float32, "conv"
     (B, 4, d_inner) the last four raw conv inputs, zeros before position
     0}), the decode cache after position S − 1.  S is padded to the chunk
-    with zeros, which neither decay nor feed the state."""
+    with zeros, which neither decay nor feed the state.
+
+    The forward runs inside a ``record_function`` range ``ssm_branch``;
+    where a gradient is wanted, the backward is marked by the empty ranges
+    ``ssm_branch.bwd_begin`` and ``ssm_branch.bwd_end`` (:class:`_Edge`), so
+    a profile counts both passes as the branch's."""
+    marked = torch.is_grad_enabled() and u.requires_grad
+    if marked:
+        u = _Edge.apply(u, "ssm_branch.bwd_end")
     with torch.profiler.record_function("ssm_branch"):
         B, S, _ = u.shape
         chunk = chunk or cfg.ssm_chunk
@@ -149,7 +175,7 @@ def ssm_branch(p, cfg: ModelConfig, u: torch.Tensor, chunk=None, return_state: b
         y = y[:, :S]
         out = y.reshape(B, S, -1).to(u.dtype) @ p["wo"]
         if not return_state:
-            return out
+            return _Edge.apply(out, "ssm_branch.bwd_begin") if marked else out
         tail = xin[:, -CONV:]
         return out, {"h": h, "conv": F.pad(tail, (0, 0, CONV - tail.shape[1], 0))}
 

@@ -223,7 +223,7 @@ def test_attention_routes():
     """The prefill's attention takes the kernel's wrapper (which has no
     route for a meta tensor), with a window too; a windowed config builds,
     its layers' windows as the config gives them, while a front end or a
-    moe config is still refused where the model is built, on every
+    encdec config is still refused where the model is built, on every
     device, rather than run some other way."""
     _, cfg = _cfg()
     w = {k: _t(v) for k, v in _attn_weights(cfg, 8).items()}
@@ -236,7 +236,7 @@ def test_attention_routes():
         L.attend(w, q, k, v, window=4)
     windowed = Model(cfg.replace(window=4, global_layers=(0,)), device="cpu")
     assert windowed.windows == [None] + [4] * (cfg.n_layers - 1)
-    for bad in (cfg.replace(frontend="patches"), cfg.replace(kind="moe")):
+    for bad in (cfg.replace(frontend="patches"), cfg.replace(kind="encdec")):
         with pytest.raises(NotImplementedError, match="item 7"):
             Model(bad, device="cpu")
 

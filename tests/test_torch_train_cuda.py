@@ -54,7 +54,10 @@ def test_lse_against_float64(dev, shape, dtype, causal):
     assert bool(((lse.double() - want).abs() <= 1e-4 + 1e-5 * want.abs()).all())
 
 
-def test_attention_train_gradients_match_plain(dev):
+@pytest.mark.parametrize("window", [None, 100])
+def test_attention_train_gradients_match_plain(dev, window):
+    """The kernel-served forward (with a window of 100 keys, the backward
+    over each kv block's band) against the plain forward on the CPU."""
     rng = np.random.default_rng(1)
     B, S, N, Kh, dh = 2, 300, 8, 2, 64
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev)
@@ -63,15 +66,16 @@ def test_attention_train_gradients_match_plain(dev):
 
     def grads():
         xs = [x.clone().requires_grad_() for x in (q, k, v)]
-        return torch.autograd.grad(fops.attention_train(*xs, True, 128), xs, dout)
+        return torch.autograd.grad(fops.attention_train(*xs, True, 128, window), xs, dout)
 
     fops.reset_launches()
     got = grads()
-    assert fops.launches == 1
+    assert fops.launches == 1 and fops.windowed_launches == (window is not None)
     kernel = fops.flash_attention_gqa
     try:
-        fops.flash_attention_gqa = lambda q_, k_, v_, c, return_lse: [
-            t.to(dev) for t in kernel(q_.cpu(), k_.cpu(), v_.cpu(), c, return_lse=True)]
+        fops.flash_attention_gqa = lambda q_, k_, v_, c, return_lse, window=None: [
+            t.to(dev) for t in kernel(q_.cpu(), k_.cpu(), v_.cpu(), c, return_lse=True,
+                                      window=window)]
         want = grads()
     finally:
         fops.flash_attention_gqa = kernel
