@@ -89,7 +89,13 @@ Phases (any failure exits non-zero):
      Hymba's microbatch (1, 2176, 25, 5, 64), w 1,024 and causal, bf16
      (timed with its lse; its plain version the blockwise forward with its
      lse, ``plain_attention``), and DBRX-132B's prefill (1, 2048, 48, 8,
-     128: 6 query heads a K/V head), bf16.  A
+     128: 6 query heads a K/V head), bf16, and its training forward with
+     the lse (phase 16).  K3, a non-causal call over Sk keys of their own:
+     seamless-M4T's encoder self-attention (8, 1024, 16, 16, 64, bf16, Sk
+     = S) and its cross-attention (8, 512 queries, 2,048 keys, 16, 16, 64,
+     bf16), and an odd float32 shape (2, 40 queries, 70 keys, 8, 2, 32:
+     off both tiles); LLaVA-NeXT-34B's prefill (1, 2048, 56, 8, 128, G 7,
+     bf16).  A
      windowed row's bound counts the band's pairs, Σ_i min(i + 1, w), and
      its library call is ``scaled_dot_product_attention`` with a boolean
      band mask.  Before the cases, the
@@ -442,6 +448,66 @@ Phases (any failure exits non-zero):
    its idle share and device time by kind with the expert products
    (``record_function`` ``moe_experts``: their three GEMMs and the SwiGLU)
    as a kind of their own, decode ms a token, tok/s and the peak memory.
+
+16. MoE training at full width, each of DBRX-132B and Llama-4-Scout cut to
+   1 layer (a layer with its untied embedding and head: ~4.49 B and ~4.27
+   B parameters, 62.9 and 59.8 GB of bf16 weights, AdamW moments and
+   float32 accumulators, so no compressor: its error feedback would take
+   DBRX past the card), the card emptied first, through ``launch/train.py``'s
+   ``build`` (``--layers 1``): global batch 8 × 2,048, 8 microbatches,
+   remat, AdamW, 4 steps after an untimed warm-up step, the MoE FFN at the
+   config's capacity factor (1.25 and 1.5), ``models/moe.route`` recorded
+   on every call.  Gates: a finite loss every step; 16 flash_attention
+   launches a step (1 layer × 2 under remat × 8), the other kernels 0; every
+   block's remat recompute routes each (token, choice) as its forward did;
+   a float32 twin (1 layer, full width, 1 × 2,048, remat) whose gradient
+   stage is served once by the kernel and once by the plain attention with
+   the same weights and batch, the plain run replaying the kernel run's
+   routing (``moe.route(..., expert=...)``: float32 rounding of the two
+   attentions may flip a top-k choice): loss within 1e-5 relative, every
+   gradient leaf within 1e-4 · max|g|.  Prints the reckoning of its depth
+   and bytes, each step's ms and loss, tokens/s, the peak memory, tokens
+   dropped and the experts' load by layer, one traced step's idle share
+   and device time by kind (the expert products ``moe_experts`` and the
+   attention backward ``attention_bwd`` kinds of their own), and the
+   choices that would have differed untied.
+
+17. seamless-M4T-medium (arXiv:2308.11596; 12 encoder and 12 decoder
+   layers, d 1,024, 16 heads of 64, d_ff 4,096, GELU, vocab 256,206 padded
+   to 256,512; ~0.88 B parameters) served at full width and depth through
+   phase 12's serving function, the card emptied first: prefill 8 × (1,024
+   frames + 1,024 tokens) (``src_frames`` N(0, 0.02²) from the prompt's
+   rng) into a cache with room for 64 decode tokens, then 64 greedy tokens,
+   each decoder block cross-attending to the encoder's output (prefill:
+   the kernel, non-causal, Sk the frames; decode: its cached k, v, plain).
+   Before it, a float32 twin cut to 2 + 2 layers.  Gates as phase 12's,
+   every encoder self-attention, decoder self-attention and
+   cross-attention in bf16 held to the float64 oracle (non-causal where it
+   is); 36 flash_attention launches a prefill, 24 of them non-causal, none
+   in decode.
+
+18. seamless-M4T-medium trained at full width and depth as phase 7 (8
+   rows of 1,024 frames + 1,024 tokens, ``launch/train.make_batch_for``'s
+   split, 8 microbatches, remat, compression 8, AdamW, 4 steps after a
+   warm-up), the card emptied first.  Gates: a finite loss every step; 576
+   flash_attention launches a step (36 a forward × 2 under remat × 8), 384
+   non-causal; count_sketch and its unsketch once a sketched leaf a step
+   (the 256,512 × 1,024 embedding and head are under 2³¹ elements); a
+   float32 twin (2 + 2 layers, 2 rows, 2 microbatches) kernel- against
+   plain-served: loss within 1e-5 relative, compressed gradients within 1e-4
+   · max|g| a leaf.  Prints the reckoning, step ms, tokens/s, compressor
+   ms, peak memory and a traced step's idle share and device time by kind
+   (``attention_bwd`` its own).
+
+19. LLaVA-NeXT-34B (60 layers, d 7,168, 56 query and 8 K/V heads of 128:
+   7 a K/V head, d_ff 20,480, vocab 64,000, θ 1e6; 34.4 B parameters, 68.8
+   GB of bf16 weights) served at its full depth unless the reckoning of
+   its weights and 8 GiB of room passes the card's memory (then cut, and
+   said), through phase 12's serving function, the card emptied first:
+   prefill 1 × (1,024 patch embeddings + 1,024 tokens), ``patches`` N(0,
+   0.02²) before the tokens, then 64 greedy tokens.  Before it, a float32
+   twin cut to 2 layers.  Gates as phase 12's; one launch a layer a
+   prefill, none in decode.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -900,28 +966,30 @@ def phase_wkv_bwd(ops, ref, dev="cuda"):
     return [wkv_bwd_case(ops, ref, *c[:6], dev=dev, **c[6]) for c in cases]
 
 
-def band_pairs(S: int, causal: bool, window=None) -> int:
-    """Key-query pairs of one (b, head): S² full, S(S + 1)/2 causal, and
-    Σ_{i<S} min(i + 1, w) in a causal band of w."""
+def band_pairs(S: int, causal: bool, window=None, Sk=None) -> int:
+    """Key-query pairs of one (b, head): S·Sk full (Sk = S unless given),
+    S(S + 1)/2 causal, and Σ_{i<S} min(i + 1, w) in a causal band of w."""
     if not causal:
-        return S * S
+        return S * (S if Sk is None else Sk)
     if window is None or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
 
 
 def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda", window=None,
-              with_lse=False):
+              with_lse=False, Sk=None):
     """One flash_attention shape (with ``window``, a causal band of w
-    keys): the kernel within ``ref.attention_limit`` of a dense softmax in
-    float64, determinism, and timings; with ``with_lse`` the call timed is the
-    training forward's, which also writes the log-sum-exp (its plain
-    version ``plain_attention``; its bound counts the lse's bytes; the
-    library call stays SDPA, which returns no lse).  Returns the shape's
-    record."""
+    keys; with ``Sk``, a non-causal call over Sk keys, K3's
+    cross-attention): the kernel within ``ref.attention_limit`` of a dense
+    softmax in float64, determinism, and timings; with ``with_lse`` the
+    call timed is the training forward's, which also writes the
+    log-sum-exp (its plain version ``plain_attention``; its bound counts
+    the lse's bytes; the library call stays SDPA, which returns no lse).
+    Returns the shape's record."""
+    Sk = S if Sk is None else Sk
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, S, N, dh), dtype=np.float32)).to(dev, dtype)
-    k, v = (torch.from_numpy(rng.standard_normal((B, S, Kh, dh), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, Kh, dh), dtype=np.float32))
             .to(dev, dtype) for _ in range(2))
     got = ops.flash_attention_gqa(q, k, v, causal, window=window)
     if not torch.equal(got, ops.flash_attention_gqa(q, k, v, causal, window=window)):
@@ -971,13 +1039,13 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
         library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=seen, enable_gqa=True))
         del seen, i
     size = q.element_size()
-    nbytes = (2 * B * S * N + 2 * B * S * Kh) * dh * size   # q, k, v read once, out written once
+    nbytes = (2 * B * S * N + 2 * B * Sk * Kh) * dh * size  # q, k, v read once, out written once
     nbytes += 4 * B * N * S if with_lse else 0               # ... and the float32 lse
-    pairs = band_pairs(S, causal, window)
+    pairs = band_pairs(S, causal, window, Sk)
     flops = 4 * B * N * dh * pairs
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    rec = {"case": name, "B": B, "S": S, "N": N, "Kh": Kh, "dh": dh, "causal": causal,
+    rec = {"case": name, "B": B, "S": S, "Sk": Sk, "N": N, "Kh": Kh, "dh": dh, "causal": causal,
            "window": window, "lse": with_lse, "pairs_per_head": pairs,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max_abs_err,
            "max_err_over_limit": err_over_limit, "max_abs_v": vmax,
@@ -989,7 +1057,8 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
            "bytes": nbytes, "flops": flops, "tflops_per_s": flops / kernel_ms / 1e9,
            "library_tflops_per_s": flops / library_ms / 1e9,
            "ms_over_library_ms": kernel_ms / library_ms}
-    log(f"  {name:<22} B={B} S={S} N={N} Kh={Kh} dh={dh} {'causal' if causal else 'full'}"
+    log(f"  {name:<22} B={B} S={S}{'' if Sk == S else f' Sk={Sk}'} N={N} Kh={Kh} dh={dh} "
+        f"{'causal' if causal else 'full'}"
         f"{'' if window is None else f' window {window}'}{' with lse' if with_lse else ''} "
         f"{rec['dtype']:<8} kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
         f"{library_ms:.4f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}; "
@@ -1062,9 +1131,17 @@ def phase_attn(ops, ref, dev="cuda"):
         ("hymba_train_1x2176_w1024_lse", 1, 2176, 25, 5, 64, True, bf16, 1024, True),
         ("hymba_train_1x2176_causal_lse", 1, 2176, 25, 5, 64, True, bf16, None, True),
         ("dbrx_1x2048", 1, 2048, 48, 8, 128, True, bf16),       # phase 15: DBRX's G 6
+        # phase 16's training forward with the lse at DBRX's microbatch
+        ("dbrx_train_1x2048_lse", 1, 2048, 48, 8, 128, True, bf16, None, True),
+        # phases 17-18: seamless-M4T's encoder self-attention and cross-attention (K3)
+        ("seamless_enc_8x1024", 8, 1024, 16, 16, 64, False, bf16),
+        ("seamless_cross_8x512x2048", 8, 512, 16, 16, 64, False, bf16, None, False, 2048),
+        ("cross_2x40x70_f32", 2, 40, 8, 2, 32, False, f32, None, False, 70),   # odd, both tiles
+        ("llava_1x2048_g7", 1, 2048, 56, 8, 128, True, bf16),   # phase 19: LLaVA's G 7
     ]
     recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None,
-                      with_lse=len(c) > 9 and c[9]) for c in cases]
+                      with_lse=len(c) > 9 and c[9], Sk=c[10] if len(c) > 10 else None)
+            for c in cases]
     band, full = (next(r for r in recs if r["case"] == n)
                   for n in ("long_1x16384_w1024", "long_1x16384_causal"))
     log(f"  band against causal at (1, 16384, 25, 5, 64): {band['ms']:.4f} / {full['ms']:.4f} ms "
@@ -1601,11 +1678,13 @@ def upcast(t):
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
-def layer_errors(model, params, tokens, module, name: str, plain, oracle):
-    """Per layer of one prefill: the largest |error| / limit of the kernel
-    (``module.<name>``) and of ``plain``, against ``oracle`` (giving the
-    float64 result and the per-element limit), all three on the q, k, v
-    that the served model gives that layer."""
+def layer_errors(model, params, tokens, module, name: str, plain, oracle, extra=None):
+    """Per attention of one prefill (a layer's, or an encoder's and a
+    decoder's cross-attention too): the largest |error| / limit of the
+    kernel (``module.<name>``) and of ``plain``, against ``oracle`` (giving
+    the float64 result and the per-element limit), all three on the q, k,
+    v that the served model gives that attention (``extra``: the batch's
+    front-end inputs)."""
     kernel = getattr(module, name)
     errs = []
 
@@ -1617,23 +1696,25 @@ def layer_errors(model, params, tokens, module, name: str, plain, oracle):
         return out
 
     with swapped(module, name, checking):
-        model.prefill(params, {"tokens": tokens})
+        model.prefill(params, {"tokens": tokens, **(extra or {})})
     return errs
 
 
-def f32_gates(m32, p32, tokens, plain, max_len, steps: int):
+def f32_gates(m32, p32, tokens, plain, max_len, steps: int, extra=None):
     """Gates (b) and (c) in float32 on ``m32``: the kernel-served prefill
     against the plain-served one (``plain``: (module, name, function))
     within LM_F32_RTOL of the largest logit with the same greedy tokens,
     and greedy decode after prefill(S) against prefill(S + t) at t = 1 and
-    t = ``steps``, each within LM_F32_RTOL of its largest logit.  Returns
-    the kernel-served prefill's logits and the record."""
+    t = ``steps``, each within LM_F32_RTOL of its largest logit (``extra``:
+    the batch's front-end inputs, the same at every length).  Returns the
+    kernel-served prefill's logits and the record."""
     V = m32.cfg.vocab
     maxdiff = lambda a, b: float((a - b).abs()[:, :V].max())
     top = lambda a: LM_F32_RTOL * float(a[:, :V].abs().max())
-    l32, c = m32.prefill(p32, {"tokens": tokens}, max_len)
+    extra = extra or {}
+    l32, c = m32.prefill(p32, {"tokens": tokens, **extra}, max_len)
     with swapped(*plain):
-        plain32, _ = m32.prefill(p32, {"tokens": tokens})
+        plain32, _ = m32.prefill(p32, {"tokens": tokens, **extra})
     diff_b, lim_b = maxdiff(l32, plain32), top(l32)
     same = torch.equal(l32.argmax(-1), plain32.argmax(-1))
     ids, nxt = [], torch.argmax(l32, -1)
@@ -1645,7 +1726,8 @@ def f32_gates(m32, p32, tokens, plain, max_len, steps: int):
         nxt = torch.argmax(dl, -1)
     diffs, lims = {}, {}
     for t, d in {1: first, steps: dl}.items():
-        lt, _ = m32.prefill(p32, {"tokens": torch.cat([tokens, torch.stack(ids[:t], 1)], 1)})
+        lt, _ = m32.prefill(p32, {"tokens": torch.cat([tokens, torch.stack(ids[:t], 1)], 1),
+                                  **extra})
         diffs[t], lims[t] = maxdiff(d, lt), top(lt)
     rec = {"layers": m32.cfg.n_layers, "batch": tokens.shape[0],
            "max_diff_kernel_vs_plain_f32": diff_b, "limit_b": lim_b, "same_greedy": same,
@@ -1663,7 +1745,7 @@ def f32_gates(m32, p32, tokens, plain, max_len, steps: int):
 def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
              decode_tokens: int = 64, dev="cuda", profile: bool = False,
              max_len=None, check_last: bool = False, oracle=None, twin_cfg=None,
-             annotated=(), inspect=None):
+             annotated=(), inspect=None, stub: int = 0, want_launches=None):
     """LM serving (phases 5, 6, 12 and 13): prefill ``batch`` × ``prompt`` ids,
     greedy-decode ``decode_tokens``; the gates (a)–(d) of the module
     docstring.  ``wops``: the wrapper module of the kernel on the path;
@@ -1684,13 +1766,27 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     ``inspect(model, params, tokens)``: run on the float32 twin and, right
     after the counted run and before gates (b) and (c), on the model; it
     raises where the model's own state makes those gates meaningless (phase
-    15: an MoE prefill that dropped tokens) and returns a record."""
+    15: an MoE prefill that dropped tokens) and returns a record.
+    ``stub``: the rows of a front end's input beside the ``prompt`` tokens
+    (phase 17: an encoder's ``src_frames``, phase 19: ``patches`` before
+    the tokens), (batch, stub, D) N(0, 0.02²) from the same rng, the same
+    at every length.  ``want_launches``: the counts gate (d) holds a
+    prefill to, {counter of ``wops``: launches} (default: ``launches``
+    once a layer)."""
     from repro_torch.models import Model
 
     kname = wops.__name__.split(".")[-2]
     V = cfg.vocab
     maxdiff = lambda a, b: float((a - b).abs()[:, :V].max())
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, V, (batch, prompt))).to(dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, V, (batch, prompt))).to(dev)
+    extra = {}
+    if stub:
+        key = "src_frames" if cfg.kind == "encdec" else "patches"
+        extra[key] = torch.from_numpy((rng.standard_normal((batch, stub, cfg.d_model)) * 0.02)
+                                      .astype(np.float32)).to(dev)
+    first = {k: v[:1] for k, v in extra.items()}
+    want_launches = want_launches or {"launches": cfg.n_layers}
     steps32 = decode_tokens if check_last else 1
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1701,7 +1797,7 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
             p32 = m32.init(torch.Generator(device=dev).manual_seed(1))
             if inspect is not None:
                 twin_seen = inspect(m32, p32, tokens[:1])
-            twin = f32_gates(m32, p32, tokens[:1], plain, max_len, steps32)[1]
+            twin = f32_gates(m32, p32, tokens[:1], plain, max_len, steps32, first)[1]
         del m32, p32
         gc.collect()
         if torch.device(dev).type == "cuda":
@@ -1723,8 +1819,9 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         pad = logits[:, V:]
         return bool(torch.isfinite(logits[:, :V]).all()) and bool((pad == -1e30).all())
 
+    inputs = {"tokens": tokens, **extra}
     with torch.inference_mode():
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_len)   # warm-up, not counted
+        logits, cache = model.prefill(params, inputs, max_len)   # warm-up, not counted
         for _ in range(2):
             logits, cache = model.decode_step(params, cache, torch.argmax(logits, -1))
         sync(dev)
@@ -1732,10 +1829,11 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         for o in (wops, *other_ops):                                   # main path starts here
             o.reset_launches()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+        logits, cache = model.prefill(params, inputs, max_len)
         sync(dev)
         times["prefill_s"] = time.perf_counter() - t0
         launches_prefill = wops.launches
+        counts_prefill = {c: getattr(wops, c) for c in want_launches}
         toks = torch.argmax(logits, -1)
         seq, finite = [toks], torch.ones((), dtype=torch.bool, device=dev)
         c = cache
@@ -1757,11 +1855,11 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         if not (masked(logits) and bool(finite)):
             raise AssertionError(f"lm ({cfg.name}): prefill or decode logits not finite, or "
                                  f"padded ids unmasked")
-        # (d) launches: one a layer per prefill, none while decoding
-        if not (launches_prefill == cfg.n_layers and launches == launches_prefill):
-            raise AssertionError(f"lm ({cfg.name}): {kname} launched {launches_prefill} times in "
-                                 f"the prefill and {launches - launches_prefill} while decoding; "
-                                 f"expected {cfg.n_layers} and 0")
+        # (d) launches: one a layer per prefill (or ``want_launches``), none while decoding
+        if not (counts_prefill == want_launches and launches == launches_prefill):
+            raise AssertionError(f"lm ({cfg.name}): {kname} launched {counts_prefill} in the "
+                                 f"prefill and {launches - launches_prefill} while decoding; "
+                                 f"expected {want_launches} and 0")
         if any(others.values()):
             raise AssertionError(f"lm ({cfg.name}): kernels off the LM path launched: {others}")
         seen = None if inspect is None else inspect(model, params, tokens)
@@ -1785,25 +1883,25 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
         # twin_cfg) the kernel-served and the plain-served bf16 model's.
         # The reference's band ratio is printed.  float32 in f32_gates.
         layer_err = (None if oracle is None else
-                     layer_errors(model, params, tokens, *plain[:2], plain[2], oracle))
+                     layer_errors(model, params, tokens, *plain[:2], plain[2], oracle, extra))
         with swapped(*plain):
-            plain_logits = model.prefill(params, {"tokens": tokens})[0]
+            plain_logits = model.prefill(params, inputs)[0]
         diff_b = maxdiff(logits, plain_logits)
-        tokens_c = torch.cat([tokens, seq[0][:, None]], 1)
-        longer = model.prefill(params, {"tokens": tokens_c})[0]
+        inputs_c = {**inputs, "tokens": torch.cat([tokens, seq[0][:, None]], 1)}
+        longer = model.prefill(params, inputs_c)[0]
         if twin_cfg is None:                       # the same weights in float32
             m32 = Model(cfg.replace(dtype="float32"), device=dev)
             p32 = upcast(params)
-            l32, twin = f32_gates(m32, p32, tokens, plain, max_len, steps32)
+            l32, twin = f32_gates(m32, p32, tokens, plain, max_len, steps32, extra)
             noise, noise_plain = maxdiff(logits, l32), maxdiff(plain_logits, l32)
-            ref_c = m32.prefill(p32, {"tokens": tokens_c})[0]
+            ref_c = m32.prefill(p32, inputs_c)[0]
             other_c, ref_name = longer, "the f32 twin's prefill(S + 1)"
             bf16_ok = diff_b <= (noise if oracle is None else noise + noise_plain)
             del m32, p32, l32
         else:
             noise = noise_plain = None
             with swapped(*plain):
-                other_c = model.prefill(params, {"tokens": tokens_c})[0]
+                other_c = model.prefill(params, inputs_c)[0]
             ref_c, ref_name, bf16_ok = longer, "prefill(S + 1)", True
         if layer_err is not None:
             bf16_ok = bf16_ok and all(e <= 1 for e, _ in layer_err)
@@ -1830,9 +1928,8 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
                                  f"by {diff_c:.4f}, limit {DECODE_NOISE * noise_c:.4f}")
         del plain_logits, longer, ref_c, other_c
 
-        prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, max_len),
-                             max_reps=5)
-        prof = profile_window(lambda: model.prefill(params, {"tokens": tokens}, max_len),
+        prefill_ms = cuda_ms(lambda: model.prefill(params, inputs, max_len), max_reps=5)
+        prof = profile_window(lambda: model.prefill(params, inputs, max_len),
                               split=kname, annotated=annotated) \
             if torch.device(dev).type == "cuda" else None
         decode_prof = None
@@ -1846,10 +1943,11 @@ def phase_lm(wops, other_ops, cfg, plain, batch: int = 8, prompt: int = 1024,
     seqs = torch.stack(seq, 1).cpu().numpy()
     decode_ms = times["decode_s"] * 1e3 / decode_tokens
     out = {"arch": cfg.name, "n_params": n_params, "layers": cfg.n_layers, "batch": batch,
-           "prompt": prompt, "decode_tokens": decode_tokens, "times": times,
+           "prompt": prompt, "stub_rows": stub, "decode_tokens": decode_tokens, "times": times,
            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
            "decode_tok_per_s": batch * decode_tokens / times["decode_s"],
            "launches": launches, "launches_prefill": launches_prefill,
+           "counts_prefill": counts_prefill,
            "launches_decode": launches - launches_prefill,
            "max_diff_kernel_vs_plain": diff_b, "max_diff_bf16_vs_f32": noise,
            "max_diff_plain_bf16_vs_f32": noise_plain, "layer_err_over_limit": layer_err,
@@ -1899,8 +1997,9 @@ def plain_attention(q, k, v, causal, return_lse, window=None):
     from repro_torch.kernels.flash_attention.ref import KV_CHUNK, Q_CHUNK, block_attn_fwd
 
     B, S, N, _ = q.shape
-    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
-    out, lse = block_attn_fwd(q, k, v, pos, pos, causal, window, Q_CHUNK, KV_CHUNK)
+    pos = lambda n: torch.arange(n, dtype=torch.int32, device=q.device).expand(B, n)
+    out, lse = block_attn_fwd(q, k, v, pos(S), pos(k.shape[1]), causal, window, Q_CHUNK,
+                              KV_CHUNK)
     return out.to(q.dtype), lse.reshape(B, N, S)
 
 
@@ -1915,14 +2014,17 @@ def plain_unsketch(x, sk, h, scale=1.0, est=None, state=None):
 
 
 def train_twin(arch, swap, counted, want, dev="cuda", n_layers=4, batch=2, seq=2048,
-               n_micro=2):
+               n_micro=2, **cut):
     """One float32 train step of ``arch`` at full width cut to ``n_layers``
-    layers, served by the kernels and then by the plain versions (the same
-    weights, batch and hashes): ``swap`` is the (module, name, plain) of the
-    model's kernel entry, the compressor's two passes are swapped too;
-    ``counted`` the wrappers whose launches the kernel-served step must
-    make, ``want`` those counts.  Returns the comparison's record; raises
-    outside its limits (module docstring, phases 7 and 11)."""
+    layers (and ``cut``, e.g. an encoder's ``enc_layers``), served by the
+    kernels and then by the plain versions (the same weights, batch and
+    hashes): ``swap`` is the (module, name, plain) of the model's kernel
+    entry, the compressor's two passes are swapped too; ``counted`` the
+    wrappers' counters that the kernel-served step must bump, ``want``
+    those counts.  An encoder–decoder's batch holds ``seq``/2 frames and
+    ``seq``/2 tokens a row (``launch/train.make_batch_for``'s split).
+    Returns the comparison's record; raises outside its limits (module
+    docstring, phases 7 and 11)."""
     from repro_torch import configs
     from repro_torch.kernels.count_sketch import ref as cref
     from repro_torch.launch.steps import make_train_step
@@ -1930,10 +2032,14 @@ def train_twin(arch, swap, counted, want, dev="cuda", n_layers=4, batch=2, seq=2
     from repro_torch.optim import CountSketchCompressor, adamw, grad_compress
     from repro_torch.tree import leaves, map_tree, paths
 
-    cfg = configs.get(arch).replace(dtype="float32", n_layers=n_layers)
+    cfg = configs.get(arch).replace(dtype="float32", n_layers=n_layers, **cut)
     model = Model(cfg, device=dev)
     base = stack_layers(model.init(torch.Generator(device=dev).manual_seed(0)))
-    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (batch, seq)))
+    rng = np.random.default_rng(7)
+    inputs = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq)))}
+    if cfg.kind == "encdec":
+        inputs = {"tokens": inputs["tokens"][:, :seq // 2], "src_frames": torch.from_numpy(
+            (rng.standard_normal((batch, seq // 2, cfg.d_model)) * 0.02).astype(np.float32))}
     ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=5)
     counts = lambda: tuple(getattr(o, name) for o, name in counted)
 
@@ -1947,7 +2053,7 @@ def train_twin(arch, swap, counted, want, dev="cuda", n_layers=4, batch=2, seq=2
         step = make_train_step(model, ocfg, n_micro, compressor=compress)
         for o, _ in counted:
             o.reset_launches()
-        _, _, m = step(params, adamw.init(ocfg, params), {"tokens": toks.to(dev)})
+        _, _, m = step(params, adamw.init(ocfg, params), {k: v.to(dev) for k, v in inputs.items()})
         sync(dev)
         return float(m["loss"]), rec, params, counts()
 
@@ -1960,7 +2066,7 @@ def train_twin(arch, swap, counted, want, dev="cuda", n_layers=4, batch=2, seq=2
     if not (launches_k == tuple(want) and not any(launches_p)):
         raise AssertionError(f"train twin: launches {launches_k} (kernels) and {launches_p} "
                              f"(plain); expected {tuple(want)} and none")
-    rec = {"arch": cfg.name, "layers": n_layers, "batch": batch, "seq": seq,
+    rec = {"arch": cfg.name, "layers": n_layers, **cut, "batch": batch, "seq": seq,
            "n_micro": n_micro, "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "leaves": {}}
     ok = rec["loss_rel_diff"] <= TRAIN_LOSS_RTOL and math.isfinite(loss_k)
@@ -2018,7 +2124,7 @@ def run_steps(tr, n_micro: int, steps: int, counted, read, dev="cuda", profile=F
               split=(), annotated=()):
     """An untimed warm-up step on the trainer's next batch, then ``steps``
     timed steps of ``launch/steps.make_train_step`` with the compressor
-    timed by CUDA events around its call; ``counted`` (wrapper modules) are
+    (where the trainer has one) timed by CUDA events around its call; ``counted`` (wrapper modules) are
     set to 0 after the warm-up and ``read()`` is taken right after the last
     step.  With ``profile``, one more step traced (split by ``split``, the
     ``record_function`` ranges ``annotated`` as kinds of their own).
@@ -2035,7 +2141,8 @@ def run_steps(tr, n_micro: int, steps: int, counted, read, dev="cuda", profile=F
         events.append(ev)
         return g
 
-    step_fn = S.make_train_step(tr.model, tr.ocfg, n_micro, compressor=timed)
+    step_fn = S.make_train_step(tr.model, tr.ocfg, n_micro,
+                                compressor=None if tr.compressor is None else timed)
     params, state = tr.params, tr.opt_state
     out = {}
     try:
@@ -3372,6 +3479,344 @@ def moe_routing(model, params, tokens) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phases 16-19 --
+def param_count(cfg) -> tuple:
+    """(parameters, those of them float32 in a bf16 model: the routers) of
+    a dense, moe or encdec config, from its widths alone."""
+    D, N, Kh, dh, F = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
+    attn = 2 * D * N * dh + 2 * D * Kh * dh + ((N + 2 * Kh) * dh if cfg.qkv_bias else 0)
+    mlp = (3 if cfg.act == "swiglu" else 2) * D * F
+    ffn, f32 = mlp, 0
+    if cfg.kind == "moe":
+        f32 = D * cfg.n_experts
+        ffn = f32 + 3 * cfg.n_experts * D * F + (3 * D * F if cfg.shared_expert else 0)
+    block = attn + ffn + 2 * D
+    total = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2) + D
+    total += cfg.n_layers * block
+    if cfg.kind == "encdec":
+        total += cfg.n_layers * (attn + D) + cfg.enc_layers * (attn + mlp + 2 * D) + D
+    return total, f32 * cfg.n_layers
+
+
+def reckon(tag: str, cfg, full_layers: int, train: bool, compress: bool = False) -> dict:
+    """Logs, before a phase's run, its depth and the bytes its state takes
+    on the card (weights; with ``train`` AdamW's float32 moments, the
+    float32 gradient accumulators and, with ``compress``, the error
+    feedback), against the card's memory.  Returns the record."""
+    n, n32 = param_count(cfg)
+    width = 2 if cfg.dtype == "bfloat16" else 4
+    rec = {"layers": cfg.n_layers, "of_layers": full_layers, "n_params": n,
+           "weights_bytes": (n - n32) * width + 4 * n32,
+           "adamw_bytes": 8 * n if train else 0, "accumulator_bytes": 4 * n if train else 0,
+           "error_feedback_bytes": 4 * n if compress else 0,
+           "card_bytes": torch.cuda.get_device_properties(0).total_memory}
+    rec["total_bytes"] = sum(rec[k] for k in ("weights_bytes", "adamw_bytes",
+                                              "accumulator_bytes", "error_feedback_bytes"))
+    log(f"  {tag} reckoning: {cfg.name} {cfg.n_layers} of {full_layers} layers"
+        + (f" (+{cfg.enc_layers} encoder)" if cfg.kind == "encdec" else "")
+        + f", {n / 1e9:.3f} B parameters; weights {rec['weights_bytes'] / 1e9:.2f} GB"
+        + (f", AdamW {rec['adamw_bytes'] / 1e9:.2f} GB, accumulators "
+           f"{rec['accumulator_bytes'] / 1e9:.2f} GB" if train else "")
+        + (f", error feedback {rec['error_feedback_bytes'] / 1e9:.2f} GB" if compress else "")
+        + f"; {rec['total_bytes'] / 1e9:.2f} GB of the card's {rec['card_bytes'] / 1e9:.2f} GB")
+    return rec
+
+
+class RouteLog:
+    """A recording stand-in for ``models/moe.route`` (``moe.py``'s
+    docstring allows one): each call's choices, keep mask and capacity,
+    detached (a Routing's gates hold the step's graph)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._route = [], moe.route
+
+    def __call__(self, *a, **kw):
+        r = self._route(*a, **kw)
+        self.calls.append((r.expert.detach(), r.keep.detach(), r.capacity))
+        return r
+
+    def remat_mismatches(self, depth: int) -> tuple:
+        """(differing (token, choice) pairs, pairs compared) between each
+        block's forward routing and its recompute: a microbatch routes
+        layers 0..L−1 forward, then L−1..0 in the backward's recomputes."""
+        if len(self.calls) % (2 * depth):
+            raise AssertionError(f"moe: {len(self.calls)} routings, not a whole number of "
+                                 f"microbatches of {2 * depth}")
+        bad = seen = 0
+        for i in range(0, len(self.calls), 2 * depth):
+            fwd, again = self.calls[i:i + depth], self.calls[i + depth:i + 2 * depth][::-1]
+            for (e0, k0, _), (e1, k1, _) in zip(fwd, again):
+                bad += int(((e0 != e1) | (k0 != k1).view(e0.shape)).sum())
+                seen += e0.numel()
+        return bad, seen
+
+    def stats(self, depth: int, E: int) -> dict:
+        """The forward routings' capacity, dropped pairs and tokens, and
+        load (pairs an expert), by layer, over the calls recorded."""
+        rec = {}
+        for layer in range(depth):
+            fwd = [c for i, c in enumerate(self.calls) if i % (2 * depth) == layer]
+            rec[layer] = {
+                "capacity": fwd[0][2], "microbatches": len(fwd),
+                "dropped_pairs": sum(int((~k).sum()) for _, k, _ in fwd),
+                "dropped_tokens": sum(int((~k).view(e.shape).any(1).sum()) for e, k, _ in fwd),
+                "tokens": sum(e.shape[0] for e, _, _ in fwd),
+                "load": torch.stack([torch.bincount(e.reshape(-1), minlength=E)
+                                     for e, _, _ in fwd]).sum(0).tolist()}
+        return rec
+
+
+def moe_twin(fops, arch, dev="cuda", seq=2048):
+    """Phase 16's float32 twin: ``arch`` at full width cut to 1 layer, one
+    gradient stage (remat, 1 × ``seq`` tokens) served by the kernel and
+    then by the plain attention with the same weights and batch; the plain
+    run replays the kernel-served run's routing (``moe.route(...,
+    expert=...)``: its own probabilities, the kernel run's choices), since
+    float32 rounding of the two attentions may flip a top-k choice.  Loss
+    within TRAIN_LOSS_RTOL relative, every gradient leaf within
+    TRAIN_GRAD_RTOL · max|g|; prints the choices that would have differed
+    untied."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model, moe, stack_layers
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, paths
+
+    cfg = configs.get(arch).replace(dtype="float32", n_layers=1)
+    model = Model(cfg, device=dev)
+    params = stack_layers(model.init(torch.Generator(device=dev).manual_seed(0)))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (1, seq))).to(dev)
+    grads = make_train_step(model, adamw.AdamWConfig(), 1).grads
+    rec_k = RouteLog()
+    fops.reset_launches()
+    with swapped(moe, "route", rec_k):
+        g, loss_k = grads(params, {"tokens": toks})
+    sync(dev)
+    launches_k = fops.launches
+    g_k = [t.cpu() for t in leaves(g)]              # the second run reuses the accumulators
+    del g
+    replay, untied, route = iter(rec_k.calls), [0, 0], rec_k._route
+
+    def replaying(p, cfg_, xt, capacity_factor=None):
+        expert = next(replay)[0]
+        with torch.no_grad():
+            untied[0] += int((route(p, cfg_, xt, capacity_factor).expert != expert).sum())
+        untied[1] += expert.numel()
+        return route(p, cfg_, xt, capacity_factor, expert=expert)
+    fops.reset_launches()
+    with swapped(fops, "flash_attention_gqa", plain_attention), swapped(moe, "route", replaying):
+        g, loss_p = grads(params, {"tokens": toks})
+    sync(dev)
+    launches_p = fops.launches
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    rec = {"arch": cfg.name, "layers": 1, "seq": seq, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "choices_differing_untied": untied[0], "choices": untied[1],
+           "launches_kernel": launches_k, "launches_plain": launches_p, "leaves": {}}
+    ok = rec["loss_rel_diff"] <= TRAIN_LOSS_RTOL and math.isfinite(loss_k)
+    for name, gk, gp in zip(paths(params), g_k, leaves(g)):
+        rel = float((gk.to(dev) - gp).abs().max() / gp.abs().max())
+        rec["leaves"][name] = rel
+        ok &= rel <= TRAIN_GRAD_RTOL
+    log(f"  float32 twin ({cfg.name}, 1 layer, 1 x {seq}, remat): loss kernel {loss_k:.7f} "
+        f"plain {loss_p:.7f} (rel {rec['loss_rel_diff']:.2e}); per leaf max |Δg|/max|g| "
+        f"{max(rec['leaves'].values()):.2e}; routing replayed: {untied[0]} of {untied[1]} "
+        f"choices would have differed untied; flash_attention launches {launches_k} (kernel) "
+        f"and {launches_p} (plain)")
+    if not (ok and launches_k == 2 and launches_p == 0):
+        raise AssertionError(f"moe twin: kernel- and plain-served gradients disagree: {rec}")
+    del model, params, g, g_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+MOE_TRAIN = ("dbrx_132b", "llama4_scout_17b_a16e")
+MOE_TRAIN_KINDS = ("moe_experts", "attention_bwd")   # record_function ranges, phase 16
+
+
+def phase_moe_train(fops, other_ops, arch, depth: int = 1, steps: int = 4, batch: int = 8,
+                    seq: int = 2048, n_micro: int = 8, dev="cuda"):
+    """Phase 16: ``arch`` trained at full width cut to ``depth`` layers
+    through ``launch/train.py``'s ``build`` (module docstring), no
+    compressor, every routing recorded; then its float32 twin."""
+    from repro_torch import configs
+    from repro_torch.launch import train as T
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves
+
+    full = configs.get(arch)
+    plan = reckon("phase 16", full.replace(n_layers=depth), full.n_layers, train=True)
+    args = T.parser().parse_args(["--arch", arch, "--full", "--layers", str(depth), "--steps",
+                                  str(steps + 1), "--batch", str(batch), "--seq", str(seq),
+                                  "--n-micro", str(n_micro), "--ckpt-every", "0",
+                                  "--device", dev])
+    t0 = time.perf_counter()
+    tr = T.build(args)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg = tr.model.cfg
+    routes = RouteLog()
+    with swapped(moe, "route", routes):
+        run = run_steps(tr, n_micro, steps, (fops, *other_ops), lambda: (
+            {"flash_attention": fops.launches},
+            {o.__name__: o.launches for o in other_ops}), dev, True, TRAIN_KERNELS,
+            MOE_TRAIN_KINDS)
+    launches, others = run["counts"]
+    losses, step_s, prof = run["losses"], run["step_s"], run["prof"]
+    want = {"flash_attention": 2 * depth * n_micro * steps}
+    if not all(math.isfinite(x) for x in losses + [run["warm_loss"]]):
+        raise AssertionError(f"moe train ({cfg.name}): a loss is not finite: "
+                             f"{run['warm_loss']}, {losses}")
+    if launches != want or any(others.values()):
+        raise AssertionError(f"moe train ({cfg.name}): launches {launches}, expected {want}; "
+                             f"off the path {others}")
+    bad, compared = routes.remat_mismatches(depth)
+    if bad:
+        raise AssertionError(f"moe train ({cfg.name}): the remat recompute routed {bad} of "
+                             f"{compared} (token, choice) pairs otherwise than its forward")
+    routing = routes.stats(depth, cfg.n_experts)
+    del routes
+    mean_s = sum(step_s) / len(step_s)
+    out = {"arch": cfg.name, "n_params": sum(p.numel() for p in leaves(tr.params)),
+           "layers": depth, "of_layers": full.n_layers, "batch": batch, "seq": seq,
+           "n_micro": n_micro, "steps": steps, "capacity_factor": cfg.capacity_factor,
+           "remat": cfg.remat, "init_s": init_s, "warmup_step_s": run["warm_s"],
+           "step_s": step_s, "step_ms_mean": mean_s * 1e3, "tokens_per_s": batch * seq / mean_s,
+           "loss_warmup": run["warm_loss"], "losses": losses, "grad_norms": run["norms"],
+           "peak_memory_bytes": run["peak"], "peak_reserved_bytes": run["peak_reserved"],
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "remat_routing_mismatches": bad, "remat_routing_pairs": compared,
+           "routing_by_layer": routing, "reckoning": plan, "profile_step": prof}
+    log(f"  {cfg.name}: {out['n_params']:,} parameters ({depth} of {full.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_experts} experts top {cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}), global batch {batch} x {seq}, n_micro {n_micro}, remat; init "
+        f"{init_s:.2f}s, warm-up step {run['warm_s']:.2f}s (loss {run['warm_loss']:.4f})")
+    log(f"  steps: {', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, mean {mean_s * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s; loss {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"peak memory {run['peak'] / 2 ** 30:.2f} GiB allocated, "
+        f"{run['peak_reserved'] / 2 ** 30:.2f} reserved; launches {launches}")
+    for layer, r in routing.items():
+        log(f"  routing layer {layer} (every microbatch of every step, the forward's): capacity "
+            f"{r['capacity']} a microbatch; {r['dropped_pairs']} (token, expert) pairs and "
+            f"{r['dropped_tokens']} of {r['tokens']} tokens dropped; load min/max "
+            f"{min(r['load'])}/{max(r['load'])}: {r['load']}")
+    log(f"  remat: the recompute routed as its forward on all {compared} (token, choice) pairs")
+    log(f"  profile one step: wall {prof['wall_ms']:.1f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.1f} ms ({prof['kernels']} kernels), idle share "
+        f"{prof['idle_share']:.3f}; by kind {prof['by_kind']}; top {prof['top']}")
+    del tr, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["twin_f32"] = moe_twin(fops, arch, dev, seq)
+    return out
+
+
+ENCDEC = "seamless_m4t_medium"
+
+
+def phase_encdec_train(fops, cops, other_ops, steps: int = 4, batch: int = 8, seq: int = 2048,
+                       n_micro: int = 8, dev="cuda"):
+    """Phase 18: seamless-M4T-medium trained at full width and depth through
+    ``launch/train.py``'s ``build``: each row ``seq``/2 frames and
+    ``seq``/2 tokens (module docstring)."""
+    from repro_torch import configs
+    from repro_torch.launch import train as T
+    from repro_torch.tree import leaves
+
+    full = configs.get(ENCDEC)
+    plan = reckon("phase 18", full, full.n_layers, train=True, compress=True)
+    args = T.parser().parse_args(["--arch", ENCDEC, "--full", "--steps", str(steps + 1),
+                                  "--batch", str(batch), "--seq", str(seq), "--n-micro",
+                                  str(n_micro), "--compress-grads", "8", "--ckpt-every", "0",
+                                  "--device", dev])
+    t0 = time.perf_counter()
+    tr = T.build(args)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg, comp = tr.model.cfg, tr.compressor
+    sizes = [p.numel() for p in leaves(tr.params)]
+    n_sk = sum(n >= 4 * comp.ratio for n in sizes)
+    if max(sizes) > 2 ** 31 - 1:
+        raise AssertionError(f"encdec train: a leaf of {max(sizes)} elements passes the "
+                             f"count_sketch kernel's limit")
+    run = run_steps(tr, n_micro, steps, (fops, cops, *other_ops), lambda: (
+        {"flash_attention": fops.launches, "flash_attention_noncausal": fops.noncausal_launches,
+         "count_sketch": cops.launches, "count_sketch_unsketch": cops.unsketch_launches},
+        {o.__name__: o.launches for o in other_ops}), dev, True, TRAIN_KERNELS,
+        ("attention_bwd",))
+    launches, others = run["counts"]
+    losses, step_s, prof = run["losses"], run["step_s"], run["prof"]
+    per_fwd = cfg.enc_layers + 2 * cfg.n_layers            # encoder, self- and cross-attention
+    want = {"flash_attention": 2 * per_fwd * n_micro * steps,
+            "flash_attention_noncausal": 2 * (cfg.enc_layers + cfg.n_layers) * n_micro * steps,
+            "count_sketch": n_sk * steps, "count_sketch_unsketch": n_sk * steps}
+    if not all(math.isfinite(x) for x in losses + [run["warm_loss"]]):
+        raise AssertionError(f"encdec train: a loss is not finite: {run['warm_loss']}, {losses}")
+    if launches != want or any(others.values()):
+        raise AssertionError(f"encdec train: launches {launches}, expected {want}; off the path "
+                             f"{others}")
+    mean_s = sum(step_s) / len(step_s)
+    out = {"arch": cfg.name, "n_params": sum(sizes), "layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "batch": batch, "frames": seq // 2,
+           "tokens": seq // 2, "n_micro": n_micro, "steps": steps, "compress_ratio": comp.ratio,
+           "remat": cfg.remat, "init_s": init_s, "warmup_step_s": run["warm_s"],
+           "step_s": step_s, "step_ms_mean": mean_s * 1e3, "tokens_per_s": batch * seq / mean_s,
+           "loss_warmup": run["warm_loss"], "losses": losses, "grad_norms": run["norms"],
+           "compressor_ms": run["comp_ms"], "peak_memory_bytes": run["peak"],
+           "peak_reserved_bytes": run["peak_reserved"], "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "sketched_leaves": n_sk, "largest_leaf": max(sizes), "reckoning": plan,
+           "profile_step": prof}
+    log(f"  {cfg.name}: {sum(sizes):,} parameters ({cfg.enc_layers} encoder and {cfg.n_layers} "
+        f"decoder layers, d {cfg.d_model}), global batch {batch} x ({seq // 2} frames + "
+        f"{seq // 2} tokens), n_micro {n_micro}, remat, compression {comp.ratio}; init "
+        f"{init_s:.2f}s, warm-up step {run['warm_s']:.2f}s (loss {run['warm_loss']:.4f})")
+    log(f"  steps: {', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, mean {mean_s * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} positions/s; loss {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  compressor {', '.join(f'{x:.2f}' for x in run['comp_ms'])} ms a step (CUDA events); "
+        f"peak memory {run['peak'] / 2 ** 30:.2f} GiB allocated, "
+        f"{run['peak_reserved'] / 2 ** 30:.2f} reserved; launches {launches} "
+        f"({out['launches_per_step']} a step); {n_sk} leaves sketched, the largest "
+        f"{max(sizes):,} elements")
+    log(f"  profile one step: wall {prof['wall_ms']:.1f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.1f} ms ({prof['kernels']} kernels), idle share "
+        f"{prof['idle_share']:.3f}; by kind {prof['by_kind']}; top {prof['top']}")
+    del tr, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, n_micro_twin = 2, 2
+    twin_sk = 25                      # every leaf of the stacked 2 + 2-layer model is sketched
+    out["twin_f32"] = train_twin(
+        ENCDEC, (fops, "flash_attention_gqa", plain_attention),
+        ((fops, "launches"), (fops, "noncausal_launches"), (cops, "launches")),
+        (2 * 3 * layers * n_micro_twin, 2 * 2 * layers * n_micro_twin, twin_sk), dev,
+        n_layers=layers, n_micro=n_micro_twin, enc_layers=layers)
+    return out
+
+
+def serve_depth(arch: str, batch: int, prompt: int) -> tuple:
+    """The depth phase 19 serves ``arch`` at: the config's, unless its
+    reckoned weights and 8 GiB for the prefill, the cache and the gates
+    pass the card's memory, then the most layers that fit.  Returns (the
+    config, the reckoning)."""
+    from repro_torch import configs
+
+    full = configs.get(arch)
+    plan = reckon("phase 19", full, full.n_layers, train=False)
+    room = plan["card_bytes"] - 8 * 2 ** 30
+    if plan["weights_bytes"] <= room:
+        return full, plan
+    per_layer = (param_count(full.replace(n_layers=2))[0]
+                 - param_count(full.replace(n_layers=1))[0]) * 2
+    depth = int((room - (plan["weights_bytes"] - full.n_layers * per_layer)) // per_layer)
+    cut = full.replace(n_layers=depth)
+    log(f"  phase 19: the card cannot hold {full.n_layers} layers; cut to {depth}")
+    return cut, reckon("phase 19", cut, full.n_layers, train=False)
+
+
 # ----------------------------------------------------------------- phase 12 --
 # (arch, batch, layers on the card: None keeps the config's depth)
 DENSE_SERVE = (("granite_3_8b", 8, None), ("qwen2_5_32b", 1, None), ("llama3_405b", 1, 8))
@@ -3569,6 +4014,45 @@ def main() -> int:
                                   oracle=flash_attention.attention_limit,
                                   twin_cfg=cfg.replace(dtype="float32", n_layers=2),
                                   annotated=("moe_experts",), inspect=moe_routing))
+    moe_train = []
+    for arch in MOE_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()                        # the card holds nothing else
+        cfg = configs.get(arch)
+        log(f"phase 16: {cfg.name} training at full width, 1 layer (cut from {cfg.n_layers}): "
+            f"global batch 8 x 2048, n_micro 8, remat, AdamW, no compression, 4 steps after a "
+            f"warm-up step, capacity factor {cfg.capacity_factor}")
+        moe_train.append(phase_moe_train(fops, (ops, pops, wops, cops), arch))
+    gc.collect()
+    torch.cuda.empty_cache()                            # the card holds nothing else
+    ecfg = configs.get(ENCDEC)
+    log(f"phase 17: {ecfg.name} serving at full width and depth ({ecfg.enc_layers} encoder and "
+        f"{ecfg.n_layers} decoder layers): prefill 8 x (1024 frames + 1024 tokens) with cache "
+        f"room for 64 decode tokens, decode 64 tokens")
+    reckon("phase 17", ecfg, ecfg.n_layers, train=False)
+    encdec_serve = phase_lm(
+        fops, (ops, pops, wops, cops), ecfg, attn_plain, batch=8, prompt=1024,
+        max_len=1024 + 64, check_last=True, profile=args.profile,
+        oracle=flash_attention.attention_limit,
+        twin_cfg=ecfg.replace(dtype="float32", n_layers=2, enc_layers=2), stub=1024,
+        want_launches={"launches": ecfg.enc_layers + 2 * ecfg.n_layers,
+                       "noncausal_launches": ecfg.enc_layers + ecfg.n_layers})
+    gc.collect()
+    torch.cuda.empty_cache()
+    host["phase 18"] = host_state("phase 18")
+    log(f"phase 18: {ecfg.name} training at full width and depth: global batch 8 x (1024 frames "
+        f"+ 1024 tokens), n_micro 8, count-sketch compression 8, 4 steps after a warm-up step")
+    encdec_train = phase_encdec_train(fops, cops, (ops, pops, wops))
+    gc.collect()
+    torch.cuda.empty_cache()                            # the card holds nothing else
+    lcfg, lplan = serve_depth("llava_next_34b", 1, 2048)
+    log(f"phase 19: {lcfg.name} serving at full width, {lcfg.n_layers} layers: prefill 1 x "
+        f"(1024 patch embeddings + 1024 tokens) with cache room for 64 decode tokens, decode 64 "
+        f"tokens")
+    llava = phase_lm(fops, (ops, pops, wops, cops), lcfg, attn_plain, batch=1, prompt=1024,
+                     max_len=1024 + 64, check_last=True, oracle=flash_attention.attention_limit,
+                     twin_cfg=lcfg.replace(dtype="float32", n_layers=2), stub=1024)
+    llava["reckoning"] = lplan
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -3654,7 +4138,19 @@ def main() -> int:
                              **{f"serve_{d['arch']}_prefill": d["launches_prefill"]
                                 for d in moe_serve},
                              **{f"serve_{d['arch']}_decode": d["launches_decode"]
-                                for d in moe_serve}},
+                                for d in moe_serve},
+                             **{f"lm_train_{d['arch']}_4_steps": d["launches"]["flash_attention"]
+                                for d in moe_train},
+                             "serve_seamless_prefill": encdec_serve["launches_prefill"],
+                             "serve_seamless_prefill_noncausal":
+                                 encdec_serve["counts_prefill"]["noncausal_launches"],
+                             "serve_seamless_decode": encdec_serve["launches_decode"],
+                             "lm_train_seamless_4_steps":
+                                 encdec_train["launches"]["flash_attention"],
+                             "lm_train_seamless_4_steps_noncausal":
+                                 encdec_train["launches"]["flash_attention_noncausal"],
+                             "serve_llava_prefill": llava["launches_prefill"],
+                             "serve_llava_decode": llava["launches_decode"]},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -3673,7 +4169,10 @@ def main() -> int:
                                  rwkv_train["launches"]["count_sketch_unsketch"],
                              "hymba_train_4_steps": hymba_train["launches"]["count_sketch"],
                              "hymba_train_4_steps_unsketch":
-                                 hymba_train["launches"]["count_sketch_unsketch"]},
+                                 hymba_train["launches"]["count_sketch_unsketch"],
+                             "seamless_train_4_steps": encdec_train["launches"]["count_sketch"],
+                             "seamless_train_4_steps_unsketch":
+                                 encdec_train["launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
@@ -3681,7 +4180,9 @@ def main() -> int:
                     "retrain": retrain, "phase8_s": phase8_s, "operate": operate,
                     "data_parallel": dp, "bridge": bridge, "lm_rwkv_train": rwkv_train,
                     "dense_serve": dense_serve, "hymba_serve": hymba,
-                    "hymba_train": hymba_train, "moe_serve": moe_serve, "host_state": host}))
+                    "hymba_train": hymba_train, "moe_serve": moe_serve, "moe_train": moe_train,
+                    "encdec_serve": encdec_serve, "encdec_train": encdec_train,
+                    "llava_serve": llava, "host_state": host}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

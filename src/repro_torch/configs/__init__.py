@@ -6,8 +6,8 @@ from the reference's ``configs/``.  ``get(name)`` returns the module's
 ``CONFIG``, ``get_smoke(name)`` its ``SMOKE``, whatever their type, as
 the reference's do: a ``ModelConfig`` for an LM, the paper's own
 ``BoostConfig`` for ``paper_rbrt``.  Both take the module name or its
-external id (``ALIASES``).  ``PORTED`` lists the configs ported so far;
-any other raises.
+external id (``ALIASES``).  ``PORTED`` lists the configs, every one of
+the reference's; any other name raises.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import importlib
 from typing import Any
 
 PORTED = ("rwkv6_1_6b", "tinyllama_1_1b", "granite_3_8b", "qwen2_5_32b", "llama3_405b",
-          "paper_rbrt", "hymba_1_5b", "dbrx_132b", "llama4_scout_17b_a16e")
+          "paper_rbrt", "hymba_1_5b", "dbrx_132b", "llama4_scout_17b_a16e",
+          "seamless_m4t_medium", "llava_next_34b")
 
 # canonical external ids → module names
 ALIASES = {
@@ -35,8 +36,7 @@ ALIASES = {
 def _module(name: str):
     mod = ALIASES.get(name, name)
     if mod not in PORTED:
-        raise NotImplementedError(f"architecture {name!r} is not ported yet; the port has "
-                                  f"{list(PORTED)} (ROADMAP §1 item 7)")
+        raise ValueError(f"unknown architecture {name!r}; the port has {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -1,15 +1,17 @@
 // Causal or non-causal GQA attention forward (flash form), written for Hopper (sm_90a).
 //
-// Inputs q (B, S, N, dh), k and v (B, S, Kh, dh), read in place through
+// Inputs q (B, S, N, dh), k and v (B, Sk, Kh, dh), read in place through
 // their element strides (the last dimension contiguous), all bf16 or all
 // float32; N % Kh == 0 and query head n reads K/V head n / (N / Kh), the
-// grouping of the reference's _block_attn_fwd.  Output (B, S, N·dh) in the
-// input type (strides given too):
+// grouping of the reference's _block_attn_fwd.  Sk = S on a causal call; a
+// non-causal call may take any Sk ≥ 1 (cross-attention: the encoder's
+// output as keys).  Output (B, S, N·dh) in the input type (strides given
+// too):
 //
 //   out[b, i, n] = Σ_j p_ij v[b, j, n / G] / max(Σ_j p_ij, 1e-30),
 //   p_ij = exp(s_ij − m_i),  s_ij = (q_i · k_j) / sqrt(dh),
 //
-// over j ≤ i when causal, every j < S otherwise, by online softmax over
+// over j ≤ i when causal, every j < Sk otherwise, by online softmax over
 // K/V tiles: a running max m, a running sum l and a float32 accumulator,
 // rescaled by exp(m_old − m_new) as each tile arrives.  A causal call may
 // take a sliding window w ≥ 1 (0: none): then only i − w < j ≤ i, the mask
@@ -50,7 +52,12 @@
 //   stages, each with a "full" mbarrier for K, one for V (the TMA completes
 //   their byte counts) and an "empty" one that all 256 consumer threads
 //   arrive on when the tile's products are done.  TMA writes zeros for rows
-//   past S, so a ragged or short S needs no code.
+//   past S (past Sk in K and V), so a ragged or short length needs no load
+//   code; a zero key still scores 0, so the keys of the last tile past Sk
+//   are masked before the row max (the "edge" mask).  Every row of a
+//   non-causal call sees key 0 in its first tile, so its running max is a
+//   score, never the mask value, even where Sk < 128 and that tile is the
+//   last.
 // - Warpgroups 1 and 2 are the consumers (setmaxnreg raises theirs to 240),
 //   64 query rows each.  S = Q·Kᵀ is one wgmma m64n128k16 per 16 columns of
 //   dh, both operands read from shared memory by descriptors; the softmax
@@ -130,18 +137,19 @@ struct Args {
   void* o;
   float* lse;                       // (B, N, S) or null
   Strides sq, sk, sv, so;
-  int S;                            // sequence length (queries and keys)
+  int S;                            // query rows
+  int Sk;                           // key rows (S when causal)
   int G;                            // query heads a K/V head
   float scale;                      // 1 / sqrt(dh)
   int window;                       // causal band width, 0 for none
 };
 
 struct Bf16Args {
-  CUtensorMap tq, tk, tv;           // (dh, heads, S, B) maps of q, k and v
+  CUtensorMap tq, tk, tv;           // (dh, heads, S, B) maps of q, (dh, heads, Sk, B) of k and v
   void* o;
   float* lse;
   Strides so;
-  int B, S, N, G;
+  int B, S, Sk, N, G;
   int window;                       // causal band width, 0 for none
   float scale_log2;                 // log2(e) / sqrt(dh)
 };
@@ -182,8 +190,8 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
   const uint32_t base = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
   const uint32_t k_full = q_empty + 8, v_full = k_full + 8 * kStages, empty = v_full + 8 * kStages;
-  const int S = a.S, N = a.N;
-  const int n_qt = (S + kTile - 1) / kTile;
+  const int S = a.S, Sk = a.Sk, N = a.N;
+  const int n_qt = (S + kTile - 1) / kTile, n_kt = (Sk + kTile - 1) / kTile;
   // Work tile w (this block takes w = blockIdx.x, + gridDim.x, ...): query
   // tile n_qt − 1 − w / (B·N), so the longest causal rows go first, of
   // (b, n) = divmod(w % (B·N), N).
@@ -197,7 +205,7 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
   // the K/V tiles a query tile reads: first_tile(qt) .. last_tile(qt)
   const int window = CAUSAL ? a.window : 0;
   auto first_tile = [&](int qt) { return window ? max(0, qt * kTile - window + 1) / kTile : 0; };
-  auto last_tile = [&](int qt) { return CAUSAL ? qt : n_qt - 1; };
+  auto last_tile = [&](int qt) { return CAUSAL ? qt : n_kt - 1; };
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -297,7 +305,7 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
     };
     // Online softmax of K/V tile j's scores, in place: x becomes
     // p = 2^(x·c − m·c) with c = log2(e)/√dh folded into one FFMA; corr is
-    // exp(m_old − m_new).  edge: mask keys past the row (or past S); low:
+    // exp(m_old − m_new).  edge: mask keys past the row (or past Sk); low:
     // mask keys below the row's band; first: the tile opens the row's
     // state, and only a band's first tile can hold none of a row's keys.
     auto softmax = [&](int j, int row0, bool edge, bool low, bool first) {
@@ -305,12 +313,13 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
       for (int i = 0; i < 64; ++i) sm90::fence_operand(x[i]);
       const int kv0 = j * kTile;
       if (edge) {
-        // key kv0 + 2t + (8(i / 4) + i % 2) is valid up to min(S − 1, row):
-        // one compare of the constant against a per-row bound
+        // key kv0 + 2t + (8(i / 4) + i % 2) is valid up to min(Sk − 1, row)
+        // (Sk − 1 when not causal): one compare of the constant against a
+        // per-row bound
         int lim[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          lim[r] = (CAUSAL ? min(S - 1, row0 + 8 * r) : S - 1) - kv0 - 2 * t;
+          lim[r] = (CAUSAL ? min(Sk - 1, row0 + 8 * r) : Sk - 1) - kv0 - 2 * t;
 #pragma unroll
         for (int i = 0; i < 64; ++i)
           if (8 * (i / 4) + (i & 1) > lim[(i >> 1) & 1]) x[i] = kMasked;
@@ -368,8 +377,8 @@ flash_attention_bf16_kernel(const __grid_constant__ Bf16Args a) {
       tile_of(w, b, n, qt);
       const int j0 = first_tile(qt), n_tiles = last_tile(qt) - j0 + 1;
       const int row0 = qt * kTile + 64 * c + 16 * warp + g;   // this thread's rows: row0, row0 + 8
-      // masked: the diagonal and a ragged last tile; the band's low edge
-      auto edge = [&](int j) { return (CAUSAL && j == qt) || (j + 1) * kTile > S; };
+      // masked: the diagonal and a ragged last K/V tile; the band's low edge
+      auto edge = [&](int j) { return (CAUSAL && j == qt) || (j + 1) * kTile > Sk; };
       auto low = [&](int j) { return window && j * kTile < qt * kTile + kTile - window; };
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
@@ -469,13 +478,13 @@ flash_attention_f32_kernel(const Args a) {
 
   const int n = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z, q0 = qt * kF32Tile;
-  const int S = a.S, kh = n / a.G;
+  const int S = a.S, Sk = a.Sk, kh = n / a.G;
   const float* Q = static_cast<const float*>(a.q) + b * a.sq.b + n * a.sq.h;
   const float* K = static_cast<const float*>(a.k) + b * a.sk.b + kh * a.sk.h;
   const float* V = static_cast<const float*>(a.v) + b * a.sv.b + kh * a.sv.h;
   const int window = CAUSAL ? a.window : 0;
   const int j0 = window ? max(0, q0 - window + 1) / kF32Tile : 0;   // the band's first tile
-  const int j1 = CAUSAL ? qt : (S + kF32Tile - 1) / kF32Tile - 1;
+  const int j1 = CAUSAL ? qt : (Sk + kF32Tile - 1) / kF32Tile - 1;
 
   // rows 4ty .. 4ty + 3; score columns tx + 8c (c < 8); output columns tx + 8c (c < NC)
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
@@ -492,8 +501,8 @@ flash_attention_f32_kernel(const Args a) {
 
   for (int j = j0; j <= j1; ++j) {
     const int kv0 = j * kF32Tile;
-    load_tile<float, DH, kF32Tile, LD>(sK, K, a.sk.s, kv0, S);
-    load_tile<float, DH, kF32Tile, LD>(sV, V, a.sv.s, kv0, S);
+    load_tile<float, DH, kF32Tile, LD>(sK, K, a.sk.s, kv0, Sk);
+    load_tile<float, DH, kF32Tile, LD>(sV, V, a.sv.s, kv0, Sk);
     cp_commit();
     cp_wait<0>();
     __syncthreads();
@@ -522,7 +531,7 @@ flash_attention_f32_kernel(const Args a) {
           s[i][c] = acc;
         }
     }
-    const bool edge = (CAUSAL && j == qt) || kv0 + kF32Tile > S ||
+    const bool edge = (CAUSAL && j == qt) || kv0 + kF32Tile > Sk ||
                       (window && kv0 < q0 + kF32Tile - window);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -534,7 +543,7 @@ flash_attention_f32_kernel(const Args a) {
         float x = s[i][c] * a.scale;
         if (edge) {
           const int key = kv0 + tx + 8 * c;
-          if (key >= S || (CAUSAL && key > row) || key < low) x = kMasked;
+          if (key >= Sk || (CAUSAL && key > row) || key < low) x = kMasked;
         }
         s[i][c] = x;
         mx = fmaxf(mx, x);
@@ -624,14 +633,15 @@ int launch_bf16(const Args& a, long long B, long long S, long long N, long long 
   using L = Bf16Layout<DH>;
   Bf16Args h;
   int err = bf16_map<DH>(&h.tq, a.q, a.sq, B, S, N);
-  if (!err) err = bf16_map<DH>(&h.tk, a.k, a.sk, B, S, Kh);
-  if (!err) err = bf16_map<DH>(&h.tv, a.v, a.sv, B, S, Kh);
+  if (!err) err = bf16_map<DH>(&h.tk, a.k, a.sk, B, a.Sk, Kh);
+  if (!err) err = bf16_map<DH>(&h.tv, a.v, a.sv, B, a.Sk, Kh);
   if (err) return err;
   h.o = a.o;
   h.lse = a.lse;
   h.so = a.so;
   h.B = (int)B;
   h.S = a.S;
+  h.Sk = a.Sk;
   h.N = (int)N;
   h.G = a.G;
   h.window = a.window;
@@ -692,20 +702,24 @@ int dispatch(const Args& a, bool is_bf16, bool causal, long long B, long long S,
 
 extern "C" {
 
-// Returns 0 or the cudaError_t of the launch.  strides: 12 element strides,
+// Returns 0 or the cudaError_t of the launch.  q is (B, S, N, dh), k and v
+// (B, Sk, Kh, dh), out (B, S, N·dh).  strides: 12 element strides,
 // (batch, sequence, head) of q, k, v and out in that order, each of a
 // dimension longer than 1 a positive multiple of 16 bytes; every base pointer
 // is 16-byte aligned; the last dimension is contiguous.  lse: null, or a contiguous
 // float32 (B, N, S) for each row's log-sum-exp.  The caller checks shapes: dh
-// in {16, 32, 64, 128}, N % Kh == 0, B and ceil(S / tile) at most 65,535, the
-// tile 128 rows in bf16 and 64 in float32.  window: 0, or the causal band
-// width w ≥ 1 (a window on a non-causal call is refused).
+// in {16, 32, 64, 128}, N % Kh == 0, B, ceil(S / tile) and ceil(Sk / tile) at
+// most 65,535, the tile 128 rows in bf16 and 64 in float32.  Sk = S on a causal
+// call.  window: 0, or the causal band width w ≥ 1 (a window on a non-causal
+// call is refused).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                        int is_bf16, long long B, long long S, long long N, long long Kh, int dh,
-                        int causal, int window, const long long* strides, void* stream) {
+                        int is_bf16, long long B, long long S, long long Sk, long long N,
+                        long long Kh, int dh, int causal, int window, const long long* strides,
+                        void* stream) {
   const long long tile = is_bf16 ? kTile : kF32Tile;
-  if (B <= 0 || S <= 0 || N <= 0 || Kh <= 0 || N % Kh != 0 || B > 65535 || N > 0x7fffffffLL ||
-      (S + tile - 1) / tile > 65535 || window < 0 || (window && !causal))
+  if (B <= 0 || S <= 0 || Sk <= 0 || N <= 0 || Kh <= 0 || N % Kh != 0 || B > 65535 ||
+      N > 0x7fffffffLL || (S + tile - 1) / tile > 65535 || (Sk + tile - 1) / tile > 65535 ||
+      (causal && Sk != S) || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -718,6 +732,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
   a.sv = {strides[6], strides[7], strides[8]};
   a.so = {strides[9], strides[10], strides[11]};
   a.S = (int)S;
+  a.Sk = (int)Sk;
   a.G = (int)(N / Kh);
   a.scale = (float)(1.0 / sqrt((double)dh));
   a.window = window;

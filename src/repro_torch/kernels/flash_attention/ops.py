@@ -1,10 +1,14 @@
 """Wrapper of the flash_attention kernel (``csrc/flash_attention.cu``).
 
-:func:`flash_attention_gqa` takes q (B, S, N, dh) and k, v (B, S, Kh, dh)
+:func:`flash_attention_gqa` takes q (B, S, N, dh) and k, v (B, Sk, Kh, dh)
 and returns softmax(q·kᵀ/√dh)·v as (B, S, N·dh) in q's dtype, causal or
 not, query head n reading K/V head n // (N // Kh); the reference's
 ``kernels/flash_attention/ops.flash_attention_gqa`` has the same call,
-without its repeat of K/V.  A causal call may take a sliding ``window``
+without its repeat of K/V.  A non-causal call may take Sk ≠ S (the
+cross-attention of an encoder–decoder: every query sees every key, the
+reference model's ``attention(..., kv=...)``); a causal call takes Sk =
+S and raises otherwise, as the reference bands only self-attention.  A
+causal call may take a sliding ``window``
 w ≥ 1: query i then sees the w keys (i − w, i], as the reference's
 ``models/layers._attn_mask`` masks them; None or w ≥ 2²⁹
 (``ref.GLOBAL_WINDOW``, the reference's test in ``models/lm.py``) is full
@@ -18,8 +22,8 @@ is 0 or off 16 bytes: the bf16 kernel's TMA tensor maps take none of
 these).  CPU tensors go to the plain version in ``ref.py``.  Any other
 device raises, as do dtypes other than float32 and bfloat16, operands of
 two dtypes or devices, shapes that do not match, dh outside (16, 32, 64,
-128), N not a multiple of Kh, and B or the query-tile count ⌈S / tile⌉
-above 65,535, the tile 128 rows in bf16 and 64 in float32
+128), N not a multiple of Kh, and B or a tile count ⌈S / tile⌉ or ⌈Sk /
+tile⌉ above 65,535, the tile 128 rows in bf16 and 64 in float32
 (``ref.KERNEL_TILE``; on the CPU too, so a shape that runs here runs on
 the card).
 
@@ -33,9 +37,10 @@ the layer's window and whose backward is the plain
 backward kernel either: its custom VJP is plain jnp).
 
 ``launches`` counts kernel launches since the last
-:func:`reset_launches`, and ``windowed_launches`` those of them made with
-a window; a run reads them to show that its attention went through the
-kernel.
+:func:`reset_launches`, ``windowed_launches`` those of them made with a
+window and ``noncausal_launches`` those made without causality (an
+encoder's self-attention, a cross-attention); a run reads them to show
+that its attention went through the kernel.
 """
 from __future__ import annotations
 
@@ -55,12 +60,13 @@ GRID_MAX = 65535                   # B and the query-tile count are grid dimensi
 
 launches = 0
 windowed_launches = 0              # those of ``launches`` made with a window
+noncausal_launches = 0             # ... and those made without causality
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    global launches, windowed_launches
-    launches = windowed_launches = 0
+    global launches, windowed_launches, noncausal_launches
+    launches = windowed_launches = noncausal_launches = 0
 
 
 def build(verbose: bool = False) -> Tuple[Path, str]:
@@ -74,7 +80,7 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("flash_attention")
         lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 5
             + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_bf16_smem_bytes.argtypes = [ctypes.c_int]
@@ -90,7 +96,7 @@ def bf16_smem_bytes(dh: int) -> int:
     return _load().flash_attention_bf16_smem_bytes(dh)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> None:
     for name, x in (("k", k), ("v", v)):
         if x.dtype != q.dtype:
             raise TypeError(f"flash_attention takes operands of one dtype, got q {q.dtype} "
@@ -100,19 +106,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention takes q (B, S, N, dh) and k, v (B, S, Kh, dh), got "
+        raise ValueError("flash_attention takes q (B, S, N, dh) and k, v (B, Sk, Kh, dh), got "
                          f"{[tuple(x.shape) for x in (q, k, v)]}")
     B, S, N, dh = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != dh:
+    Sk = k.shape[1]
+    if k.shape[0] != B or k.shape[3] != dh or (Sk == 0 and S > 0):
         raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if causal and Sk != S:
+        raise ValueError(f"flash_attention: a causal call takes as many keys as queries, got "
+                         f"S = {S} and Sk = {Sk}")
     Kh = k.shape[2]
     if dh not in HEAD_DIMS or Kh == 0 or N % Kh:
         raise ValueError(f"flash_attention takes dh in {HEAD_DIMS} and N a multiple of Kh, "
                          f"got dh = {dh}, N = {N}, Kh = {Kh}")
     tile = KERNEL_TILE[q.dtype]
-    if B > GRID_MAX or -(-S // tile) > GRID_MAX:
-        raise ValueError(f"flash_attention takes B and ceil(S / {tile}) up to {GRID_MAX} in "
-                         f"{q.dtype}, got B = {B}, S = {S}")
+    if B > GRID_MAX or -(-S // tile) > GRID_MAX or -(-Sk // tile) > GRID_MAX:
+        raise ValueError(f"flash_attention takes B, ceil(S / {tile}) and ceil(Sk / {tile}) up "
+                         f"to {GRID_MAX} in {q.dtype}, got B = {B}, S = {S}, Sk = {Sk}")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +135,12 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
                     for s, n in zip(x.stride()[:3], x.shape[:3]))):
         return x
     return x.contiguous()
+
+
+def _positions(B: int, S: int, Sk: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The query positions 0..S−1 and the key positions 0..Sk−1, (B, ·) int32."""
+    pos = lambda n: torch.arange(n, dtype=torch.int32, device=device).expand(B, n)
+    return pos(S), pos(Sk)
 
 
 def band(window: Optional[int], causal: bool) -> Optional[int]:
@@ -142,18 +158,19 @@ def band(window: Optional[int], causal: bool) -> Optional[int]:
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, return_lse: bool = False,
                         window: Optional[int] = None):
-    """softmax(q·kᵀ/√dh)·v of q (B, S, N, dh) and k, v (B, S, Kh, dh),
+    """softmax(q·kᵀ/√dh)·v of q (B, S, N, dh) and k, v (B, Sk, Kh, dh),
     as (B, S, N·dh) in q's dtype, each query over the keys its causal
-    mask and ``window`` leave it; with ``return_lse``, (out, lse (B, N, S)
-    float32)."""
-    _check(q, k, v)
+    mask and ``window`` leave it (Sk = S when causal); with
+    ``return_lse``, (out, lse (B, N, S) float32)."""
+    _check(q, k, v, causal)
     window = band(window, causal)
     B, S, N, dh = q.shape
+    Sk = k.shape[1]
     if q.device.type == "cpu":
         if not return_lse:
             return flash_attention_ref(q, k, v, causal, window)
-        pos = torch.arange(S, dtype=torch.int32).expand(B, S)
-        out, lse = block_attn_fwd(q, k, v, pos, pos, causal, window, Q_CHUNK, KV_CHUNK)
+        out, lse = block_attn_fwd(q, k, v, *_positions(B, S, Sk, q.device), causal, window,
+                                  Q_CHUNK, KV_CHUNK)
         return out.to(q.dtype), lse.reshape(B, N, S)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no route for device {q.device}")
@@ -167,15 +184,16 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N,
-            k.shape[2], dh, int(causal), window or 0, (ctypes.c_longlong * 12)(*strides),
+            None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, Sk,
+            N, k.shape[2], dh, int(causal), window or 0, (ctypes.c_longlong * 12)(*strides),
             _build.raw_stream(q.device))
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
-    global launches, windowed_launches
+    global launches, windowed_launches, noncausal_launches
     launches += 1
     windowed_launches += window is not None
+    noncausal_launches += not causal
     return (out, lse) if return_lse else out
 
 
@@ -202,16 +220,17 @@ class _Attention(torch.autograd.Function):
             q, k, v, out, lse = ctx.saved_tensors
             B, S, N, _ = q.shape
             Kh = k.shape[2]
-            pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
             dq, dk, dv = block_attn_bwd(q, k, v, out, lse.reshape(B, Kh, N // Kh, S), dout,
-                                        pos, pos, ctx.causal, ctx.window, ctx.kv_chunk)
+                                        *_positions(B, S, k.shape[1], q.device), ctx.causal,
+                                        ctx.window, ctx.kv_chunk)
         return dq, dk, dv, None, None, None
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     kv_chunk: int = KV_CHUNK, window: Optional[int] = None) -> torch.Tensor:
     """:func:`flash_attention_gqa` with gradients for q, k and v, each query
-    over the keys its causal mask and ``window`` leave it; the backward
+    over the keys its causal mask and ``window`` leave it (k, v may hold
+    Sk ≠ S keys on a non-causal call: cross-attention); the backward
     scans kv blocks of ``kv_chunk`` keys (the model's ``cfg.kv_chunk``, as
     the reference's custom VJP does)."""
     return _Attention.apply(q, k, v, causal, kv_chunk, window)

@@ -17,17 +17,18 @@ lse) and accumulates dq, dk and dv in float32; with a window, each kv
 block meets only the query rows of its band, as the reference's
 static-window branch.
 
-:func:`flash_attention_ref` is the forward at positions 0..S−1, causal
-or not, with an optional window (query i sees keys j ≤ i with i − j < w,
-the w keys (i − w, i]), at the reference's default chunks: the kernel's
-plain version (the wrapper uses it for CPU tensors).
+:func:`flash_attention_ref` is the forward at query positions 0..S−1
+and key positions 0..Sk−1, causal or not, with an optional window (query
+i sees keys j ≤ i with i − j < w, the w keys (i − w, i]), at the
+reference's default chunks: the kernel's plain version (the wrapper uses
+it for CPU tensors).  Sk ≠ S only without causality (cross-attention).
 :func:`attention_dense` is a dense softmax in float64, the comparison
 oracle on the card, and :func:`attention_limit` gives it with the
 tolerance a kernel output is held to; :func:`attention_lse_dense` is the
 float64 oracle of the kernel's log-sum-exp output.  All three take the
 same window.
 
-Layouts: q (B, S, N, dh), k and v (B, S, Kh, dh) with N % Kh == 0; query
+Layouts: q (B, S, N, dh), k and v (B, Sk, Kh, dh) with N % Kh == 0; query
 head n reads K/V head n // (N // Kh).  Outputs are (B, S, N·dh).
 """
 from __future__ import annotations
@@ -170,25 +171,27 @@ def block_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """The kernel's function by :func:`block_attn_fwd` at positions
-    0..S−1, with ``window`` (None: none), in the reference model's default
-    chunks (in bf16 each kv block's P·V is rounded to bf16, so the chunks
-    set the rounding, as in the reference); (B, S, N·dh) in q's dtype."""
-    B, S = q.shape[:2]
-    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
-    out, _ = block_attn_fwd(q, k, v, pos, pos, causal, window, Q_CHUNK, KV_CHUNK)
+    """The kernel's function by :func:`block_attn_fwd` at query positions
+    0..S−1 and key positions 0..Sk−1, with ``window`` (None: none), in the
+    reference model's default chunks (in bf16 each kv block's P·V is
+    rounded to bf16, so the chunks set the rounding, as in the reference);
+    (B, S, N·dh) in q's dtype."""
+    B, S, Sk = q.shape[0], q.shape[1], k.shape[1]
+    pos = lambda n: torch.arange(n, dtype=torch.int32, device=q.device).expand(B, n)
+    out, _ = block_attn_fwd(q, k, v, pos(S), pos(Sk), causal, window, Q_CHUNK, KV_CHUNK)
     return out.to(q.dtype)
 
 
-def _dense_mask(r0: int, rows: int, S: int, causal: bool, window: Optional[int],
+def _dense_mask(r0: int, rows: int, S: int, Sk: int, causal: bool, window: Optional[int],
                 device) -> Optional[torch.Tensor]:
-    """(rows, S) True where query r0 + r must not see key j: j > r0 + r
-    when causal, and r0 + r − j ≥ window; None where nothing is masked."""
+    """(rows, Sk) True where query r0 + r (of S) must not see key j: j >
+    r0 + r when causal, and r0 + r − j ≥ window; None where nothing is
+    masked."""
     if not causal and window is None:
         return None
     qi = torch.arange(r0, min(r0 + rows, S), device=device)[:, None]
-    kj = torch.arange(S, device=device)[None, :]
-    mask = kj > qi if causal else torch.zeros(qi.shape[0], S, dtype=torch.bool, device=device)
+    kj = torch.arange(Sk, device=device)[None, :]
+    mask = kj > qi if causal else torch.zeros(qi.shape[0], Sk, dtype=torch.bool, device=device)
     return mask if window is None else mask | (qi - kj >= window)
 
 
@@ -196,13 +199,13 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """softmax(q·kᵀ/√dh)·v computed densely in float64 (scores of
-    DENSE_ROWS queries of one batch row at a time against every key, K/V
-    heads repeated per group; keys outside the causal mask and the window
-    at −1e30), (B, S, N·dh), and each row's ‖p‖₂ (its probabilities sum to
-    1), (B, S, N)."""
+    DENSE_ROWS queries of one batch row at a time against every one of
+    the Sk keys, K/V heads repeated per group; keys outside the causal
+    mask and the window at −1e30), (B, S, N·dh), and each row's ‖p‖₂ (its
+    probabilities sum to 1), (B, S, N)."""
     rows, dt = DENSE_ROWS, torch.float64
     B, S, N, dh = q.shape
-    G = N // k.shape[2]
+    Sk, G = k.shape[1], N // k.shape[2]
     out = torch.empty(B, S, N * dh, dtype=dt, device=q.device)
     norms = torch.empty(B, S, N, dtype=dt, device=q.device)
     for b in range(B):
@@ -210,8 +213,8 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vd = v[b].to(dt).transpose(0, 1).repeat_interleave(G, dim=0)
         for r0 in range(0, S, rows):
             qd = q[b, r0:r0 + rows].to(dt).transpose(0, 1)                    # (N, R, dh)
-            s = qd @ kd.transpose(1, 2) / math.sqrt(dh)                      # (N, R, S)
-            mask = _dense_mask(r0, rows, S, causal, window, q.device)
+            s = qd @ kd.transpose(1, 2) / math.sqrt(dh)                      # (N, R, Sk)
+            mask = _dense_mask(r0, rows, S, Sk, causal, window, q.device)
             if mask is not None:
                 s = s.masked_fill(mask, -1e30)
             p = torch.softmax(s, -1)
@@ -223,16 +226,17 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_lse_dense(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
     """Each query row's log-sum-exp of its scores q·kᵀ/√dh over the keys it
-    sees, in float64, (B, N, S): the oracle of the kernel's ``lse`` output."""
+    sees (of Sk), in float64, (B, N, S): the oracle of the kernel's ``lse``
+    output."""
     rows, dt = DENSE_ROWS, torch.float64
     B, S, N, dh = q.shape
-    G = N // k.shape[2]
+    Sk, G = k.shape[1], N // k.shape[2]
     out = torch.empty(B, N, S, dtype=dt, device=q.device)
     for b in range(B):
         kd = k[b].to(dt).transpose(0, 1).repeat_interleave(G, dim=0)         # (N, S, dh)
         for r0 in range(0, S, rows):
             s = q[b, r0:r0 + rows].to(dt).transpose(0, 1) @ kd.transpose(1, 2) / math.sqrt(dh)
-            mask = _dense_mask(r0, rows, S, causal, window, q.device)
+            mask = _dense_mask(r0, rows, S, Sk, causal, window, q.device)
             if mask is not None:
                 s = s.masked_fill(mask, -math.inf)
             out[b, :, r0:r0 + rows] = torch.logsumexp(s, -1)
@@ -254,7 +258,8 @@ def attention_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       2⁻⁸ · ‖p‖₂ · V.  So a row that averages many keys (‖p‖₂ ≈ 1/√keys)
       is held as tightly as its own small output, not to 2⁻⁷ · V.
 
-    A window leaves both bounds as they are: p and ‖p‖₂ are the band's.
+    A window leaves both bounds as they are: p and ‖p‖₂ are the band's; so
+    do Sk ≠ S keys (cross-attention): p and ‖p‖₂ are over them.
 
     Returns (oracle (B, S, N·dh), limit broadcastable to it), float64."""
     vmax = float(v.abs().max())

@@ -6,11 +6,18 @@ configs such as ``tinyllama_1_1b``, whose prefill attention runs the
 flash_attention kernel; ``hymba_1_5b``, whose windowed and global
 attentions run that kernel beside the SSM branch; and the MoE configs
 ``dbrx_132b`` and ``llama4_scout_17b_a16e``, whose FFN is the routed
-experts at capacity factor 4.0).  Weights are random,
+experts at capacity factor 4.0; the encoder–decoder
+``seamless_m4t_medium``, whose encoder self-attention and decoder
+cross-attention run the kernel non-causal; and ``llava_next_34b``, a
+dense model after a patch front end).  Weights are random,
 drawn from ``--seed``; prompts are token ids from numpy's
-``default_rng(seed)``.  The prefill gives the KV cache room for the
-prompt and every decode token (``max_len`` = prompt + decode tokens; a
-model with meta tokens adds their positions itself).  PyTorch
+``default_rng(seed)``, and a front end's stub is the reference's: half of
+``--prompt-len`` is ``patches`` before the other half's tokens, or
+``src_frames`` for the encoder beside half as many tokens, (B, L/2, D)
+N(0, 0.02²) from the same rng.  The prefill gives the KV cache room for
+the prompt's tokens and every decode token (``max_len`` = tokens +
+decode tokens; a model with meta tokens or patches adds their positions
+itself).  PyTorch
 compiles nothing ahead of a call, so the times printed are of the steady
 state: each of prefill and decode runs once untimed first (building the
 CUDA kernel on its first call).  Without ``--full`` the arch's reduced
@@ -26,6 +33,8 @@ CUDA kernel on its first call).  Without ``--full`` the arch's reduced
         --batch 8 --prompt-len 2048 --decode-tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4_scout_17b_a16e --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless_m4t_medium --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava_next_34b --device cpu
 """
 from __future__ import annotations
 
@@ -62,7 +71,17 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
     batch = {"tokens": tokens.to(model.device)}
-    max_len = args.prompt_len + args.decode_tokens
+    half = args.prompt_len // 2
+    stub = lambda: torch.from_numpy(
+        (rng.standard_normal((args.batch, half, cfg.d_model)) * 0.02).astype(np.float32)
+    ).to(model.device)
+    if cfg.frontend == "patches":
+        batch["patches"] = stub()
+        batch["tokens"] = batch["tokens"][:, :args.prompt_len - half]
+    if cfg.kind == "encdec":
+        batch["src_frames"] = stub()
+        batch["tokens"] = batch["tokens"][:, :half]
+    max_len = batch["tokens"].shape[1] + args.decode_tokens
 
     def decode(logits, cache, n):
         toks = torch.argmax(logits, -1)

@@ -4,8 +4,8 @@ optional count-sketch gradient compression, global-norm clip and AdamW
 ``batch_specs`` belong to the dry run, which is not ported yet).
 
 Parameters and optimizer state are in the reference's stacked layout
-(``models.stack_layers``): one tensor per reference leaf, the layers
-stacked.  A step takes per-layer views of them for the model
+(``models.stack_layers``): one tensor per reference leaf, the layers (and
+an encoder's layers) stacked.  A step takes per-layer views of them for the model
 (``models.layer_views``), takes each microbatch's gradients with
 ``torch.autograd.grad`` (PyTorch would sum ``.grad`` in the parameters'
 bf16) and adds them to float32 accumulators of the stacked layout, one
@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..models.lm import layer_views
+from ..models.lm import STACKS, layer_views
 from ..optim import adamw
 from ..tree import leaves, map_tree, paths, unflatten
 
@@ -55,14 +55,14 @@ def split_micro(batch: Dict[str, Any], n_micro: int) -> List[Dict[str, Any]]:
 def _slots(params) -> List[Tuple[int, Optional[int]]]:
     """For each leaf of ``layer_views(params)``, in ``leaves`` order, the
     index of the stacked leaf it is a view of and its layer (None for a
-    leaf outside the layers)."""
+    leaf outside the layers and the encoder's layers)."""
     index = {name: i for i, name in enumerate(paths(params))}
     out = []
     for name in paths(layer_views(params)):
         head, _, rest = name.partition(".")
-        if head == "layers":
+        if head in STACKS:
             layer, _, leaf = rest.partition(".")
-            out.append((index[f"layers.{leaf}"], int(layer)))
+            out.append((index[f"{head}.{leaf}"], int(layer)))
         else:
             out.append((index[name], None))
     return out

@@ -7,10 +7,15 @@ no mesh.  Weights are random from a seed; the data is the reference's
 synthetic token stream (``data/``), batch for batch the same ids; a
 caller may put a ``TokenPipeline`` with ``example_weights`` in
 ``Trainer.pipe`` (the step reads a batch's tokens and ignores its
-``doc_ids``).  On the card every training attention of a dense or hybrid
-(Hymba) model runs the flash_attention kernel with the layer's window (its
-forward, twice a block with remat; its backward is the plain blockwise
-VJP over the window's band), every WKV of an RWKV-6 model the
+``doc_ids``).  A front end's batch adds the reference's stubs
+(:func:`make_batch_for`): LLaVA-NeXT's ``patches``, (B, S/2, D) float32
+N(0, 0.02²) from the batch's own rng, the tokens cut to S − S/2; an
+encoder–decoder's ``src_frames`` of the same form, the tokens cut to S/2.
+On the card every training attention of a dense, hybrid (Hymba), MoE or
+encoder–decoder model runs the flash_attention kernel with the layer's
+window (its forward, twice a block with remat; its backward is the plain
+blockwise VJP over the window's band; non-causal in an encoder and in a
+cross-attention), every WKV of an RWKV-6 model the
 rwkv6_chunk kernel (twice a block with remat) and its gradient the
 backward kernel, and every compressed gradient leaf
 the count_sketch kernel.  Without ``--full`` the arch's reduced (smoke)
@@ -29,6 +34,9 @@ from the newest checkpoint.
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1_6b --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1_5b --device cpu --steps 3 \\
         --seq 72 --compress-grads 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx_132b --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch seamless_m4t_medium --device cpu \\
+        --steps 3 --compress-grads 8
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 5 --batch 8 --seq 2048 \\
         --n-micro 8 --compress-grads 8 --ckpt-every 0
 """
@@ -36,17 +44,20 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import tempfile
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data import TokenPipeline
+from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model, stack_layers
 from repro_torch.optim import CountSketchCompressor, adamw
@@ -99,10 +110,27 @@ class Trainer:
         return metrics
 
 
+def make_batch_for(cfg, gen: SyntheticLM, rng, B: int, S: int) -> Dict[str, Any]:
+    """One batch of the reference's ``launch/train.py``: B × S token ids
+    of ``gen``, and for a front end its stub, (B, S/2, D) float32 from
+    ``rng`` (``patches`` before S − S/2 tokens, or an encoder's
+    ``src_frames`` beside S/2 tokens)."""
+    b = {"tokens": gen.batch(rng, B, S)}
+    if cfg.frontend == "patches":
+        b["patches"] = rng.standard_normal((B, S // 2, cfg.d_model)).astype(np.float32) * 0.02
+        b["tokens"] = b["tokens"][:, : S - S // 2]
+    if cfg.kind == "encdec":
+        b["src_frames"] = rng.standard_normal((B, S // 2, cfg.d_model)).astype(np.float32) * 0.02
+        b["tokens"] = b["tokens"][:, : S // 2]
+    return b
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--full", action="store_true", help="the full published config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (its width kept)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -122,14 +150,19 @@ def build(args) -> Trainer:
     """The run that ``args`` describes, before its first step (the
     pipeline's thread is running: ``trainer.pipe.stop()`` ends it)."""
     cfg = (configs.get if args.full else configs.get_smoke)(args.arch)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     model = Model(cfg, device=args.device)
     ocfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
     compressor = (CountSketchCompressor(ratio=args.compress_grads)
                   if args.compress_grads else None)
     params = stack_layers(model.init(torch.Generator(device=model.device).manual_seed(0)))
+    stub = cfg.frontend is not None or cfg.kind == "encdec"
+    pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=1, make_batch=functools.partial(
+        make_batch_for, cfg, SyntheticLM(cfg.vocab, seed=1)) if stub else None)
     return Trainer(model, ocfg, params, adamw.init(ocfg, params),
                    make_train_step(model, ocfg, args.n_micro, compressor=compressor),
-                   compressor, TokenPipeline(cfg.vocab, args.batch, args.seq, seed=1))
+                   compressor, pipe)
 
 
 def main(argv=None):

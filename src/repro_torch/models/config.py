@@ -2,9 +2,8 @@
 
 The port's own copy of the reference's ``ModelConfig``: the same fields,
 defaults and properties, so a config carries over field for field.  The
-port runs ``kind="rwkv"``, ``"dense"``, ``"hybrid"`` and, for prefill and
-decode, ``"moe"`` (``models/lm.py``); ``"encdec"`` and the modality front
-ends raise.  On the card their WKV and their prefill and training
+port runs every kind below and both front ends (``models/lm.py``), served
+and trained.  On the card their WKV and their prefill and training
 attention take the hand-written kernels whatever ``use_pallas`` says.
 
 ``kind`` selects the block wiring:

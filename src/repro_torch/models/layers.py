@@ -10,14 +10,20 @@ rounded to v's dtype before P·V) except in the decode step's attention,
 which runs in float32 throughout (see :func:`decode_attention`).
 
 The prefill's attention (causal self-attention at positions 0..S−1, with
-or without a sliding window) goes to ``kernels/flash_attention``: the
-hand-written CUDA kernel for a CUDA tensor, its plain version (the port
-of the reference's blockwise ``_block_attn``) for a CPU tensor.  Where a
-gradient is wanted (training), the attention is the kernel's
-``attention_train``, with the layer's window, whose backward is the port
-of the reference's custom VJP.  Everything here is differentiable and updates nothing
-in place.  Cross-attention waits for the config that uses it (ROADMAP §1
-item 7).
+or without a sliding window; an encoder's non-causal self-attention; a
+decoder's cross-attention over the encoder's output) goes to
+``kernels/flash_attention``: the hand-written CUDA kernel for a CUDA
+tensor, its plain version (the port of the reference's blockwise
+``_block_attn``) for a CPU tensor.  Where a gradient is wanted
+(training), the attention is the kernel's ``attention_train``, with the
+layer's window, whose backward is the port of the reference's custom
+VJP.  Cross-attention (the reference's ``attention(..., kv=enc_out)``)
+takes q from the decoder's stream and k, v from the encoder's output,
+neither rotated, every query over every one of the encoder's Sk
+positions: a non-causal kernel call with Sk ≠ S.  A decode step's
+cross-attention (:func:`cross_decode_attention`) is plain float32, as
+its self-attention is.  Everything here is differentiable and updates
+nothing in place.
 """
 from __future__ import annotations
 
@@ -92,13 +98,38 @@ def attention_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v.reshape(B, S, Kh, dh)
 
 
+def cross_q(p, cfg: ModelConfig, x):
+    """The cross-attention's queries (B, S, N, dh) of the decoder's x,
+    not rotated."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+
+
+def cross_kv(p, cfg: ModelConfig, enc):
+    """The cross-attention's k, v (B, Sk, Kh, dh) of the encoder's output
+    ``enc`` (B, Sk, D), not rotated (a prefill computes them once a layer
+    and the decode steps read them from the cache)."""
+    B, Sk, _ = enc.shape
+    k, v = enc @ p["wk"], enc @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, Sk, cfg.kv_heads, cfg.head_dim),
+            v.reshape(B, Sk, cfg.kv_heads, cfg.head_dim))
+
+
 def attend(p, q, k, v, causal: bool = True, kv_chunk: int = KV_CHUNK, window=None):
-    """Self-attention of q over k, v at positions 0..S−1 (a prefill or a
-    training step), projected by ``wo``: the reference's ``attention``
-    after :func:`attention_qkv`, through the flash_attention kernel, with
-    the layer's sliding ``window`` (None or ≥ 2²⁹: full).  With gradients
-    on and an input that wants one, the attention carries the backward
-    (over kv blocks of ``kv_chunk`` keys, each over its window's band)."""
+    """Attention of q (B, S, N, dh) over k, v (B, Sk, Kh, dh) (a prefill
+    or a training step), projected by ``wo``: the reference's
+    ``attention`` after :func:`attention_qkv` (self-attention, positions
+    0..S−1, causal or not) or after :func:`cross_q` and :func:`cross_kv`
+    (cross-attention, non-causal, Sk the encoder's length), through the
+    flash_attention kernel, with the layer's sliding ``window`` (None or ≥
+    2²⁹: full).  With gradients on and an input that wants one, the
+    attention carries the backward (over kv blocks of ``kv_chunk`` keys,
+    each over its window's band)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return attention_train(q, k, v, causal, kv_chunk, window) @ p["wo"]
     return flash_attention_gqa(q, k, v, causal, window=window) @ p["wo"]
@@ -139,6 +170,19 @@ def decode_attention(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos, layer_
     out = out + p_self[..., None] * v[:, 0, :, None].float()
     out = (out / denom[..., None]).reshape(B, 1, N * dh)
     return out.to(x.dtype) @ p["wo"], k, v
+
+
+def cross_decode_attention(p, cfg: ModelConfig, x, k, v):
+    """One decode step's cross-attention: q of x (B, 1, D) over the
+    cached k, v (B, Sk, Kh, dh) of the encoder's output, every position
+    seen, in float32 as :func:`decode_attention` (no kernel: one query a
+    sequence), projected by ``wo``."""
+    B = x.shape[0]
+    N, Kh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    qg = cross_q(p, cfg, x).reshape(B, Kh, N // Kh, dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(dh)
+    out = torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1), v.float())
+    return out.reshape(B, 1, N * dh).to(x.dtype) @ p["wo"]
 
 
 # ------------------------------------------------------------------- mlp --

@@ -1,44 +1,64 @@
 """LM facade of the port: init / training loss / prefill / decode, for
-``kind="rwkv"``, ``kind="dense"``, ``kind="hybrid"`` (Hymba) and
-``kind="moe"`` (DBRX, Llama-4-Scout; prefill and decode only).
+the five block kinds of the reference: ``kind="rwkv"``, ``"dense"``,
+``"hybrid"`` (Hymba), ``"moe"`` (DBRX, Llama-4-Scout) and ``"encdec"``
+(seamless-M4T), and the two modality front ends, ``frontend="patches"``
+(LLaVA-NeXT: precomputed patch embeddings before the tokens) and
+``"frames"`` (the encdec's precomputed speech frames, the encoder's input).
 
 The port of the reference's ``models/lm.py`` for the RWKV-6 block, the
 dense (GQA transformer) block, the hybrid block, whose attention and
 SSM branch (``models/ssm.py``) read the same normed input and are
 averaged after a norm each, 0.5·(rmsnorm(attn, bn_a) + rmsnorm(ssm,
-bn_s)), and the MoE block, the dense block with its MLP replaced by
+bn_s)), the MoE block, the dense block with its MLP replaced by
 ``models/moe.py``'s FFN (capacity factor 4.0 in prefill and decode, as
-the reference's).  The reference stacks each parameter over the layers
-and scans them; the port keeps a list of per-layer dicts and loops over
-it (``convert.lm_params`` unstacks the reference's).  The encdec block
-and the modality front ends wait for later slices (ROADMAP §1 item 7)
-and raise; so does the training loss of the MoE block.
+the reference's; the config's own in the training loss, where pairs past
+the capacity drop and the Switch aux loss of every layer joins the
+loss), and the encdec pair: an encoder of ``cfg.enc_layers`` dense blocks,
+non-causal over the frames (RoPE at 0..Se−1), then ``enc_ln_f``, and a
+decoder of dense blocks that each add a cross-attention (``ln_x``,
+``xattn``: q from the decoder, k and v from the encoder's output, no
+RoPE, every frame seen) after their self-attention.  The reference
+stacks each parameter over the layers and scans them; the port keeps a
+list of per-layer dicts and loops over it (``convert.lm_params``
+unstacks the reference's).
 
 Sliding windows: layer i attends over a window of ``cfg.window`` keys
 unless i is one of ``cfg.global_layers`` (``Model.windows[i]``, None for
 full attention; global layers past the model's depth, as in a config cut
-to fewer layers, are ignored).  Meta tokens: ``cfg.meta_tokens`` learned
-embeddings are put before the tokens at positions 0..M−1, the tokens
-from M on, as the reference's ``_embed_inputs`` does.  They fall out of
-a query's window like any other position, as in the reference; the Hymba
-paper keeps them visible to every query (ROADMAP §3).
+to fewer layers, are ignored).  Prefixes, as the reference's
+``_embed_inputs`` puts them: ``batch["patches"]`` (B, P, D) (with
+``frontend="patches"``) go before the tokens, cast to the model dtype,
+and ``cfg.meta_tokens`` learned embeddings before those: positions
+0..M−1 the meta tokens, M..M+P−1 the patches, the tokens from M + P on.
+The loss drops the M + P prefix positions after ``ln_f``, before the
+logits.  Meta tokens fall out of a query's window like any other
+position, as in the reference; the Hymba paper keeps them visible to
+every query (ROADMAP §3).  An encdec batch holds ``src_frames`` (B, Se,
+D), the encoder's input, cast to the model dtype.
 
 Parameters: ``{"embed": {"tok", "head"}, "layers": [...], "ln_f"}`` (and
-``"meta"`` (M, D) with meta tokens), a layer ``{"ln1", "ln2", "mix"}``
-(rwkv), ``{"ln1", "ln2", "attn", "mlp"}`` (dense), that with ``"ssm",
-"bn_a", "bn_s"`` (hybrid), or with ``"moe"`` in place of ``"mlp"``
-(moe).  :func:`stack_layers` gives the reference's layout, the layers as
-one dict of tensors stacked over a leading layer axis (the trainer's and
-the checkpoint's), and :func:`layer_views` the list of per-layer views of
-such stacked tensors.  Decode cache:
-``{"layers": [...], "pos" (B,) int32}``, a layer
+``"meta"`` (M, D) with meta tokens; ``"enc_layers": [...]`` and
+``"enc_ln_f"`` for encdec), a layer ``{"ln1", "ln2", "mix"}`` (rwkv),
+``{"ln1", "ln2", "attn", "mlp"}`` (dense, and an encoder layer), that with
+``"ssm", "bn_a", "bn_s"`` (hybrid) or ``"ln_x", "xattn"`` (a decoder
+layer of encdec), or with ``"moe"`` in place of ``"mlp"`` (moe).
+:func:`stack_layers` gives the reference's layout, the layers (and the
+encoder's) as one dict of tensors stacked over a leading layer axis (the
+trainer's and the checkpoint's), and :func:`layer_views` the lists of
+per-layer views of such stacked tensors.  Decode cache:
+``{"layers": [...], "pos" (B,) int32}`` (and for encdec ``"enc_out"``
+(B, Se, D), the encoder's normed output, and ``"enc_pos"`` (B, Se) int32,
+as the reference's), a layer
 - rwkv: ``{"S" (B, H, hs, hs) float32, "x_last_tm", "x_last_cm" (B, D)
   in the model dtype}``, the two ``x_last`` the *normed* inputs of the
   time mix and the channel mix at the last position;
-- dense, hybrid and moe: ``{"k", "v" (B, span, Kh, dh) in the model dtype,
-  "kpos" (B, span) int32}``, the absolute position held in each slot (−1:
-  empty), and for hybrid ``"ssm": {"h" (B, H, N, P) float32, "conv" (B,
-  4, d_inner)}``.  Position p sits at slot p mod span, in prefill and in
+- dense, hybrid, moe and encdec: ``{"k", "v" (B, span, Kh, dh) in the
+  model dtype, "kpos" (B, span) int32}``, the absolute position held in
+  each slot (−1: empty), for hybrid ``"ssm": {"h" (B, H, N, P) float32,
+  "conv" (B, 4, d_inner)}``, and for encdec the layer's cross-attention
+  ``"xk", "xv"`` (B, Se, Kh, dh) of ``enc_out``, computed once at prefill
+  (the reference projects ``enc_out`` again every step: the same
+  numbers).  Position p sits at slot p mod span, in prefill and in
   decode.  A global layer's span is every position the model will see,
   a windowed layer's min(w, that): the window needs no more.  A step at
   position p reads positions p − w + 1..p − 1 (0..p − 1 for a global
@@ -49,7 +69,8 @@ such stacked tensors.  Decode cache:
   in-window positions when S < w: ROADMAP §3.)  ``prefill(...,
   max_len)`` gives the cache room for the decode tokens: ``max_len``
   counts the caller's token positions (prompt and decode tokens); the
-  model adds its M meta positions itself, here and in :meth:`Model.init_cache`.
+  model adds its M meta and P patch positions itself, here and in
+  :meth:`Model.init_cache`.
 """
 from __future__ import annotations
 
@@ -65,7 +86,9 @@ from . import rwkv6 as RWKV
 from . import ssm as SSM
 from .config import ModelConfig
 
-KINDS = ("rwkv", "dense", "hybrid", "moe")
+KINDS = ("rwkv", "dense", "hybrid", "moe", "encdec")
+FRONTENDS = (None, "patches", "frames")
+STACKS = ("layers", "enc_layers")  # the parameter entries that hold a list of layers
 SERVE_CAPACITY = 4.0               # the MoE capacity factor of prefill and decode
 
 
@@ -74,14 +97,17 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_kind(cfg: ModelConfig) -> None:
-    if cfg.kind not in KINDS or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind {cfg.kind!r} (frontend {cfg.frontend!r}) is not ported "
-            f"yet; the port runs kinds {KINDS} on token ids and meta tokens alone (ROADMAP §1 "
-            f"item 7)")
+    if cfg.kind not in KINDS or cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown block kind {cfg.kind!r} or frontend "
+                         f"{cfg.frontend!r}; the port runs kinds {KINDS} and front ends "
+                         f"{FRONTENDS}")
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, device=None):
+def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, device=None,
+               cross: bool = False):
+    """One block's weights; ``cross``: a decoder block of encdec, which adds
+    the cross-attention's ``ln_x`` and ``xattn`` (the reference's
+    ``init_cross_block``)."""
     _check_kind(cfg)
     p = {"ln1": L.init_rmsnorm(cfg.d_model, dtype, device),
          "ln2": L.init_rmsnorm(cfg.d_model, dtype, device)}
@@ -97,28 +123,39 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, devic
         p["ssm"] = SSM.init_ssm(gen, cfg, dtype, cfg.n_heads * cfg.head_dim, device)
         p["bn_a"] = L.init_rmsnorm(cfg.d_model, dtype, device)
         p["bn_s"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+    if cross:
+        p["ln_x"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        p["xattn"] = L.init_attention(gen, cfg, dtype, device)
     return p
 
 
 def stack_layers(params) -> Dict[str, Any]:
-    """``params`` with its per-layer list stacked into one dict of
-    tensors of a leading layer axis (new tensors)."""
+    """``params`` with each per-layer list (``layers``, and ``enc_layers``
+    where there is one) stacked into one dict of tensors of a leading
+    layer axis (new tensors)."""
     def stack(items):
         first = items[0]
         if isinstance(first, dict):
             return {k: stack([it[k] for it in items]) for k in first}
         return torch.stack(items)
-    return {**params, "layers": stack(params["layers"])}
+    return {**params, **{k: stack(params[k]) for k in STACKS if k in params}}
 
 
 def layer_views(params) -> Dict[str, Any]:
-    """``params`` in the stacked layout with its layers as a list of
-    per-layer dicts of views (``t[i]``): writing the stacked tensors
-    updates the views."""
+    """``params`` in the stacked layout with its layers (and the encoder's)
+    as lists of per-layer dicts of views (``t[i]``): writing the stacked
+    tensors updates the views."""
     def pick(t, i):
         return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
-    n = params["layers"]["ln1"]["scale"].shape[0]          # every block kind has ln1
-    return {**params, "layers": [pick(params["layers"], i) for i in range(n)]}
+
+    def views(stacked):
+        n = stacked["ln1"]["scale"].shape[0]               # every block kind has ln1
+        return [pick(stacked, i) for i in range(n)]
+    return {**params, **{k: views(params[k]) for k in STACKS if k in params}}
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).repeat(B, 1)
 
 
 class Model:
@@ -137,54 +174,82 @@ class Model:
         """Random weights drawn from ``gen`` (on its own device), placed
         on the model's device."""
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
+        encdec = cfg.kind == "encdec"
         params = {
             "embed": L.init_embed(gen, cfg, dt, dev),
-            "layers": [init_block(gen, cfg, dt, dev) for _ in range(cfg.n_layers)],
+            "layers": [init_block(gen, cfg, dt, dev, cross=encdec) for _ in range(cfg.n_layers)],
             "ln_f": L.init_rmsnorm(cfg.d_model, dt, dev),
         }
+        if encdec:
+            params["enc_layers"] = [init_block(gen, cfg, dt, dev) for _ in range(cfg.enc_layers)]
+            params["enc_ln_f"] = L.init_rmsnorm(cfg.d_model, dt, dev)
         if cfg.meta_tokens:
             meta = torch.randn((cfg.meta_tokens, cfg.d_model), generator=gen, device=gen.device)
             params["meta"] = (meta * 0.02).to(device=dev, dtype=dt)
         return params
 
-    def _embed_inputs(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings (B, S, D), after the meta tokens' (B, M, D)."""
-        h = L.embed(params["embed"], tokens)
-        if not self.cfg.meta_tokens:
-            return h
-        meta = params["meta"][None].expand(h.shape[0], -1, -1)
-        return torch.cat([meta, h], 1)
+    def _embed_inputs(self, params, batch):
+        """The decoder's input (B, M + P + S, D): the meta tokens, the
+        patches (``frontend="patches"``, where the batch holds them) and
+        the token embeddings, and the prefix length M + P."""
+        cfg = self.cfg
+        h = L.embed(params["embed"], torch.as_tensor(batch["tokens"]).to(self.device).long())
+        n_prefix = 0
+        if cfg.frontend == "patches" and "patches" in batch:
+            patches = torch.as_tensor(batch["patches"]).to(device=self.device, dtype=h.dtype)
+            h, n_prefix = torch.cat([patches, h], 1), patches.shape[1]
+        if cfg.meta_tokens:
+            meta = params["meta"][None].expand(h.shape[0], -1, -1)
+            h, n_prefix = torch.cat([meta, h], 1), n_prefix + cfg.meta_tokens
+        return h, n_prefix
+
+    def _encode(self, params, batch, remat: bool = False):
+        """The encoder's output (B, Se, D) after ``enc_ln_f``, its positions
+        0..Se−1 and its blocks' aux (zero: its blocks are dense).  Each
+        block non-causal, under activation checkpointing with ``remat``."""
+        cfg = self.cfg
+        x = torch.as_tensor(batch["src_frames"]).to(device=self.device, dtype=_dtype(cfg))
+        pos = _positions(x.shape[0], x.shape[1], self.device)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for p in params["enc_layers"]:
+            args = (p, x, pos, None, None, False)
+            x, a = (torch.utils.checkpoint.checkpoint(self._block_train, *args, use_reentrant=False)
+                    if remat else self._block_train(*args))
+            aux = aux + a
+        return L.rmsnorm(x, params["enc_ln_f"]["scale"], cfg.norm_eps), pos, aux
 
     # -------------------------------------------------------------- loss --
     def loss(self, params, batch):
         """Next-token cross-entropy, the reference's ``Model.loss``: (ce +
         1e-4 · z-loss + aux, {"ce", "aux", "tokens"}), over
-        ``batch["tokens"]`` (B, S) with an optional ``loss_mask``; other
-        entries of the batch (a weighted pipeline's ``doc_ids``) are not
-        read.  The meta tokens go before the tokens (positions 0..M + S −
-        1), each layer attends over its own window, and the M meta
-        positions are dropped after ``ln_f``, before the logits.  Each
-        block runs under activation checkpointing when ``cfg.remat`` (the
-        reference's ``jax.checkpoint``), so its attention's or its WKV's
-        forward runs twice a backward pass."""
+        ``batch["tokens"]`` (B, S) with an optional ``loss_mask`` (and
+        ``patches`` or ``src_frames`` for a front end); other entries of
+        the batch (a weighted pipeline's ``doc_ids``) are not read.  The
+        prefixes go before the tokens (see the module docstring), each
+        layer attends over its own window, and the prefix positions are
+        dropped after ``ln_f``, before the logits.  An encdec model runs
+        its encoder over ``src_frames`` first and each decoder block
+        cross-attends to its output.  ``aux`` adds up every layer's MoE
+        load-balance loss (the MoE FFN at the config's capacity factor).
+        Each block runs under activation checkpointing when ``cfg.remat``
+        (the reference's ``jax.checkpoint``), so its attention's or its
+        WKV's forward, and an MoE block's routing, run twice a backward
+        pass."""
         cfg = self.cfg
-        if cfg.kind == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: training the MoE block (the gradient of its routed expert "
-                f"products and its aux loss) is not ported yet (ROADMAP §1 item 7)")
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
-        h = self._embed_inputs(params, tokens)
-        B, S = h.shape[:2]                     # S counts the meta tokens
-        positions = torch.arange(S, dtype=torch.int32, device=self.device).repeat(B, 1)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        enc = None
+        if cfg.kind == "encdec":
+            enc, _, aux = self._encode(params, batch, cfg.remat)
+        h, n_prefix = self._embed_inputs(params, batch)
+        positions = _positions(h.shape[0], h.shape[1], self.device)   # prefixes counted
         block = self._block_train_rwkv if cfg.kind == "rwkv" else self._block_train
         for p, w in zip(params["layers"], self.windows):
-            if cfg.remat:
-                h = torch.utils.checkpoint.checkpoint(block, p, h, positions, w,
-                                                      use_reentrant=False)
-            else:
-                h = block(p, h, positions, w)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)[:, cfg.meta_tokens:]
+            args = (p, h, positions, w, enc)
+            h, a = (torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+                    if cfg.remat else block(*args))
+            aux = aux + a
+        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)[:, n_prefix:]
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
         logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h[:, :-1]).float())
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
@@ -197,20 +262,37 @@ class Model:
         zloss = 1e-4 * torch.square(lse * mask).sum() / denom
         return loss + zloss + aux, {"ce": loss, "aux": aux, "tokens": denom}
 
-    def _block_train(self, p, x, positions, window: Optional[int] = None):
-        """One dense or hybrid block of the training forward (no cache),
-        its attention over ``window``."""
+    def _block_train(self, p, x, positions, window: Optional[int] = None, enc=None,
+                     causal: bool = True):
+        """One dense, hybrid, moe or encdec block of the training forward
+        (no cache), its attention over ``window``, then (a decoder block of
+        encdec) its cross-attention over the encoder's output ``enc``;
+        ``causal=False`` for an encoder block.  Returns (x, the block's MoE
+        aux loss, zero for other kinds)."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
-        out = L.attend(p["attn"], q, k, v, kv_chunk=cfg.kv_chunk, window=window)
+        out = L.attend(p["attn"], q, k, v, causal, kv_chunk=cfg.kv_chunk, window=window)
         if cfg.kind == "hybrid":
             out = _mix(p, cfg, out, SSM.ssm_branch(p["ssm"], cfg, h))
         x = x + out
+        if enc is not None:
+            x = x + self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc))
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], cfg, h2)
+        if cfg.kind == "moe":
+            out, aux = MOE.moe_ffn(p["moe"], cfg, h2)
+            return x + out, aux
+        return x + L.mlp(p["mlp"], cfg, h2), torch.zeros((), dtype=torch.float32,
+                                                          device=x.device)
 
-    def _block_train_rwkv(self, p, x, positions=None, window=None):
+    def _cross(self, p, x, xk, xv):
+        """A decoder block's cross-attention output over the encoder's
+        k, v (non-causal, through the kernel)."""
+        cfg = self.cfg
+        q = L.cross_q(p["xattn"], cfg, L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps))
+        return L.attend(p["xattn"], q, xk, xv, causal=False, kv_chunk=cfg.kv_chunk)
+
+    def _block_train_rwkv(self, p, x, positions=None, window=None, enc=None):
         """One RWKV-6 block of the training forward, the reference's
         ``block_train``: its WKV carries a gradient through the
         rwkv6_chunk kernels' ``autograd.Function``, from a zero state."""
@@ -218,21 +300,26 @@ class Model:
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         x = x + RWKV.time_mix(p["mix"], cfg, h)
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + RWKV.channel_mix(p["mix"], cfg, h2)
+        return (x + RWKV.channel_mix(p["mix"], cfg, h2),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Full-sequence forward building the decode cache.  batch:
-        ``{"tokens": (B, S) int}``; ``max_len``: the token positions the
-        cache makes room for (S + the decode tokens to come; None: S, the
-        reference's layout, which has room for one decode step), the meta
-        tokens not counted.  Returns (last_logits (B, padded vocab)
+        ``{"tokens": (B, S) int}`` (with ``patches`` or ``src_frames`` for
+        a front end); ``max_len``: the token positions the cache makes room
+        for (S + the decode tokens to come; None: S, the reference's
+        layout, which has room for one decode step), the meta and patch
+        positions not counted.  Returns (last_logits (B, padded vocab)
         float32, ids ≥ vocab at −1e30, cache)."""
         cfg = self.cfg
-        h = self._embed_inputs(params, batch["tokens"].to(self.device))
-        B, S = h.shape[:2]                     # S counts the meta tokens
-        total = S if max_len is None else max(cfg.meta_tokens + max_len, S)
-        positions = torch.arange(S, dtype=torch.int32, device=self.device).repeat(B, 1)
+        cache: Dict[str, Any] = {}
+        if cfg.kind == "encdec":
+            cache["enc_out"], cache["enc_pos"], _ = self._encode(params, batch)
+        h, n_prefix = self._embed_inputs(params, batch)
+        B, S = h.shape[:2]                     # S counts the prefixes
+        total = S if max_len is None else max(n_prefix + max_len, S)
+        positions = _positions(B, S, self.device)
         layers = []
         for i, p in enumerate(params["layers"]):
             if cfg.kind == "rwkv":
@@ -240,10 +327,9 @@ class Model:
             else:
                 w = self.windows[i]
                 h, lc = self._prefill_attn(p, h, positions, total if w is None else min(w, total),
-                                           w)
+                                           w, cache.get("enc_out"))
             layers.append(lc)
-        cache = {"layers": layers,
-                 "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+        cache.update(layers=layers, pos=torch.full((B,), S, dtype=torch.int32, device=self.device))
         h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
         logits = L.unembed(params["embed"], cfg, h[:, -1]).float()
         return L.mask_pad_logits(cfg, logits), cache
@@ -261,12 +347,13 @@ class Model:
         x = x + RWKV.channel_mix(p["mix"], cfg, h2)
         return x, {"S": S_fin, "x_last_tm": h[:, -1], "x_last_cm": h2[:, -1]}
 
-    def _prefill_attn(self, p, x, positions, span: int, window: Optional[int]):
-        """One dense, hybrid or moe block with the layer's window; its cache
-        holds the last min(span, S) positions.  K and V are computed once,
-        for the attention and for the cache, and the hybrid block's SSM
-        branch gives its terminal state as it runs (the reference computes
-        both twice)."""
+    def _prefill_attn(self, p, x, positions, span: int, window: Optional[int], enc=None):
+        """One dense, hybrid, moe or encdec decoder block with the layer's
+        window; its cache holds the last min(span, S) positions.  K and V
+        are computed once, for the attention and for the cache, and the
+        hybrid block's SSM branch gives its terminal state as it runs (the
+        reference computes both twice); a decoder block of encdec keeps its
+        cross-attention's k, v of ``enc``."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
@@ -276,6 +363,9 @@ class Model:
             s, lc["ssm"] = SSM.ssm_branch(p["ssm"], cfg, h, return_state=True)
             out = _mix(p, cfg, out, s)
         x = x + out
+        if enc is not None:
+            lc["xk"], lc["xv"] = L.cross_kv(p["xattn"], cfg, enc)
+            x = x + self._cross(p, x, lc["xk"], lc["xv"])
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
         return x + _ffn(p, cfg, h2), lc
 
@@ -283,7 +373,9 @@ class Model:
     def decode_step(self, params, cache, tokens):
         """One token for every sequence.  tokens: (B,) → (logits, cache);
         the cache passed in is left as it was.  A dense model raises where
-        the cache lacks room for the position (see the module docstring)."""
+        the cache lacks room for the position (see the module docstring).
+        An encdec decoder block cross-attends to its cached k, v of the
+        encoder's output, plain (one query a sequence: no kernel)."""
         cfg = self.cfg
         pos = cache["pos"]
         if cfg.kind != "rwkv":
@@ -298,7 +390,7 @@ class Model:
             layers.append(new_lc)
         h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
         logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h).float()[:, 0])
-        return logits, {"layers": layers, "pos": pos + 1}
+        return logits, {**cache, "layers": layers, "pos": pos + 1}
 
     def _decode_rwkv(self, p, x, lc):
         cfg = self.cfg
@@ -328,24 +420,29 @@ class Model:
         out, k_new, v_new = L.decode_attention(p["attn"], cfg, h, lc["k"], lc["v"], lc["kpos"],
                                                pos, layer_window=window)
         slot = pos[:1].long() % lc["k"].shape[1]    # every row at pos[0]'s slot, as the reference
-        new_lc = {"k": lc["k"].index_copy(1, slot, k_new),
+        new_lc = {**lc, "k": lc["k"].index_copy(1, slot, k_new),
                   "v": lc["v"].index_copy(1, slot, v_new),
                   "kpos": lc["kpos"].index_copy(1, slot, pos[:, None])}
         if cfg.kind == "hybrid":
             s, new_lc["ssm"] = SSM.ssm_step(p["ssm"], cfg, h, lc["ssm"])
             out = _mix(p, cfg, out, s)
         x = x + out
+        if "xk" in lc:
+            hx = L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps)
+            x = x + L.cross_decode_attention(p["xattn"], cfg, hx, lc["xk"], lc["xv"])
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
         return x + _ffn(p, cfg, h2), new_lc
 
     # ------------------------------------------------------- cache specs --
-    def init_cache(self, batch_size: int, max_len: int):
-        """Zero-filled decode cache at position ``max_len`` + M (``max_len``
-        token positions after the M meta tokens), a layer of span s holding
-        the positions before it at their slots p mod s (the reference's
-        ``init_cache``)."""
+    def init_cache(self, batch_size: int, max_len: int, src_len: int = 0, patches: int = 0):
+        """Zero-filled decode cache at position ``max_len`` + M + ``patches``
+        (``max_len`` token positions after the M meta tokens and the
+        patches), a layer of span s holding the positions before it at
+        their slots p mod s (the reference's ``init_cache``); for encdec,
+        a zero ``enc_out`` of ``src_len`` frames at positions 0 (the
+        reference's) and zero cross-attention k, v."""
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
-        B, total = batch_size, max_len + cfg.meta_tokens
+        B, total = batch_size, max_len + cfg.meta_tokens + patches
         layers = []
         for w in self.windows:
             if cfg.kind == "rwkv":
@@ -355,18 +452,23 @@ class Model:
                                "x_last_cm": torch.zeros(B, cfg.d_model, dtype=dt, device=dev)})
                 continue
             span = total if w is None else min(w, total)
-            kv = lambda: torch.zeros(B, span, cfg.kv_heads, cfg.head_dim, dtype=dt, device=dev)
+            kv = lambda n: torch.zeros(B, n, cfg.kv_heads, cfg.head_dim, dtype=dt, device=dev)
             held = torch.arange(total - span, total, dtype=torch.int32, device=dev)
             kpos = torch.empty_like(held).index_copy_(0, held.long() % span, held)
-            lc = {"k": kv(), "v": kv(), "kpos": kpos.repeat(B, 1)}
+            lc = {"k": kv(span), "v": kv(span), "kpos": kpos.repeat(B, 1)}
             if cfg.kind == "hybrid":
                 H, d_inner = SSM._heads(cfg), cfg.n_heads * cfg.head_dim
                 lc["ssm"] = {"h": torch.zeros(B, H, cfg.ssm_state, d_inner // H,
                                               dtype=torch.float32, device=dev),
                              "conv": torch.zeros(B, SSM.CONV, d_inner, dtype=dt, device=dev)}
+            if cfg.kind == "encdec":
+                lc["xk"], lc["xv"] = kv(src_len), kv(src_len)
             layers.append(lc)
-        return {"layers": layers,
-                "pos": torch.full((B,), total, dtype=torch.int32, device=dev)}
+        cache = {"layers": layers, "pos": torch.full((B,), total, dtype=torch.int32, device=dev)}
+        if cfg.kind == "encdec":
+            cache["enc_out"] = torch.zeros(B, src_len, cfg.d_model, dtype=dt, device=dev)
+            cache["enc_pos"] = torch.zeros(B, src_len, dtype=torch.int32, device=dev)
+        return cache
 
 
 def _ffn(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,12 @@ weight, ``torch.bmm``: the reference computes it outside any Pallas
 kernel too), gathered back, weighted by their gates and summed over a
 token's K contributions; the shared expert, where there is one, adds its
 MLP of every token.  The Switch load-balance loss comes back beside the
-output.
+output.  Under autograd (the training loss, at the config's own capacity
+factor) the gradient flows as the reference's: through the gates and
+the router (the top-k probabilities and the mean probabilities of the aux
+loss; the one-hot expert counts carry none), the scatter into the
+buffer, the expert products and the gather; a dropped pair adds nothing
+and takes no gradient.
 
 Two changes from the reference, neither of which moves a result:
 
@@ -23,9 +28,10 @@ Two changes from the reference, neither of which moves a result:
   the reference scatter-adds them in its dtype (``segment_sum``): in
   bf16 the two round differently, in float32 they agree to the last bits.
 
-:func:`route` is the routing alone (a chip run reads its drops and loads);
+:func:`route` is the routing alone (a chip run reads its drops and loads,
+and may replay another run's choices through its ``expert`` argument);
 :func:`moe_ffn` calls it through this module, so a caller may stand a
-recording version in for it.  The expert products run inside a
+recording or replaying version in for it.  The expert products run inside a
 ``record_function`` range ``moe_experts``, which a profile counts as a
 kind of its own.
 """
@@ -78,12 +84,19 @@ def capacity(cfg: ModelConfig, T: int, capacity_factor=None) -> int:
     return min(max(C, 1), T * K)
 
 
-def route(p, cfg: ModelConfig, xt: torch.Tensor, capacity_factor=None) -> Routing:
-    """Routing of the tokens ``xt`` (T, D) (see the module docstring)."""
+def route(p, cfg: ModelConfig, xt: torch.Tensor, capacity_factor=None,
+          expert=None) -> Routing:
+    """Routing of the tokens ``xt`` (T, D) (see the module docstring).
+    ``expert`` (T, K): take these choices instead of the top k (a run that
+    replays another's routing); the gates are then their probabilities,
+    renormalised, and the rest follows from them as it does from the top k."""
     T, E, K = xt.shape[0], cfg.n_experts, cfg.top_k
     probs = torch.softmax(xt.float() @ p["router"], -1)                   # (T, E)
-    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = gate[:, :K], expert[:, :K]
+    if expert is None:
+        gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, expert = gate[:, :K], expert[:, :K]
+    else:
+        gate = torch.gather(probs, 1, expert)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     onehot = F.one_hot(expert.reshape(-1), E)                             # (T·K, E)
     me, ce = probs.mean(0), onehot.reshape(T, K, E).sum(1).float().mean(0)

@@ -8,7 +8,8 @@ h, s that rotate every round; the estimate is ĝ[t] = s(t) · S·x[h(t)],
 scaled by k/n with error feedback (the contractive form), and the new
 state is x − ĝ.  Leaves with n < 4 · ratio pass unsketched.  k is the
 reference's rule: the power of two above n // ratio, at most the one
-above n.
+above n.  A leaf of more than 2³¹ − 1 elements, which the kernel does
+not take, is refused before anything is updated (never truncated).
 
 On the card both passes are the count_sketch kernel's
 (``kernels/count_sketch``): the sketch hashes t inside the kernel, and
@@ -34,6 +35,7 @@ import torch
 
 from ..core.sketch import Hash2
 from ..kernels.count_sketch import count_sketch_hashed, unsketch
+from ..kernels.count_sketch.ops import N_MAX
 from ..tree import leaves
 
 
@@ -61,6 +63,12 @@ class CountSketchCompressor:
         """Replace each float32 leaf of ``grads`` by its estimate, in place;
         returns ``grads``."""
         flat = [g.view(-1) for g in leaves(grads)]
+        big = [i for i, g in enumerate(flat) if g.shape[0] > N_MAX]
+        if big:                         # refused before any leaf or state is touched
+            raise ValueError(
+                f"compressor: leaves {big} hold {[flat[i].shape[0] for i in big]} elements; the "
+                f"count_sketch kernel takes at most {N_MAX} (a stacked expert leaf of DBRX "
+                f"passes it at 3 layers): train such a model without compression")
         if self._state is None:
             self._state = [torch.zeros_like(g) if self.error_feedback else None for g in flat]
         for i, g in enumerate(flat):

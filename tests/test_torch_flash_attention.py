@@ -236,9 +236,13 @@ def test_attention_routes():
         L.attend(w, q, k, v, window=4)
     windowed = Model(cfg.replace(window=4, global_layers=(0,)), device="cpu")
     assert windowed.windows == [None] + [4] * (cfg.n_layers - 1)
-    for bad in (cfg.replace(frontend="patches"), cfg.replace(kind="encdec")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            Model(bad, device="cpu")
+    patches = Model(cfg.replace(frontend="patches"), device="cpu")
+    assert set(patches.init(torch.Generator().manual_seed(0))) == {"embed", "layers", "ln_f"}
+    encdec = Model(cfg.replace(kind="encdec", enc_layers=1, frontend="frames"), device="cpu")
+    p = encdec.init(torch.Generator().manual_seed(0))
+    assert len(p["enc_layers"]) == 1 and {"ln_x", "xattn"} <= set(p["layers"][0])
+    with pytest.raises(ValueError, match="unknown"):
+        Model(cfg.replace(frontend="video"), device="cpu")
 
 
 @pytest.mark.parametrize("causal", [True, False])

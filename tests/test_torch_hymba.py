@@ -305,15 +305,16 @@ def test_init_cache_matches_reference():
 
 def test_training_a_hybrid_model_raises():
     """Hymba's loss is ported now (``tests/test_torch_hymba_train.py`` holds
-    it and its gradients against the reference): it is finite; the MoE
-    block's training loss still raises."""
+    it and its gradients against the reference): it is finite; so is the
+    MoE block's (``tests/test_torch_moe_train.py`` holds it), with its
+    aux loss in it."""
     model, params = _port()
     loss, _ = model.loss(params, {"tokens": torch.zeros(B, 16, dtype=torch.long)})
     assert bool(torch.isfinite(loss))
     moe = Model(configs.get_smoke("dbrx_132b").replace(dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        moe.loss(moe.init(torch.Generator().manual_seed(0)),
-                 {"tokens": torch.zeros(B, 16, dtype=torch.long)})
+    loss, m = moe.loss(moe.init(torch.Generator().manual_seed(0)),
+                       {"tokens": torch.zeros(B, 16, dtype=torch.long)})
+    assert bool(torch.isfinite(loss)) and float(m["aux"]) > 0
 
 
 def test_serve_cli_on_cpu(capsys):

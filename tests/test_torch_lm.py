@@ -140,10 +140,14 @@ def test_configs_match_reference():
     assert configs.ALIASES == ref_configs.ALIASES
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(type(ref_configs.get("rwkv6_1_6b")))]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        configs.get("seamless_m4t_medium")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Model(full.replace(kind="encdec"), device="cpu")
+    for name in ("seamless_m4t_medium", "seamless-m4t-medium"):
+        assert dataclasses.asdict(configs.get(name)) == \
+            dataclasses.asdict(ref_configs.get(name))
+    with pytest.raises(ValueError, match="unknown"):
+        configs.get("not_an_arch")
+    for bad in (full.replace(kind="mamba"), full.replace(frontend="video")):
+        with pytest.raises(ValueError, match="unknown"):
+            Model(bad, device="cpu")
 
 
 def test_serve_cli_on_cpu(capsys):

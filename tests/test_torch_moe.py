@@ -221,9 +221,19 @@ def test_reference_batched_decode_drops_tokens():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_the_moe_block_raises(arch):
+    """The MoE block's training loss is ported now
+    (``tests/test_torch_moe_train.py`` holds it against the reference): it
+    is finite, carries every layer's aux loss, and differentiates to
+    every leaf, the router's among them."""
     model, params = _port(arch)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.loss(params, {"tokens": torch.zeros(B, 8, dtype=torch.long)})
+    for leaf in [t for lp in params["layers"] for t in lp["moe"].values()
+                 if isinstance(t, torch.Tensor)]:
+        leaf.requires_grad_()
+    loss, m = model.loss(params, {"tokens": torch.from_numpy(_tokens(model.cfg, 8))})
+    assert bool(torch.isfinite(loss)) and float(m["aux"].detach()) > 0
+    router = params["layers"][0]["moe"]["router"]
+    (g,) = torch.autograd.grad(loss, [router])
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)

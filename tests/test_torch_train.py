@@ -127,14 +127,14 @@ def test_gradients_match_reference(remat):
 
 def test_rwkv_loss_is_not_ported():
     """RWKV-6's loss is ported now (``tests/test_torch_rwkv_train.py`` holds
-    it against the reference): it runs; a block kind still unported (encdec)
-    raises."""
+    it against the reference): it runs; a block kind the reference does not
+    have raises."""
     model = Model(configs.get_smoke("rwkv6_1_6b"), device="cpu")
     loss, _ = model.loss(model.init(torch.Generator().manual_seed(0)),
                          {"tokens": torch.zeros(1, 8, dtype=torch.long)})
     assert torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.get_smoke("rwkv6_1_6b").replace(kind="encdec"), device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        Model(configs.get_smoke("rwkv6_1_6b").replace(kind="retnet"), device="cpu")
 
 
 # ------------------------------------------------------- attention bwd --
