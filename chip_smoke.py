@@ -509,6 +509,34 @@ Phases (any failure exits non-zero):
    twin cut to 2 layers.  Gates as phase 12's; one launch a layer a
    prefill, none in decode.
 
+20. Placement, the card emptied first.  (a) TinyLlama-1.1B at full width
+   and depth trained by ``launch/train.py``'s ``run`` (what ``main``
+   runs: ``--full --steps 2 --batch 8 --seq 2048 --n-micro 8
+   --compress-grads 8 --ckpt-every 0``) on ``make_host_mesh()``, (1, 1)
+   on the one card, the parameters, AdamW's state and every batch placed
+   as DTensors by the reference's rules, after the plain trainer twice on
+   the same seed and batches.  Gates: 352 flash_attention, 12 sketch and
+   12 unsketch launches a step on the placed run (the counts set to 0 just
+   before it, read just after); losses and grad norms bit-equal to both
+   plain runs'; parameters apart in at most ``PLACED_APART`` of the
+   elements, each by at most 2·Σlr plus a bf16 rounding flip, for the
+   placed run and for the plain rerun alike (the count_sketch kernel's
+   atomic sums change a compressed gradient's last bits from run to run,
+   and AdamW's first steps amplify that where a compressed g is tiny).
+   Prints the step ms of the placed run and of the second plain run (the
+   placement's overhead), tokens/s and peak memory.  (b) The run's final
+   blocking checkpoint (15.4 GB) restored by ``runtime/elastic.
+   restore_elastic`` onto ``rebuild_mesh(1)``, bit for bit.  (c) Two
+   dry-run cells at full size, each through ``launch/dryrun.py``'s CLI in
+   a subprocess within 300 s: TinyLlama × train_4k × 16x16 (256 fake
+   ranks) and Llama-3-405B × decode_32k × 2x16x16 (512); their
+   ``arguments`` must equal this script's own sum over the rules, and the
+   training cell's census must hold at least one all-gather a sharded leaf
+   a microbatch.  Prints each record's bytes, flops, census and
+   ``lower_s``.  The cells need no card: they start right after the build,
+   run beside phases 1-19 on two of the host's cores, and are collected
+   here.
+
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.  A failure ends the run where it
@@ -556,7 +584,13 @@ WKV_BWD_RTOL = 1e-4                # rwkv6_chunk_bwd: |err| ≤ this · rwkv6_ch
 N_KEYS = 4096                      # dimension-table key domain of the serve path
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header with the seconds since the start."""
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - T_START:.0f}s] {msg}"
     print(msg, flush=True)
 
 
@@ -687,12 +721,6 @@ def phase_kernel(ops, ref, dev="cuda"):
     return recs
 
 
-def fft_flops(k: int) -> float:
-    """Flops of one row's ⊗ in the FFT form: three real transforms of
-    ~2.5·k·log2(k) each and k/2+1 complex products of 6 flops."""
-    return 3 * 2.5 * k * math.log2(k) + 6 * (k // 2 + 1)
-
-
 def poly_case(ops, ref, name, B, k, dtype, seed=0, dev="cuda", chunk=1 << 18, bcast=1):
     """One polymul shape: exactness on integer values, tolerance on float
     values against the float64 plain version (computed ``chunk`` rows at
@@ -746,7 +774,7 @@ def poly_case(ops, ref, name, B, k, dtype, seed=0, dev="cuda", chunk=1 << 18, bc
     library_ms = cuda_ms(lambda: ref.poly_mul_ref(a, b))
     size = a.element_size()
     nbytes = (a.numel() + 2 * B * k) * size    # a and b read once, out written once
-    flops = B * fft_flops(k)
+    flops = ops.operations(B, k)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_OPS_PER_S else "operations"
     direct = 2.0 * B * k * k
@@ -779,18 +807,6 @@ def phase_polymul(ops, ref, dev="cuda"):
     recs.append(poly_case(ops, ref, "pm256_bcast_f32", 4 << 20, 256, torch.float32, dev=dev,
                           bcast=4))
     return recs
-
-
-def wkv_flops(B: int, S: int, H: int, hs: int, c: int) -> int:
-    """Operations of the chunked WKV on these shapes: per chunk and head,
-    the pairwise decays of the strictly lower triangle (a difference, an
-    exponential, two products and a sum a key: 5·c(c−1)/2·hs), the bonus
-    diagonal (3·c·hs), A·v over the lower triangle and its diagonal
-    (c(c+1)·hs), the two state products (4·c·hs²), the state's decay
-    (2·hs²) and the elementwise cumsum, decays and sum (7·c·hs)."""
-    per = (5 * c * (c - 1) // 2 * hs + 3 * c * hs + c * (c + 1) * hs + 4 * c * hs * hs
-           + 2 * hs * hs + 7 * c * hs)
-    return B * H * (S // c) * per
 
 
 def wkv_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda"):
@@ -828,7 +844,7 @@ def wkv_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda"):
     plain_ms = cuda_ms(lambda: ref.rwkv6_chunk_ref(*args, c, return_state=True), max_reps=3)
     # r, k, v, logw, u read once; the output and the state written once
     nbytes = 4 * (5 * B * S * H * hs + H * hs + B * H * hs * hs)
-    flops = wkv_flops(B, S, H, hs, c)
+    flops = ops.operations(B, S, H, hs, c)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
     rec = {"case": name, "B": B, "S": S, "H": H, "hs": hs, "chunk": c, "segments": segs,
            "max_abs_err": max_abs_err, "max_err_over_w": max_rel_err,
@@ -933,7 +949,7 @@ def wkv_bwd_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda", decay=(0.01
         plain_ms = cuda_ms(lambda: ref.rwkv6_chunk_bwd_ref(*args, c), max_reps=3)
         # r, k, v, logw, do read once; dr, dk, dv, dlogw written once; u read, du written
         nbytes = 4 * (9 * B * S * H * hs + 2 * H * hs)
-        flops = 2 * wkv_flops(B, S, H, hs, c)
+        flops = 2 * ops.operations(B, S, H, hs, c)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
         rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
                    bound_ms=max(bytes_ms, ops_ms),
@@ -964,16 +980,6 @@ def phase_wkv_bwd(ops, ref, dev="cuda"):
         ("mixed_1x2048", 1, 2048, 32, 64, 16, {"mixed": True, "timed": False}),
     ]
     return [wkv_bwd_case(ops, ref, *c[:6], dev=dev, **c[6]) for c in cases]
-
-
-def band_pairs(S: int, causal: bool, window=None, Sk=None) -> int:
-    """Key-query pairs of one (b, head): S·Sk full (Sk = S unless given),
-    S(S + 1)/2 causal, and Σ_{i<S} min(i + 1, w) in a causal band of w."""
-    if not causal:
-        return S * (S if Sk is None else Sk)
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
 
 
 def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda", window=None,
@@ -1041,7 +1047,7 @@ def attn_case(ops, ref, name, B, S, N, Kh, dh, causal, dtype, seed=0, dev="cuda"
     size = q.element_size()
     nbytes = (2 * B * S * N + 2 * B * Sk * Kh) * dh * size  # q, k, v read once, out written once
     nbytes += 4 * B * N * S if with_lse else 0               # ... and the float32 lse
-    pairs = band_pairs(S, causal, window, Sk)
+    pairs = ops.pairs(S, causal, window, Sk)
     flops = 4 * B * N * dh * pairs
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
@@ -3837,6 +3843,283 @@ def host_state(tag: str) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------- phase 20 --
+PLACED_ARGS = ("--arch", "tinyllama_1_1b", "--full", "--steps", "2", "--batch", "8", "--seq",
+               "2048", "--n-micro", "8", "--compress-grads", "8", "--ckpt-every", "0",
+               "--log-every", "1")
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", "16x16"), ("llama3_405b", "decode_32k", "2x16x16"))
+DRYRUN_TIMEOUT_S = 300
+PLACED_APART = 1e-5                # placed vs plain parameters: the share of elements apart
+
+
+def rule_bytes(arch: str, shape_name: str, tag: str) -> dict:
+    """A dry-run cell's argument bytes a rank holds, summed here from the
+    placement rules on an abstract mesh of the cell's shape (no process
+    group): the parameters (built on ``meta``), for training AdamW's step,
+    moments and the batch, for decode the cache and the tokens; and how
+    many parameter leaves the rules shard."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import Model, stack_layers
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    shape, names = dryrun.mesh_spec(tag)
+    mesh, sizes = S.AbstractMesh(shape, names), dict(zip(names, shape))
+
+    def local(tree, shard):
+        total = 0
+        for t, sh in zip(leaves(tree), leaves(shard)):
+            n = t.element_size()
+            for i, d in enumerate(t.shape):
+                e = sh.spec[i] if i < len(sh.spec) else None
+                n *= d // math.prod(sizes[a] for a in (() if e is None else
+                                                        e if isinstance(e, tuple) else (e,)))
+            total += n
+        return total
+
+    with dryrun.OnMeta():
+        params = stack_layers(Model(configs.get(arch), device="meta").init(torch.Generator()))
+    pshard = S.param_shardings(mesh, params)
+    total = local(params, pshard)
+    mode, specs = steps.input_specs(arch, shape_name)
+    if mode == "train":
+        opt = adamw.init(adamw.AdamWConfig(), params)
+        total += 4 + local(opt.m, pshard) + local(opt.v, pshard)
+        total += local(specs["batch"], S.batch_shardings(mesh, specs["batch"]))
+    else:
+        total += local(specs["cache"], S.cache_shardings(mesh, specs["cache"]))
+        total += local(specs["tokens"], S.batch_shardings(mesh, specs["tokens"]))
+    return {"arguments": total,
+            "sharded_leaves": sum(any(e is not None for e in sh.spec) for sh in leaves(pshard))}
+
+
+def dryrun_start() -> tuple:
+    """Start phase 20 (c)'s cells, each of ``DRYRUN_CELLS`` through
+    ``launch/dryrun.py``'s CLI in a subprocess of its own (a fake process
+    group of 256 or 512 ranks, within ``DRYRUN_TIMEOUT_S``), side by side.
+    They need no card, so ``main`` starts them before phase 1 and
+    :func:`dryrun_cells` collects them; the processes and their directory
+    go when this process exits.  Returns (directory, processes, start)."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = []
+    for arch, shape_name, tag in DRYRUN_CELLS:
+        with open(Path(tmp) / f"{arch}__{shape_name}__{tag}.out", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape_name, "--mesh", "single" if tag == "16x16" else "multi", "--out", tmp,
+                 "--timeout", str(DRYRUN_TIMEOUT_S)], stdout=out, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src")}))
+
+    def stop():
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return tmp, procs, time.perf_counter()
+
+
+def dryrun_cells(started: tuple) -> list:
+    """Phase 20 (c): the cells :func:`dryrun_start` started, each record's
+    ``arguments`` against the rules' sum, and on a training cell at least
+    one all-gather a sharded leaf a microbatch."""
+    from repro_torch.launch import steps
+
+    tmp, procs, t0 = started
+    done = [(proc.wait(timeout=DRYRUN_TIMEOUT_S + 60), time.perf_counter() - t0)
+            for proc in procs]
+    out = []
+    for (arch, shape_name, tag), (rc, wall) in zip(DRYRUN_CELLS, done):
+        path = Path(tmp) / f"{arch}__{shape_name}__{tag}.json"
+        if rc != 0 or not path.exists():
+            err = path.with_name(path.name + ".err")
+            raise AssertionError(f"dry run {arch} {shape_name} {tag}: exit {rc}, "
+                                 f"{path.with_suffix('.out').read_text()[-3000:]} "
+                                 f"{err.read_text()[-3000:] if err.exists() else ''}")
+        rec = json.loads(path.read_text())
+        want = rule_bytes(arch, shape_name, tag)
+        b, census, cost = rec["per_device_bytes"], rec["collectives"], rec["cost_analysis"]
+        log(f"  dry run {arch} x {shape_name} x {tag} ({rec['world']} fake ranks): arguments "
+            f"{b['arguments']:,} B a rank (the rules' sum {want['arguments']:,}), outputs "
+            f"{b['outputs']:,} B, peak live {b['peak_live'] / 2 ** 30:.2f} GiB; flops a rank "
+            f"{cost['flops_per_device']:.4e} (ATen {cost['aten_flops']:.4e}, kernels "
+            f"{cost['kernel_operations']}); census "
+            f"{ {k: v for k, v in census.items() if v['count']} }; lower_s "
+            f"{rec['lower_s']:.1f}, collected {wall:.1f}s after its start")
+        if b["arguments"] != want["arguments"]:
+            raise AssertionError(f"dry run {arch} {shape_name} {tag}: arguments "
+                                 f"{b['arguments']} against the rules' {want['arguments']}")
+        if shape_name == "train_4k":
+            dp = math.prod(int(x) for x in tag.split("x")[:-1])
+            need = want["sharded_leaves"] * steps.n_micro(arch, 256, dp)
+            if census["all-gather"]["count"] < need:
+                raise AssertionError(f"dry run {arch} {tag}: {census['all-gather']['count']} "
+                                     f"all-gathers, fewer than one a sharded leaf "
+                                     f"({want['sharded_leaves']}) a microbatch ({need})")
+        out.append({**rec, "rules": want, "subprocess_s": wall})
+    return out
+
+
+def phase_placed(fops, cops, other_ops, dev="cuda", argv=PLACED_ARGS) -> dict:
+    """Phase 20 (a) and (b): TinyLlama-1.1B trained by ``launch/train.py``'s
+    ``run`` (what ``main`` runs) on ``make_host_mesh()``, (1, 1) on one
+    card, its last blocking checkpoint the state's save, after the plain
+    trainer twice on the same seed and batches; then that checkpoint
+    restored by ``restore_elastic`` onto ``rebuild_mesh(1)``.  Losses and
+    grad norms must be bit-equal to both plain runs'.  The parameters are
+    held to the first plain run's, not bit for bit: at most a share
+    ``PLACED_APART`` of the elements apart, each by at most the 2·lr a step
+    that two AdamW updates can differ by (plus a bf16 rounding flip).  The
+    count_sketch kernel adds into a bucket with atomics, so a compressed
+    gradient's last float32 bits change from run to run, and AdamW's first
+    steps, g/(|g| + 1e-8), turn that into up to lr where a compressed g is
+    a few 1e-8; the second plain run shows that spread beside the placed
+    one, under the same gate.  Leaves the process group it joined."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    from repro_torch.runtime import elastic
+    from repro_torch.tree import leaves
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_placed_")
+    joined = M.join_world(dev)
+    try:
+        args = T.parser().parse_args([*argv, "--device", dev, "--ckpt-dir", tmp])
+
+        def plain_run():
+            held = torch.cuda.memory_allocated()        # what earlier runs keep for the checks
+            torch.cuda.reset_peak_memory_stats()
+            plain, hist = T.build(args), []
+            try:
+                for _ in range(args.steps):
+                    b = plain.next_batch()
+                    t0 = time.perf_counter()
+                    m = plain.step(b)
+                    hist.append({"s": time.perf_counter() - t0,
+                                 **{k: float(v) for k, v in m.items()}})
+            finally:
+                plain.pipe.stop()
+            hist[-1]["peak"] = torch.cuda.max_memory_allocated() - held
+            return leaves(plain.params), hist
+        plain_params, plain_hist = plain_run()            # the first warms the card up
+        gc.collect()
+        torch.cuda.empty_cache()
+        again_params, again_hist = plain_run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = M.make_host_mesh(dev)
+        held = torch.cuda.memory_allocated()            # the plain runs' weights, kept
+        torch.cuda.reset_peak_memory_stats()
+        for o in (fops, cops, *other_ops):                              # main path starts here
+            o.reset_launches()
+        t0 = time.perf_counter()
+        tr = T.run(args, mesh)
+        launches = {"flash_attention": fops.launches, "count_sketch": cops.launches,
+                    "count_sketch_unsketch": cops.unsketch_launches}
+        others = {o.__name__: o.launches for o in other_ops}           # ... and ends here
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        n_layers = tr.model.cfg.n_layers
+        sketched = sum(p.numel() >= 4 * args.compress_grads for p in leaves(tr.params))
+        want = {"flash_attention": 2 * n_layers * args.n_micro * args.steps,   # 352 a step
+                "count_sketch": sketched * args.steps,                         # 12 a step
+                "count_sketch_unsketch": sketched * args.steps}
+        if launches != want or any(others.values()):
+            raise AssertionError(f"placed train: launches {launches}, expected {want}; off the "
+                                 f"path {others}")
+        same = {k: [h[k] for h in tr.history] == [h[k] for h in plain_hist]
+                == [h[k] for h in again_hist] for k in ("loss", "grad_norm")}
+
+        lr_sum = sum(h["lr"] for h in plain_hist)
+
+        def spread(params):                # (elements apart, of all; the most |Δp| / its bound)
+            apart, worst, n = 0, 0.0, 0
+            for a, b in zip(params, plain_params):
+                d = (a.float() - b.float()).abs()
+                apart += int((d > 0).sum())
+                n += d.numel()
+                worst = max(worst, float((d / (2 * lr_sum + 2.0 ** -7 * b.float().abs())).max()))
+            return apart / n, worst
+        placed_spread = spread([t.to_local() for t in leaves(tr.params)])
+        plain_spread = spread(again_params)
+        same["params"] = placed_spread[0] == 0
+        del plain_params, again_params
+        tokens = args.batch * args.seq
+        step_ms = [h["s"] * 1e3 for h in tr.history]
+        plain_ms = [h["s"] * 1e3 for h in again_hist]
+        step_dir = Path(tmp) / f"step_{args.steps}"
+        out = {"arch": "tinyllama_1_1b", "mesh": list(mesh.shape), "batch": args.batch,
+               "seq": args.seq, "n_micro": args.n_micro, "steps": args.steps,
+               "step_ms": step_ms, "plain_step_ms": plain_ms,
+               "tokens_per_s": [tokens / h["s"] for h in tr.history],
+               "plain_tokens_per_s": [tokens / h["s"] for h in plain_hist],
+               "overhead_ms": [a - b for a, b in zip(step_ms, plain_ms)],
+               "losses": [h["loss"] for h in tr.history],
+               "plain_losses": [h["loss"] for h in plain_hist],
+               "grad_norms": [h["grad_norm"] for h in tr.history],
+               "first_plain_step_ms": [h["s"] * 1e3 for h in plain_hist],
+               "bit_equal": same, "params_apart_share": placed_spread[0],
+               "params_worst_of_bound": placed_spread[1],
+               "plain_rerun_apart_share": plain_spread[0],
+               "plain_rerun_worst_of_bound": plain_spread[1], "launches": launches,
+               "run_s": run_s,
+               "peak_memory_gib": peak / 2 ** 30,
+               "plain_peak_memory_gib": again_hist[-1]["peak"] / 2 ** 30,
+               "checkpoint_bytes": sum(f.stat().st_size for f in step_dir.iterdir())}
+        log(f"  placed (mesh {tuple(mesh.shape)}): steps {', '.join(f'{x:.1f}' for x in step_ms)} "
+            f"ms against the plain trainer's second run's "
+            f"{', '.join(f'{x:.1f}' for x in plain_ms)} "
+            f"ms (overhead {', '.join(f'{x:+.1f}' for x in out['overhead_ms'])} ms; its first "
+            f"run's {', '.join(f'{x:.1f}' for x in out['first_plain_step_ms'])} ms warmed the "
+            f"card), {out['tokens_per_s'][-1]:.0f} tokens/s at the last step; losses "
+            f"{out['losses']} against {out['plain_losses']}; bit-equal {same}; parameters apart "
+            f"{placed_spread[0]:.3e} of the elements, the most |Δp| {placed_spread[1]:.3f} of "
+            f"2·Σlr + a bf16 flip (the plain rerun's {plain_spread[0]:.3e}, "
+            f"{plain_spread[1]:.3f}: "
+            f"the count_sketch kernel's atomic sums); launches {launches}; peak "
+            f"{out['peak_memory_gib']:.2f} GiB allocated (the plain run's "
+            f"{out['plain_peak_memory_gib']:.2f}; each run's own, from its build on); run "
+            f"{run_s:.1f}s with its {out['checkpoint_bytes'] / 1e9:.2f} GB blocking save")
+        if not (same["loss"] and same["grad_norm"]) or any(
+                a > PLACED_APART or w > 1.0 for a, w in (placed_spread, plain_spread)):
+            raise AssertionError(f"placed train: the placed and plain steps differ: {same}, "
+                                 f"parameters {placed_spread} (plain rerun {plain_spread})")
+        mesh1 = elastic.rebuild_mesh(1, dev)
+        t0 = time.perf_counter()
+        back = elastic.restore_elastic(Checkpointer(tmp), args.steps, tr.state(), mesh1,
+                                       T.state_shardings)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        pairs = list(zip(leaves(back), leaves(tr.state())))
+        exact = all(
+            (isinstance(a, DTensor) and a.device_mesh == mesh1 and a.placements == b.placements
+             and torch.equal(a.to_local(), b.to_local())) if isinstance(b, DTensor)
+            else torch.equal(a, b) for a, b in pairs)
+        out["restore_bit_equal"] = exact
+        log(f"  elastic restore onto rebuild_mesh(1) {tuple(mesh1.shape)}: {len(pairs)} leaves in "
+            f"{out['restore_s']:.1f}s, bit for bit {exact}")
+        if not exact:
+            raise AssertionError("placed train: the elastic restore is not bit for bit")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if joined:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -3882,6 +4165,7 @@ def main() -> int:
         builds = list(pool.map(lambda build: build(verbose=True), sources))
     log(f"build: {', '.join(lib.name for lib, _ in builds)} in "
         f"{time.perf_counter() - t0:.2f}s")
+    dry = dryrun_start()                 # phase 20 (c) needs no card: its cells run meanwhile
     for _, build_log in builds:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -4053,6 +4337,13 @@ def main() -> int:
                      max_len=1024 + 64, check_last=True, oracle=flash_attention.attention_limit,
                      twin_cfg=lcfg.replace(dtype="float32", n_layers=2), stub=1024)
     llava["reckoning"] = lplan
+    gc.collect()
+    torch.cuda.empty_cache()                            # the card holds nothing else
+    log("phase 20: tinyllama-1.1b trained placed on make_host_mesh() (1 x 1 here) at full width "
+        "and depth, global batch 8 x 2048, n_micro 8, compression 8, 2 steps beside the plain "
+        "trainer; its checkpoint restored onto rebuild_mesh(1); two dry-run cells at full size")
+    placed = phase_placed(fops, cops, (ops, pops, wops))
+    placed["dryrun"] = dryrun_cells(dry)
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -4150,7 +4441,9 @@ def main() -> int:
                              "lm_train_seamless_4_steps_noncausal":
                                  encdec_train["launches"]["flash_attention_noncausal"],
                              "serve_llava_prefill": llava["launches_prefill"],
-                             "serve_llava_decode": llava["launches_decode"]},
+                             "serve_llava_decode": llava["launches_decode"],
+                             "lm_train_placed_2_steps":
+                                 placed["launches"]["flash_attention"]},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -4172,7 +4465,10 @@ def main() -> int:
                                  hymba_train["launches"]["count_sketch_unsketch"],
                              "seamless_train_4_steps": encdec_train["launches"]["count_sketch"],
                              "seamless_train_4_steps_unsketch":
-                                 encdec_train["launches"]["count_sketch_unsketch"]},
+                                 encdec_train["launches"]["count_sketch_unsketch"],
+                             "placed_train_2_steps": placed["launches"]["count_sketch"],
+                             "placed_train_2_steps_unsketch":
+                                 placed["launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,
@@ -4182,7 +4478,7 @@ def main() -> int:
                     "dense_serve": dense_serve, "hymba_serve": hymba,
                     "hymba_train": hymba_train, "moe_serve": moe_serve, "moe_train": moe_train,
                     "encdec_serve": encdec_serve, "encdec_train": encdec_train,
-                    "llava_serve": llava, "host_state": host}))
+                    "llava_serve": llava, "placed": placed, "host_state": host}))
     log(json.dumps({"kernels": kernels}))
     # count: the cards this process sees (the run drives device 0)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,11 +8,17 @@ the reference's do: a ``ModelConfig`` for an LM, the paper's own
 ``BoostConfig`` for ``paper_rbrt``.  Both take the module name or its
 external id (``ALIASES``).  ``PORTED`` lists the configs, every one of
 the reference's; any other name raises.
+
+Shapes (the reference's): seq_len × global_batch; decode_* and long_*
+are one token against a seq_len cache.  ``long_500k`` applies only to a
+sub-quadratic arch (RWKV-6, Hymba): :func:`cells` gives each LM arch's
+shapes and :func:`all_cells` every (arch, shape) the dry run lowers.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import Any
+from typing import Any, Dict, List, Tuple
 
 PORTED = ("rwkv6_1_6b", "tinyllama_1_1b", "granite_3_8b", "qwen2_5_32b", "llama3_405b",
           "paper_rbrt", "hymba_1_5b", "dbrx_132b", "llama4_scout_17b_a16e",
@@ -33,6 +39,37 @@ ALIASES = {
 }
 
 
+# the LM archs, in the reference's order
+ARCHS = [
+    "qwen2_5_32b",
+    "tinyllama_1_1b",
+    "llama3_405b",
+    "granite_3_8b",
+    "dbrx_132b",
+    "llama4_scout_17b_a16e",
+    "seamless_m4t_medium",
+    "llava_next_34b",
+    "rwkv6_1_6b",
+    "hymba_1_5b",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str               # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
 def _module(name: str):
     mod = ALIASES.get(name, name)
     if mod not in PORTED:
@@ -46,3 +83,16 @@ def get(name: str) -> Any:
 
 def get_smoke(name: str) -> Any:
     return _module(name).SMOKE
+
+
+def cells(arch: str) -> List[str]:
+    """The shapes that apply to ``arch`` (``long_500k`` only where it is
+    sub-quadratic)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if get(arch).sub_quadratic:
+        out.append("long_500k")
+    return out
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    return [(a, s) for a in ARCHS for s in cells(a)]

@@ -8,7 +8,14 @@ The library is loaded with ``ctypes``; the kernel's wrapper declares
 its functions' argument types.  Nothing here runs at import: a kernel is
 built the first time its wrapper launches it, or by ``build``.
 :func:`raw_stream` and :func:`on_device` are the wrappers' launch helpers,
-and :func:`refuse_grad` their guard for kernels that have no backward.
+:func:`refuse_grad` their guard for kernels that have no backward and
+:func:`refuse_dtensor` their guard against a placed (DTensor) operand.
+
+On a ``meta`` tensor a wrapper launches nothing: it returns outputs of
+the kernel's shapes and dtypes, and adds the operations the kernel would
+do (PERF.md §6's formulas) to :data:`meta_operations`, which the dry run
+(``launch/dryrun.py``) reads, since a kernel on ``meta`` runs no ATen op
+that a flop counter could see.
 """
 from __future__ import annotations
 
@@ -20,15 +27,18 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+meta_operations: Dict[str, int] = {}   # kernel → operations of its meta calls since the reset
 
 
 def nvcc() -> str:
@@ -114,3 +124,24 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(f"{kernel}: the kernel has no backward, so an input that requires "
                            f"grad would get no gradient; call it under torch.no_grad() or "
                            f"pass detached inputs")
+
+
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise TypeError on a DTensor operand: a kernel takes the plain local
+    tensors of one rank (the placed step gathers a block's weights first,
+    ``distributed/sharding.py``), and a DTensor would send the call through
+    DTensor's dispatch, which knows no rule for it, unseen."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{kernel}: takes plain tensors, got a DTensor on "
+                            f"{t.device_mesh} with placements {t.placements}; call it on "
+                            f"the local tensors")
+
+
+def count_meta(kernel: str, operations: int) -> None:
+    """Add a meta call's operations to :data:`meta_operations`."""
+    meta_operations[kernel] = meta_operations.get(kernel, 0) + int(operations)
+
+
+def reset_meta_operations() -> None:
+    meta_operations.clear()

@@ -13,9 +13,11 @@
 x is a 1-D contiguous float32 tensor of fewer than 2³¹ elements; k is a
 power of two ≥ 2.  CUDA tensors go to the kernel, which is compiled with
 ``nvcc`` for sm_90a at first use (``kernels/_build.py``) and bound
-through ``ctypes``; CPU tensors go to the plain versions in ``ref.py``.
-Any other device raises, as do other dtypes, shapes and sizes, and a
-CUDA tensor that requires grad (the kernel has no backward).
+through ``ctypes``; CPU tensors go to the plain versions in ``ref.py``;
+``meta`` tensors get empty outputs of the kernel's shapes (a sketch's 2n
+and an unsketch's 2n operations counted in ``_build.meta_operations``).
+Any other device raises, as do a DTensor, other dtypes, shapes and sizes,
+and a CUDA tensor that requires grad (the kernel has no backward).
 
 :func:`plan` picks the kernel's route by the sketch's size (the source's
 header says why): a sketch of at most ``SMEM_MAX_K`` buckets is summed in
@@ -146,7 +148,7 @@ def _check_vec(name: str, x: torch.Tensor, dtype: torch.dtype, n: Optional[int] 
         raise ValueError(f"count_sketch takes 1 to {N_MAX} elements, got {x.shape[0]}")
     if device is not None and x.device != device:
         raise ValueError(f"count_sketch: {name} lies on {x.device}, x on {device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise RuntimeError(f"count_sketch: no route for device {x.device}")
 
 
@@ -199,6 +201,7 @@ def _hashed(x: torch.Tensor, h: Hash2, p: Plan) -> torch.Tensor:
 def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
                  k: int) -> torch.Tensor:
     """sketch[j] = Σ_t [buckets[t] = j] · signs[t] · x[t], (k,) float32."""
+    _build.refuse_dtensor("count_sketch", x, buckets, signs)
     _check_k(k)
     if x.device.type != "cpu":
         _build.refuse_grad("count_sketch", x, signs)
@@ -206,6 +209,9 @@ def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
     n = x.shape[0]
     _check_vec("buckets", buckets, torch.int32, n, x.device)
     _check_vec("signs", signs, torch.float32, n, x.device)
+    if x.device.type == "meta":
+        _build.count_meta("count_sketch", 2 * n)
+        return x.new_empty(k)
     lo, hi = torch.aminmax(buckets)
     if int(lo) < 0 or int(hi) >= k:
         raise ValueError(f"count_sketch: buckets in [{int(lo)}, {int(hi)}] outside [0, {k})")
@@ -223,12 +229,16 @@ def count_sketch(x: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor,
 
 def count_sketch_hashed(x: torch.Tensor, h: Hash2) -> torch.Tensor:
     """The sketch of x (n,) under ``h`` at t = 0..n−1, (h.k,) float32."""
+    _build.refuse_dtensor("count_sketch", x)
     _check_k(h.k)
     if x.device.type != "cpu":
         _build.refuse_grad("count_sketch", x)
     _check_vec("x", x, torch.float32)
     if x.device.type == "cpu":
         return count_sketch_op(x, h)
+    if x.device.type == "meta":
+        _build.count_meta("count_sketch", 2 * x.shape[0])
+        return x.new_empty(h.k)
     return _hashed(x, h, plan(x.shape[0], h.k))
 
 
@@ -238,6 +248,7 @@ def unsketch(x: torch.Tensor, sk: torch.Tensor, h: Hash2, scale: float = 1.0,
     """est[t] = s(t)·sk[h(t)]·scale for t < n = len(x), written into
     ``est`` (a new tensor if None, else may be x); with ``state`` (may be
     x), also state[t] = x[t] − est[t].  Returns est."""
+    _build.refuse_dtensor("count_sketch unsketch", x, sk, est, state)
     _check_k(h.k)
     if x.device.type != "cpu":
         _build.refuse_grad("count_sketch unsketch", x, sk)
@@ -253,6 +264,9 @@ def unsketch(x: torch.Tensor, sk: torch.Tensor, h: Hash2, scale: float = 1.0,
         if state is not None:
             state.copy_(x - e)
         return est.copy_(e)
+    if x.device.type == "meta":
+        _build.count_meta("count_sketch_unsketch", 2 * n)
+        return est
     _run("count_sketch_unsketch", x.device, x.data_ptr(), sk.data_ptr(), est.data_ptr(),
          0 if state is None else state.data_ptr(), n, *_words(h), float(scale))
     global unsketch_launches

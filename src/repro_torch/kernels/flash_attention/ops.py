@@ -19,10 +19,12 @@ and bound through ``ctypes``; it reads the operands in place through
 their strides (a copy only where the last dimension is not contiguous,
 the base is off 16 bytes, or a dimension longer than 1 has a stride that
 is 0 or off 16 bytes: the bf16 kernel's TMA tensor maps take none of
-these).  CPU tensors go to the plain version in ``ref.py``.  Any other
-device raises, as do dtypes other than float32 and bfloat16, operands of
-two dtypes or devices, shapes that do not match, dh outside (16, 32, 64,
-128), N not a multiple of Kh, and B or a tile count ⌈S / tile⌉ or ⌈Sk /
+these).  CPU tensors go to the plain version in ``ref.py``; a ``meta``
+tensor gets empty outputs of the kernel's shapes and dtypes, and its
+:func:`operations` go to ``_build.meta_operations`` (the dry run's
+count).  Any other device raises, as do a DTensor operand, dtypes other
+than float32 and bfloat16, operands of two dtypes or devices, shapes
+that do not match, dh outside (16, 32, 64, 128), N not a multiple of Kh, and B or a tile count ⌈S / tile⌉ or ⌈Sk /
 tile⌉ above 65,535, the tile 128 rows in bf16 and 64 in float32
 (``ref.KERNEL_TILE``; on the CPU too, so a shape that runs here runs on
 the card).
@@ -96,7 +98,24 @@ def bf16_smem_bytes(dh: int) -> int:
     return _load().flash_attention_bf16_smem_bytes(dh)
 
 
+def pairs(S: int, causal: bool, window: Optional[int] = None, Sk: Optional[int] = None) -> int:
+    """Key-query pairs of one (b, head): S·Sk full, S(S + 1)/2 causal, and
+    Σ_{i<S} min(i + 1, w) in a causal band of w."""
+    if not causal:
+        return S * (S if Sk is None else Sk)
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def operations(B: int, S: int, Sk: int, N: int, dh: int, causal: bool,
+               window: Optional[int] = None) -> int:
+    """A call's operations, 4·B·N·dh·pairs (two products of dh a pair)."""
+    return 4 * B * N * dh * pairs(S, causal, window, Sk)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> None:
+    _build.refuse_dtensor("flash_attention", q, k, v)
     for name, x in (("k", k), ("v", v)):
         if x.dtype != q.dtype:
             raise TypeError(f"flash_attention takes operands of one dtype, got q {q.dtype} "
@@ -172,6 +191,10 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, lse = block_attn_fwd(q, k, v, *_positions(B, S, Sk, q.device), causal, window,
                                   Q_CHUNK, KV_CHUNK)
         return out.to(q.dtype), lse.reshape(B, N, S)
+    if q.device.type == "meta":
+        _build.count_meta("flash_attention", operations(B, S, Sk, N, dh, causal, window))
+        out = q.new_empty(B, S, N * dh)
+        return (out, q.new_empty(B, N, S, dtype=torch.float32)) if return_lse else out
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no route for device {q.device}")
     out = torch.empty(B, S, N * dh, dtype=q.dtype, device=q.device)

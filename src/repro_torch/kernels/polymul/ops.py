@@ -7,9 +7,12 @@ the kernel (a block-Toeplitz product on the tensor cores for k a
 multiple of 16 up to 128 and for 256, 512 and 1024, the direct form on
 the FMA pipe for other k; see the source's note), which is compiled with ``nvcc`` for sm_90a at first use
 (``kernels/_build.py``) and bound through ``ctypes``; CPU tensors go to
-the plain version in ``ref.py``.  Any other device raises, as do k
-outside 2..1024, a dtype other than float32/bfloat16, operands of two
-dtypes and a CUDA operand that requires grad (the kernel has no backward).
+the plain version in ``ref.py``; a ``meta`` tensor gets an empty output
+of the product's shape (its :func:`operations` counted in
+``_build.meta_operations``).  Any other device raises, as do a DTensor
+operand, k outside 2..1024, a dtype other than float32/bfloat16,
+operands of two dtypes and a CUDA operand that requires grad (the kernel
+has no backward).
 
 Broadcasting: an operand that is broadcast only over a prefix of the
 leading dims (the (1, n, k) factor of a one-node level against (K, n, k)
@@ -80,7 +83,14 @@ def _operand(x: torch.Tensor, shape: torch.Size) -> Tuple[torch.Tensor, int]:
     return (rows.clone() if rows.data_ptr() % 16 else rows), period
 
 
+def operations(B: int, k: int) -> float:
+    """B products' operations as an FFT would do them, B·(7.5·k·log₂k +
+    6·(k/2 + 1)) (PERF.md §6's count for the bound)."""
+    return B * (7.5 * k * math.log2(k) + 6 * (k // 2 + 1))
+
+
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    _build.refuse_dtensor("poly_mul", a, b)
     for x in (a, b):
         if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"poly_mul takes float32 or bfloat16, got {x.dtype}")
@@ -103,9 +113,12 @@ def poly_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return poly_mul_ref(a, b)
     _build.refuse_grad("poly_mul", a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if a.device.type == "meta":
+        _build.count_meta("poly_mul", operations(math.prod(shape[:-1]), shape[-1]))
+        return a.new_empty(shape)
     if a.device.type != "cuda":
         raise RuntimeError(f"poly_mul: no route for device {a.device}")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out

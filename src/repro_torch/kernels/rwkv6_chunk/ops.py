@@ -10,10 +10,12 @@ the prefill's cache, written by the kernel (its plain version returns
 the state its loop carries).  CUDA tensors go to the kernel, which is
 compiled with ``nvcc`` for sm_90a at first use (``kernels/_build.py``)
 and bound through ``ctypes``; CPU tensors go to the plain version in
-``ref.py``.
-Any other device raises, as do a dtype other than float32, S not a
-multiple of ``chunk``, and a head size or chunk the kernel does not
-take (on the CPU too, so a shape that runs here runs on the card).
+``ref.py``; a ``meta`` tensor gets empty outputs of the kernel's shapes,
+and its :func:`operations` go to ``_build.meta_operations`` (the dry
+run's count).  Any other device raises, as do a DTensor operand, a dtype
+other than float32, S not a multiple of ``chunk``, and a head size or
+chunk the kernel does not take (on the CPU too, so a shape that runs
+here runs on the card).
 
 For a small batch the kernel cuts each sequence into :func:`segments`:
 a first launch walks every segment but the last for its state alone,
@@ -103,6 +105,7 @@ def _load_bwd() -> ctypes.CDLL:
 
 
 def _check(r, k, v, logw, u, chunk: int) -> None:
+    _build.refuse_dtensor("rwkv6_chunk", r, k, v, logw, u)
     for name, x in (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u)):
         if x.dtype != torch.float32:
             raise TypeError(f"rwkv6_chunk takes float32, got {name} of {x.dtype}")
@@ -197,13 +200,30 @@ def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
     return _forward(r, k, v, logw, u, chunk, return_state)
 
 
+def operations(B: int, S: int, H: int, hs: int, chunk: int) -> int:
+    """The chunked WKV's operations: per chunk c and head, the pairwise
+    decays of the strictly lower triangle (a difference, an exponential, two
+    products and a sum a key: 5·c(c−1)/2·hs), the bonus diagonal (3·c·hs),
+    A·v over the lower triangle and its diagonal (c(c+1)·hs), the two state
+    products (4·c·hs²), the state's decay (2·hs²) and the elementwise
+    cumsum, decays and sum (7·c·hs).  The backward counts twice that."""
+    c = chunk
+    per = (5 * c * (c - 1) // 2 * hs + 3 * c * hs + c * (c + 1) * hs + 4 * c * hs * hs
+           + 2 * hs * hs + 7 * c * hs)
+    return B * H * (S // c) * per
+
+
 def _forward(r, k, v, logw, u, chunk: int, return_state: bool):
     """The WKV of checked inputs: the kernel on CUDA, the plain version on the CPU."""
     if r.device.type == "cpu":
         return rwkv6_chunk_ref(r, k, v, logw, u, chunk, return_state=return_state)
+    B, S, H, hs = r.shape
+    if r.device.type == "meta":
+        _build.count_meta("rwkv6_chunk", operations(B, S, H, hs, chunk))
+        out = torch.empty_like(r, memory_format=torch.contiguous_format)
+        return (out, r.new_empty(B, H, hs, hs)) if return_state else out
     if r.device.type != "cuda":
         raise RuntimeError(f"rwkv6_chunk: no route for device {r.device}")
-    B, S, H, hs = r.shape
     if r.numel() == 0:
         out = torch.empty_like(r, memory_format=torch.contiguous_format)
         state = torch.zeros(B, H, hs, hs, dtype=torch.float32, device=r.device)
@@ -219,15 +239,20 @@ def rwkv6_chunk_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: tor
     of :func:`rwkv6_chunk`'s output (zero initial state) against ``do``:
     the backward kernel on CUDA tensors, ``ref.rwkv6_chunk_bwd_ref`` on CPU
     tensors; the shapes :func:`rwkv6_chunk` takes, ``do`` of r's shape."""
+    _build.refuse_dtensor("rwkv6_chunk_bwd", do)
     _check(r, k, v, logw, u, chunk)
     if do.dtype != torch.float32 or do.shape != r.shape or do.device != r.device:
         raise ValueError(f"rwkv6_chunk_bwd takes do of r's shape, dtype and device, got "
                          f"{tuple(do.shape)} {do.dtype} on {do.device}")
     if r.device.type == "cpu":
         return rwkv6_chunk_bwd_ref(r, k, v, logw, u, do, chunk)
+    B, S, H, hs = r.shape
+    if r.device.type == "meta":
+        _build.count_meta("rwkv6_chunk_bwd", 2 * operations(B, S, H, hs, chunk))
+        return (*(torch.empty_like(r, memory_format=torch.contiguous_format) for _ in range(4)),
+                torch.empty_like(u, memory_format=torch.contiguous_format))
     if r.device.type != "cuda":
         raise RuntimeError(f"rwkv6_chunk_bwd: no route for device {r.device}")
-    B, S, H, hs = r.shape
     if r.numel() == 0:
         return (*(torch.zeros_like(r) for _ in range(4)), torch.zeros_like(u))
     args = [_aligned(x) for x in (r, k, v, logw, u, do)]

@@ -4,7 +4,9 @@
 and returns (K, n_keys, C) in float32.  CUDA tensors go to the kernel,
 which is compiled with ``nvcc`` for sm_90a at first use into
 ``src/repro_torch/_build/`` and bound through ``ctypes``; CPU tensors
-go to the plain version in ``ref.py``.  A tensor on any other device,
+go to the plain version in ``ref.py``; a ``meta`` tensor gets an empty
+output of the kernel's shape (its K·n·C additions counted in
+``_build.meta_operations``).  A tensor on any other device, a DTensor,
 or one the kernel does not take, raises, as does a CUDA tensor that
 requires grad (the kernel has no backward).
 
@@ -196,6 +198,7 @@ def _check_cuda(vals: torch.Tensor, seg: Segments) -> None:
 
 def segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
     """out[k, key, c] = Σ_{r : ids[r] = key} vals[k, r, c], in float32."""
+    _build.refuse_dtensor("segment_sum", vals)
     if vals.dim() != 3:
         raise ValueError(f"segment_sum takes (K, n, C) values, got shape {tuple(vals.shape)}")
     K, n, C = vals.shape
@@ -205,6 +208,9 @@ def segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
     if vals.device.type == "cpu":
         return segment_sum_ref(vals, seg.order, seg.offsets)
     _build.refuse_grad("segment_sum", vals)
+    if vals.device.type == "meta":
+        _build.count_meta("segment_sum", K * n * C)
+        return vals.new_empty((K, seg.n_keys, C), dtype=torch.float32)
     if vals.device.type != "cuda":
         raise RuntimeError(f"segment_sum: no route for device {vals.device}")
     _check_cuda(vals, seg)

@@ -2,9 +2,15 @@
 accumulation, optional count-sketch gradient compression, clip, AdamW)
 → watchdog → async checkpoints → bounded retries of the gradient stage.
 
-The port of the reference's ``launch/train.py`` on one device: there is
-no mesh.  Weights are random from a seed; the data is the reference's
-synthetic token stream (``data/``), batch for batch the same ids; a
+The port of the reference's ``launch/train.py``: ``main`` builds the host
+mesh (``launch.mesh.make_host_mesh``: every rank of the world as (data,
+model), (1, 1) on one card; a ``torchrun`` world of several ranks joins
+from the environment) and places the parameters, AdamW's state and every
+batch on it by the reference's rules (``distributed/sharding.py``), as
+the reference's ``main`` does; the step then runs placed
+(``launch/steps.py``).  ``build(args)`` without a mesh gives the plain
+one-process trainer.  Weights are random from a seed; the data is the
+reference's synthetic token stream (``data/``), batch for batch the same ids; a
 caller may put a ``TokenPipeline`` with ``example_weights`` in
 ``Trainer.pipe`` (the step reads a batch's tokens and ignores its
 ``doc_ids``).  A front end's batch adds the reference's stubs
@@ -25,7 +31,9 @@ parameters and AdamW's state; ``--resume`` restores the newest one and
 goes on from its label, the pipeline sought there, so a resumed run ends
 bit for bit where an uninterrupted one does.  (The reference labels an
 intermediate save one update short and keeps no compressor state:
-ROADMAP §3.)  A failed gradient stage is run again
+ROADMAP §3.)  ``--resume`` restores onto the run's mesh through
+``runtime/elastic.restore_elastic``, whatever mesh wrote the checkpoint.
+A failed gradient stage is run again
 (it changes no state); a failure in the compressor or the optimizer,
 which update the state in place, ends the run, and ``--resume`` goes on
 from the newest checkpoint.
@@ -53,21 +61,28 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.core.schema import resolve_device
 from repro_torch.data import TokenPipeline
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import join_world, make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model, stack_layers
 from repro_torch.optim import CountSketchCompressor, adamw
+from repro_torch.runtime.elastic import restore_elastic
 from repro_torch.runtime.fault import StepWatchdog, run_with_retries
+from repro_torch.tree import map_tree
 
 
 @dataclasses.dataclass
 class Trainer:
     """Everything one run holds: the model, its stacked parameters and
-    optimizer state, the step function, the compressor and the pipeline."""
+    optimizer state, the step function, the compressor, the pipeline and
+    the mesh they are placed on (None: plain tensors, one process)."""
     model: Model
     ocfg: adamw.AdamWConfig
     params: Dict[str, Any]
@@ -75,6 +90,8 @@ class Trainer:
     step_fn: Any
     compressor: Any
     pipe: TokenPipeline
+    mesh: Any = None
+    history: list = dataclasses.field(default_factory=list)   # per step: seconds, metrics
 
     def state(self) -> tuple:
         """The checkpoint's tree: (params, OptState), and the compressor's
@@ -89,7 +106,10 @@ class Trainer:
             self.compressor.load_state_tree(tree[2])
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.model.device) for k, v in next(self.pipe).items()}
+        """The pipeline's next batch on the model's device, placed on the
+        mesh (rows over dp) where there is one."""
+        b = {k: torch.from_numpy(v).to(self.model.device) for k, v in next(self.pipe).items()}
+        return b if self.mesh is None else sharding.place(b, sharding.batch_shardings(self.mesh, b))
 
     def step(self, batch, on_failure=None) -> Dict[str, torch.Tensor]:
         """One train step on ``batch``.  The gradient stage is retried on
@@ -108,6 +128,16 @@ class Trainer:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return metrics
+
+
+def state_shardings(mesh, state: tuple) -> tuple:
+    """Where :meth:`Trainer.state`'s leaves go on ``mesh``: the parameters
+    by the rules, AdamW's state as the reference's dry run places it, the
+    compressor's round and error feedback unplaced (whole on every rank:
+    the compressor sees each leaf whole)."""
+    pshard = sharding.param_shardings(mesh, state[0])
+    out = (pshard, sharding.opt_shardings(mesh, pshard, state[1]))
+    return out if len(state) == 2 else (*out, map_tree(lambda _: sharding.UNPLACED, state[2]))
 
 
 def make_batch_for(cfg, gen: SyntheticLM, rng, B: int, S: int) -> Dict[str, Any]:
@@ -146,9 +176,10 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args) -> Trainer:
+def build(args, mesh=None) -> Trainer:
     """The run that ``args`` describes, before its first step (the
-    pipeline's thread is running: ``trainer.pipe.stop()`` ends it)."""
+    pipeline's thread is running: ``trainer.pipe.stop()`` ends it), its
+    parameters and AdamW's state placed on ``mesh`` where one is given."""
     cfg = (configs.get if args.full else configs.get_smoke)(args.arch)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
@@ -160,19 +191,39 @@ def build(args) -> Trainer:
     stub = cfg.frontend is not None or cfg.kind == "encdec"
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=1, make_batch=functools.partial(
         make_batch_for, cfg, SyntheticLM(cfg.vocab, seed=1)) if stub else None)
-    return Trainer(model, ocfg, params, adamw.init(ocfg, params),
+    opt_state = adamw.init(ocfg, params)
+    if mesh is not None:
+        shard = state_shardings(mesh, (params, opt_state))
+        params, opt_state = sharding.place(params, shard[0]), sharding.place(opt_state, shard[1])
+    return Trainer(model, ocfg, params, opt_state,
                    make_train_step(model, ocfg, args.n_micro, compressor=compressor),
-                   compressor, pipe)
+                   compressor, pipe, mesh)
 
 
 def main(argv=None):
+    """Train as ``argv`` says; returns the final parameters, whole (plain
+    tensors).  Leaves the process group it joined, if it joined one."""
     args = parser().parse_args(argv)
-    tr = build(args)
+    resolve_device(args.device)                 # a CUDA device on a host without one raises
+    joined = join_world(args.device)
+    try:
+        return sharding.gathered(run(args, make_host_mesh(args.device)).params)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def run(args, mesh=None) -> Trainer:
+    """``main``'s run on ``mesh`` (None: plain tensors): resume if asked,
+    the steps (each one's host seconds and metrics in ``Trainer.history``),
+    the checkpoints, the last one blocking; returns the trainer."""
+    tr = build(args, mesh)
     ckpt = Checkpointer(args.ckpt_dir)
     start = 0
     if args.resume and ckpt.latest_step() is not None:
         start = ckpt.latest_step()              # the updates it holds: the next step's index
-        tr.load_state(ckpt.restore(start, tr.state()))
+        tr.load_state(ckpt.restore(start, tr.state()) if mesh is None else
+                      restore_elastic(ckpt, start, tr.state(), mesh, state_shardings))
         tr.pipe.seek(start)
         print(f"resumed from step {start}")
     wd = StepWatchdog(on_straggler=lambda s, dt, ema: print(
@@ -182,10 +233,12 @@ def main(argv=None):
     try:
         for step in range(start, args.steps):
             batch = tr.next_batch()
+            t0 = time.perf_counter()
             with wd.time_step(step):
                 metrics = tr.step(batch, on_failure=lambda a, e: print(f"[retry {a}] {e}"))
+            m = {k: float(v) for k, v in metrics.items()}
+            tr.history.append({"step": step, "s": time.perf_counter() - t0, **m})
             if step % args.log_every == 0 or step == args.steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}
                 print(json.dumps({"step": step, **{k: round(v, 4) for k, v in m.items()}}))
             done = step + 1                     # updates the state now holds
             if args.ckpt_every and done % args.ckpt_every == 0 and done < args.steps:
@@ -194,7 +247,7 @@ def main(argv=None):
         print(f"done in {time.time() - t_start:.1f}s; straggler steps: {wd.straggler_steps}")
     finally:
         tr.pipe.stop()
-    return tr.params
+    return tr
 
 
 if __name__ == "__main__":

@@ -71,6 +71,15 @@ as the reference's), a layer
   counts the caller's token positions (prompt and decode tokens); the
   model adds its M meta and P patch positions itself, here and in
   :meth:`Model.init_cache`.
+
+On a mesh (``distributed/sharding.py``) the parameters (and a decode
+cache's layers) may hold :class:`~repro_torch.distributed.sharding.Placed`
+leaves: each block takes its own leaves whole (``sharding.take``) before
+it computes, inside its activation checkpoint, so a recompute gathers
+again and the peak holds one block's weights; the embedding, the final
+norm and the head are taken where they are read.  On plain tensors
+``take`` is the identity.  ``sharding.constrain`` marks the reference's
+ten activation constraints (its ``models/lm.py``), no-ops outside a mesh.
 """
 from __future__ import annotations
 
@@ -80,6 +89,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.schema import resolve_device
+from ..distributed.sharding import constrain, take
 from . import layers as L
 from . import moe as MOE
 from . import rwkv6 as RWKV
@@ -154,6 +164,11 @@ def layer_views(params) -> Dict[str, Any]:
     return {**params, **{k: views(params[k]) for k in STACKS if k in params}}
 
 
+def _pick(p, name: str):
+    """``{name: p[name]}`` taken whole (the one leaf of ``p`` that is read)."""
+    return {name: take(p[name])}
+
+
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).repeat(B, 1)
 
@@ -193,15 +208,16 @@ class Model:
         patches (``frontend="patches"``, where the batch holds them) and
         the token embeddings, and the prefix length M + P."""
         cfg = self.cfg
-        h = L.embed(params["embed"], torch.as_tensor(batch["tokens"]).to(self.device).long())
+        h = L.embed(_pick(params["embed"], "tok"),
+                    torch.as_tensor(batch["tokens"]).to(self.device).long())
         n_prefix = 0
         if cfg.frontend == "patches" and "patches" in batch:
             patches = torch.as_tensor(batch["patches"]).to(device=self.device, dtype=h.dtype)
             h, n_prefix = torch.cat([patches, h], 1), patches.shape[1]
         if cfg.meta_tokens:
-            meta = params["meta"][None].expand(h.shape[0], -1, -1)
+            meta = take(params["meta"])[None].expand(h.shape[0], -1, -1)
             h, n_prefix = torch.cat([meta, h], 1), n_prefix + cfg.meta_tokens
-        return h, n_prefix
+        return constrain(h, "dp", None, None), n_prefix
 
     def _encode(self, params, batch, remat: bool = False):
         """The encoder's output (B, Se, D) after ``enc_ln_f``, its positions
@@ -211,12 +227,14 @@ class Model:
         x = torch.as_tensor(batch["src_frames"]).to(device=self.device, dtype=_dtype(cfg))
         pos = _positions(x.shape[0], x.shape[1], self.device)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        x = constrain(x, "dp", "tp", None)
         for p in params["enc_layers"]:
             args = (p, x, pos, None, None, False)
             x, a = (torch.utils.checkpoint.checkpoint(self._block_train, *args, use_reentrant=False)
                     if remat else self._block_train(*args))
+            x = constrain(x, "dp", "tp", None)
             aux = aux + a
-        return L.rmsnorm(x, params["enc_ln_f"]["scale"], cfg.norm_eps), pos, aux
+        return L.rmsnorm(x, take(params["enc_ln_f"]["scale"]), cfg.norm_eps), pos, aux
 
     # -------------------------------------------------------------- loss --
     def loss(self, params, batch):
@@ -243,14 +261,17 @@ class Model:
         h, n_prefix = self._embed_inputs(params, batch)
         positions = _positions(h.shape[0], h.shape[1], self.device)   # prefixes counted
         block = self._block_train_rwkv if cfg.kind == "rwkv" else self._block_train
+        h = constrain(h, "dp", "tp", None)
         for p, w in zip(params["layers"], self.windows):
             args = (p, h, positions, w, enc)
             h, a = (torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
                     if cfg.remat else block(*args))
+            h = constrain(h, "dp", "tp", None)
             aux = aux + a
-        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)[:, n_prefix:]
+        h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)[:, n_prefix:]
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
-        logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h[:, :-1]).float())
+        logits = constrain(L.unembed(self._head(params), cfg, h[:, :-1]).float(), "dp", None, "tp")
+        logits = L.mask_pad_logits(cfg, logits)
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
         mask = (torch.ones(targets.shape, dtype=torch.float32, device=self.device) if mask is None
@@ -262,6 +283,10 @@ class Model:
         zloss = 1e-4 * torch.square(lse * mask).sum() / denom
         return loss + zloss + aux, {"ce": loss, "aux": aux, "tokens": denom}
 
+    def _head(self, params):
+        """The embedding leaf the logits read, taken whole."""
+        return _pick(params["embed"], "tok" if self.cfg.tie_embeddings else "head")
+
     def _block_train(self, p, x, positions, window: Optional[int] = None, enc=None,
                      causal: bool = True):
         """One dense, hybrid, moe or encdec block of the training forward
@@ -270,20 +295,22 @@ class Model:
         ``causal=False`` for an encoder block.  Returns (x, the block's MoE
         aux loss, zero for other kinds)."""
         cfg = self.cfg
-        h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+        p = take(p)
+        h = constrain(L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps), "dp", None, None)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
         out = L.attend(p["attn"], q, k, v, causal, kv_chunk=cfg.kv_chunk, window=window)
         if cfg.kind == "hybrid":
             out = _mix(p, cfg, out, SSM.ssm_branch(p["ssm"], cfg, h))
-        x = x + out
+        x = x + constrain(out, "dp", None, None)
         if enc is not None:
-            x = x + self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc))
-        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+            x = x + constrain(self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc)),
+                              "dp", None, None)
+        h2 = constrain(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), "dp", None, None)
         if cfg.kind == "moe":
             out, aux = MOE.moe_ffn(p["moe"], cfg, h2)
-            return x + out, aux
-        return x + L.mlp(p["mlp"], cfg, h2), torch.zeros((), dtype=torch.float32,
-                                                          device=x.device)
+            return x + constrain(out, "dp", None, None), aux
+        return x + constrain(L.mlp(p["mlp"], cfg, h2), "dp", None, None), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
 
     def _cross(self, p, x, xk, xv):
         """A decoder block's cross-attention output over the encoder's
@@ -297,6 +324,7 @@ class Model:
         ``block_train``: its WKV carries a gradient through the
         rwkv6_chunk kernels' ``autograd.Function``, from a zero state."""
         cfg = self.cfg
+        p = take(p)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         x = x + RWKV.time_mix(p["mix"], cfg, h)
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
@@ -330,8 +358,8 @@ class Model:
                                            w, cache.get("enc_out"))
             layers.append(lc)
         cache.update(layers=layers, pos=torch.full((B,), S, dtype=torch.int32, device=self.device))
-        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
-        logits = L.unembed(params["embed"], cfg, h[:, -1]).float()
+        h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
+        logits = L.unembed(self._head(params), cfg, h[:, -1]).float()
         return L.mask_pad_logits(cfg, logits), cache
 
     def _prefill_rwkv(self, p, x):
@@ -339,6 +367,7 @@ class Model:
         (the reference reruns the projections and takes the state in a
         second pass over the sequence)."""
         cfg = self.cfg
+        p = take(p)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         heads, g = RWKV.wkv_inputs(p["mix"], cfg, h)
         tm, S_fin = RWKV.time_mix_out(p["mix"], cfg, h, heads, g, return_state=True)
@@ -355,6 +384,7 @@ class Model:
         reference computes both twice); a decoder block of encdec keeps its
         cross-attention's k, v of ``enc``."""
         cfg = self.cfg
+        p = take(p)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
         out = L.attend(p["attn"], q, k, v, window=window)
@@ -378,9 +408,9 @@ class Model:
         encoder's output, plain (one query a sequence: no kernel)."""
         cfg = self.cfg
         pos = cache["pos"]
-        if cfg.kind != "rwkv":
+        if cfg.kind != "rwkv" and pos.device.type != "meta":     # meta: no values to check
             self._check_room(cache, int(pos.max()))
-        h = L.embed(params["embed"], tokens.to(self.device)[:, None])
+        h = L.embed(_pick(params["embed"], "tok"), tokens.to(self.device)[:, None])
         layers = []
         for i, (p, lc) in enumerate(zip(params["layers"], cache["layers"])):
             if cfg.kind == "rwkv":
@@ -388,12 +418,13 @@ class Model:
             else:
                 h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i])
             layers.append(new_lc)
-        h = L.rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
-        logits = L.mask_pad_logits(cfg, L.unembed(params["embed"], cfg, h).float()[:, 0])
+        h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
+        logits = L.mask_pad_logits(cfg, L.unembed(self._head(params), cfg, h).float()[:, 0])
         return logits, {**cache, "layers": layers, "pos": pos + 1}
 
     def _decode_rwkv(self, p, x, lc):
         cfg = self.cfg
+        p, lc = take(p), take(lc)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         out, st = RWKV.time_mix_step(p["mix"], cfg, h, {"S": lc["S"], "x_last": lc["x_last_tm"]})
         x = x + out
@@ -416,6 +447,7 @@ class Model:
 
     def _decode_attn(self, p, x, lc, pos, window: Optional[int]):
         cfg = self.cfg
+        p, lc = take(p), take(lc)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         out, k_new, v_new = L.decode_attention(p["attn"], cfg, h, lc["k"], lc["v"], lc["kpos"],
                                                pos, layer_window=window)

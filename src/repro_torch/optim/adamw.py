@@ -71,10 +71,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
 
 
-def apply(cfg: AdamWConfig, params, grads, state: OptState):
+def apply(cfg: AdamWConfig, params, grads, state: OptState, gn=None):
     """One AdamW step with averaged ``grads``; updates ``params`` and the
-    moments in place.  Returns (params, state, {"grad_norm", "lr"})."""
-    gn = global_norm(grads)
+    moments in place.  Returns (params, state, {"grad_norm", "lr"}).
+    ``gn``: the gradient's global norm where the caller has it (a placed
+    step's leaves are the rank's shards: their norm is not the whole's)."""
+    gn = global_norm(grads) if gn is None else gn
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     step = int(state.step) + 1
     lr = schedule(cfg, step)

@@ -220,8 +220,9 @@ def test_decode_attention_runs_in_float32_on_a_bf16_cache():
 
 
 def test_attention_routes():
-    """The prefill's attention takes the kernel's wrapper (which has no
-    route for a meta tensor), with a window too; a windowed config builds,
+    """The prefill's attention takes the kernel's wrapper (whose route for
+    a meta tensor gives the kernel's shapes, launching nothing), with a
+    window too; a windowed config builds,
     its layers' windows as the config gives them, while a front end or a
     encdec config is still refused where the model is built, on every
     device, rather than run some other way."""
@@ -230,10 +231,11 @@ def test_attention_routes():
     B, S, N, Kh, dh = 2, 8, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q = torch.randn(B, S, N, dh, device="meta")
     k = v = torch.randn(B, S, Kh, dh, device="meta")
-    with pytest.raises(RuntimeError, match="no route"):
-        L.attend(w, q, k, v)
-    with pytest.raises(RuntimeError, match="no route"):
-        L.attend(w, q, k, v, window=4)
+    w = {name: t.to("meta") for name, t in w.items()}
+    before = ops.launches
+    assert L.attend(w, q, k, v).shape == (B, S, cfg.d_model)
+    assert L.attend(w, q, k, v, window=4).device.type == "meta"
+    assert ops.launches == before
     windowed = Model(cfg.replace(window=4, global_layers=(0,)), device="cpu")
     assert windowed.windows == [None] + [4] * (cfg.n_layers - 1)
     patches = Model(cfg.replace(frontend="patches"), device="cpu")

@@ -104,8 +104,7 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError):
         poly_mul(torch.zeros(2, 8), torch.zeros(2, 16))
     m = torch.zeros(2, 8, device="meta")
-    with pytest.raises(RuntimeError, match="no route"):
-        poly_mul(m, m)
+    assert poly_mul(m, m).shape == (2, 8)          # meta: the kernel's shape, no launch
 
 
 # ------------------------------------------- the kernel's block-Toeplitz form --

@@ -220,8 +220,8 @@ def test_backward_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         ops.rwkv6_chunk_bwd(r.double(), k, v, logw, u, do, 8)
     meta = [t.to("meta") for t in (r, k, v, logw, u, do)]
-    with pytest.raises(RuntimeError, match="no route"):
-        ops.rwkv6_chunk_bwd(*meta, 8)
+    got = ops.rwkv6_chunk_bwd(*meta, 8)                 # meta: the kernel's shapes, no launch
+    assert [g.shape for g in got] == [r.shape] * 4 + [u.shape]
 
 
 def test_cpu_route_is_the_plain_backward():
