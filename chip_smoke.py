@@ -95,8 +95,11 @@ Phases (any failure exits non-zero):
      = S) and its cross-attention (8, 512 queries, 2,048 keys, 16, 16, 64,
      bf16), and an odd float32 shape (2, 40 queries, 70 keys, 8, 2, 32:
      off both tiles); LLaVA-NeXT-34B's prefill (1, 2048, 56, 8, 128, G 7,
-     bf16).  A
-     windowed row's bound counts the band's pairs, Σ_i min(i + 1, w), and
+     bf16).  Phase 20 (d)'s shapes on a tp rank's 16 local heads of
+     TinyLlama's 32 and their 2 K/V heads: the bf16 training forward with
+     its lse at a microbatch (1, 2048, 16, 2, 64), the bf16 prefill (8,
+     2048, 16, 2, 64) and the float32 twin's training forward with its
+     lse (2, 2048, 16, 2, 64).  A windowed row's bound counts the band's pairs, Σ_i min(i + 1, w), and
      its library call is ``scaled_dot_product_attention`` with a boolean
      band mask.  Before the cases, the
      built library's SASS (``cuobjdump``, found beside ``nvcc`` or in
@@ -306,7 +309,10 @@ Phases (any failure exits non-zero):
    float32; scores do not read labels), trees and scores; each rank
    builds the schema itself.  With the counts at 0, each rank runs (a)
    phase 2's trees compiled under the mesh, ``score_grouped`` by every
-   table; (b) phase 2's fit config (5 trees, depth 3, sketch, no SSR);
+   table; (b) phase 2's fit config (5 trees, depth 3, sketch, no SSR)
+   on the first ``DP_FIT_ROWS`` = 2²⁰ of its 2²² fact rows (the whole
+   table took 61-77 s over the host, most of it all-gathers of
+   fact-sized grouped outputs, whose bytes scale with the rows);
    (c) a ``MaintainedScorer`` through 4 ``delta_stream`` batches of 8
    ops (labels snapped), both roots after each; then, outside the count,
    the one-process fit and scorer.  Gates on every rank: (a) ``tot`` and
@@ -405,7 +411,8 @@ Phases (any failure exits non-zero):
    ``launch/train.py``'s ``build`` and ``launch/steps.make_train_step``:
    global batch 8 × 2,048 tokens (2,176 positions a row with the 128 meta
    tokens), 8 microbatches, remat, count-sketch compression 8 with error
-   feedback, AdamW; 4 steps after an untimed warm-up step.  Every training
+   feedback, AdamW; ``HYMBA_STEPS`` = 2 steps (4 before phase 20 (d) needed
+   the time) after an untimed warm-up step.  Every training
    attention's forward is the flash_attention kernel with the layer's
    window and its lse; its backward is the plain ``ref.block_attn_bwd``
    over the window's band (the reference has no backward kernel).  Gates:
@@ -535,7 +542,32 @@ Phases (any failure exits non-zero):
    a microbatch.  Prints each record's bytes, flops, census and
    ``lower_s``.  The cells need no card: they start right after the build,
    run beside phases 1-19 on two of the host's cores, and are collected
-   here.
+   here.  Both are dense, so they run tensor- and sequence-parallel over
+   the 16 "model" ranks.  (d) Tensor and sequence parallelism on the card
+   (``distributed/tp.py``): TinyLlama-1.1B on a (1, 2) mesh, two processes
+   spawned on ``cuda:0`` in a gloo group, every collective staged through
+   the host (the transport for two ranks sharing one card; its times are
+   gloo's through the host, not NVLink's).  This process first makes the
+   references and frees them: the plain trainer's two bf16 steps (4 ×
+   2,048, 4 microbatches, compression 8) on the run's seed and batches, and
+   the plain-served bf16 model's prefill of 8 × 2,048 and 16 greedy decode
+   steps beside its float32 twin's (the same weights upcast, the same
+   tokens fed).  Each rank then runs (1) a float32 step of the model cut
+   to 4 layers on the mesh against the plain trainer's on the same seed
+   and 2 × 2,048 batch: loss within 1e-5 relative, every gradient leaf
+   within 1e-4·max|g|; then, the counts at 0, (2) two bf16 steps of the
+   plain trainer's configuration through ``launch/train.py``'s ``build``
+   on the mesh: losses finite, step 1's within 1e-2 relative of the plain
+   trainer's, flash_attention 2 · 22 · 4 launches a step (22 a microbatch
+   forward, twice under remat), each on the rank's 16 heads, 12 sketches
+   and 12 unsketches a step; (3) ``steps.placed_prefill`` of the 8 × 2,048
+   prompt with room for 16 tokens, 22 launches on 16 heads, then 16
+   ``placed_decode`` steps of the fed tokens on the sequence-sharded
+   cache, no launch: every step's logits (rank 0's, gathered) no further
+   from the float32 twin's than 2× the plain-served bf16 model's largest
+   distance to them.  Prints per rank the step ms, prefill ms, decode ms
+   a token, peak memory, the shards' shapes and the bytes staged through
+   the host.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -1144,6 +1176,10 @@ def phase_attn(ops, ref, dev="cuda"):
         ("seamless_cross_8x512x2048", 8, 512, 16, 16, 64, False, bf16, None, False, 2048),
         ("cross_2x40x70_f32", 2, 40, 8, 2, 32, False, f32, None, False, 70),   # odd, both tiles
         ("llava_1x2048_g7", 1, 2048, 56, 8, 128, True, bf16),   # phase 19: LLaVA's G 7
+        # phase 20 (d): a tp rank's 16 local heads of TinyLlama's 32 and their 2 K/V heads
+        ("tp_train_1x2048_lse", 1, 2048, 16, 2, 64, True, bf16, None, True),  # a microbatch
+        ("tp_prefill_8x2048", 8, 2048, 16, 2, 64, True, bf16),
+        ("tp_twin_2x2048_f32_lse", 2, 2048, 16, 2, 64, True, f32, None, True),  # the f32 twin
     ]
     recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None,
                       with_lse=len(c) > 9 and c[9], Sk=c[10] if len(c) > 10 else None)
@@ -1268,6 +1304,12 @@ def phase_sketch(ops, ref, dev="cuda"):
         ("hymba_vec_leaf", 51_200, 1 << 13),              # ln1, ln2, bn_a, bn_s; ssm Dskip
         ("hymba_ln_f_leaf", 1_600, 1 << 8),               # ln_f
         ("hymba_decay_leaf", 800, 1 << 7),                # ssm dt_bias, A_log (32 × 25)
+        # seamless-M4T-medium's stacked leaves (phase 18): 12 + 12 layers, d 1024, d_ff 4096
+        ("seamless_embed_leaf", 262_668_288, 1 << 25),    # embed.tok, embed.head (256,512 × 1024)
+        ("seamless_mlp_leaf", 50_331_648, 1 << 23),       # w_up, w_down, encoder and decoder
+        ("seamless_attn_leaf", 12_582_912, 1 << 21),      # wq, wk, wv, wo; xattn's (12 × 1024²)
+        ("seamless_norm_leaf", 12_288, 1 << 11),          # ln1, ln2, ln_x (12 × 1024)
+        ("seamless_ln_f_leaf", 1_024, 1 << 8),            # ln_f, enc_ln_f
     ]
     return [sketch_case(ops, ref, *c, dev=dev) for c in cases]
 
@@ -2961,6 +3003,7 @@ DP_WORLD = 2                       # ranks sharing the one card over gloo
 DP_ROOTS = ("fact", "dim0")
 DP_BATCHES, DP_OPS = 4, 8          # delta_stream batches and ops a batch, (c)
 DP_TIMEOUT_S = 600.0               # every rank joined within this, or the phase fails
+DP_FIT_ROWS = 1 << 20              # (b)'s fits: the first 2^20 of phase 2's fact rows
 
 
 def snap16(x):
@@ -3033,6 +3076,9 @@ def dp_work(rank: int, world: int, inp: dict, dev: str) -> dict:
                                for c, v in cols.items()}, fc)
                      for n, cols, fc in inp["tables"]], label=(lt, lc), device=dev)
     schema_s = time.perf_counter() - t0
+    fit_schema = Schema([Table(t.name, {c: v[:DP_FIT_ROWS] for c, v in t.columns.items()}
+                               if t.name == "fact" else t.columns, t.feature_columns)
+                         for t in schema.tables], label=(lt, lc), device=dev)
     trees = [TreeArrays(*(x.to(dev) for x in t)) for t in inp["trees"]]
     cfg = BoostConfig(n_trees=5, depth=3, mode="sketch", ssr_mode="off")   # phase 2's fit
     names = schema.names
@@ -3067,7 +3113,7 @@ def dp_work(rank: int, world: int, inp: dict, dev: str) -> dict:
     del ens
     t0 = time.perf_counter()
     with spmd.use_data_mesh(mesh):
-        booster = Booster(schema, cfg)
+        booster = Booster(fit_schema, cfg)
     fit_n, _ = booster.fit()
     sync(dev)
     fit_s = time.perf_counter() - t0
@@ -3101,7 +3147,7 @@ def dp_work(rank: int, world: int, inp: dict, dev: str) -> dict:
     # the one-process references, outside the counted run
     with spmd.use_data_mesh(None):
         t0 = time.perf_counter()
-        fit_1, _ = Booster(schema, cfg).fit()
+        fit_1, _ = Booster(fit_schema, cfg).fit()
         sync(dev)
         fit1_s = time.perf_counter() - t0
         ms1 = MaintainedScorer(compile_ensemble(schema, trees))
@@ -3135,6 +3181,7 @@ def dp_work(rank: int, world: int, inp: dict, dev: str) -> dict:
                              f"{edges}")
     return {"rank": rank, "schema_s": schema_s, "main_s": main_s, "pass_ms": pass_ms,
             "fit_s": fit_s, "fit_one_process_s": fit1_s, "batch_ms": batch_ms,
+            "fit_rows": fit_schema.table("fact").n_rows,
             "launches": launches, "edges": edges, "collectives": coll, "peak_gib": peak_gib,
             "queries": {"scores": c_a.count, "fit": booster.counter.count,
                         "maintain_edges": c_c.edges}}
@@ -3180,7 +3227,8 @@ def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
     for r in ranks:
         c = r["collectives"]
         log(f"  rank {r['rank']}: schema {r['schema_s']:.2f} s, main path {r['main_s']:.2f} s, "
-            f"fit {r['fit_s']:.2f} s (one process {r['fit_one_process_s']:.2f} s), "
+            f"fit {r['fit_s']:.2f} s on {r['fit_rows']} fact rows (one process "
+            f"{r['fit_one_process_s']:.2f} s), "
             f"launches {r['launches']} = edges {r['edges']}, peak {r['peak_gib']:.2f} GiB")
         log(f"    all-reduce a message: n {c['all_reduce']['n']}, p50 "
             f"{c['all_reduce']['p50_ms']} / p99 {c['all_reduce']['p99_ms']} ms, "
@@ -3366,6 +3414,7 @@ def phase_rwkv_train(wops, cops, other_ops, weights, steps: int = 4, batch: int 
 
 
 HYMBA_TRAIN_KINDS = ("ssm_branch", "attention_bwd")    # record_function ranges, phase 14
+HYMBA_STEPS = 2                    # phase 14's timed steps (cut from 4 for phase 20 (d)'s time)
 
 
 def phase_hymba_train(fops, cops, other_ops, sketch_shapes, steps: int = 4, batch: int = 8,
@@ -4120,6 +4169,375 @@ def phase_placed(fops, cops, other_ops, dev="cuda", argv=PLACED_ARGS) -> dict:
             dist.destroy_process_group()
 
 
+# ------------------------------------------------------------- phase 20 (d) --
+TP_WORLD = 2                       # ranks sharing the one card over gloo: a (1, 2) mesh
+TP_TIMEOUT_S = 900.0               # every rank joined within this, or the phase fails
+TP_TRAIN = dict(batch=4, seq=2048, n_micro=4, steps=2)
+TP_SERVE = dict(batch=8, prompt=2048, decode=16)
+TP_TWIN = dict(layers=4, batch=2, seq=2048)
+TP_LOSS_RTOL = 1e-2                # bf16 step 1 against the plain trainer's
+TP_NOISE = 2.0                     # logits: within this times the plain bf16 model's distance
+
+
+def tp_train_argv(dev):
+    return ("--arch", "tinyllama_1_1b", "--full", "--steps", str(TP_TRAIN["steps"]), "--batch",
+            str(TP_TRAIN["batch"]), "--seq", str(TP_TRAIN["seq"]), "--n-micro",
+            str(TP_TRAIN["n_micro"]), "--compress-grads", "8", "--ckpt-every", "0",
+            "--device", dev)
+
+
+def tp_weights(cfg, dev):
+    """The run's weights: TinyLlama's init from seed 0, stacked (the
+    trainer's ``build``)."""
+    from repro_torch.models import Model, stack_layers
+
+    return stack_layers(Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0)))
+
+
+def tp_references(dev="cuda") -> dict:
+    """Phase 20 (d)'s one-process references, made before the ranks start
+    and freed after: the plain trainer's bf16 steps on the run's seed and
+    batches, and the plain-served bf16 model's prefill and 16 greedy
+    decode steps beside its float32 twin's (the same weights in float32,
+    the same tokens fed)."""
+    from repro_torch import configs
+    from repro_torch.launch import train as T
+    from repro_torch.models import Model, layer_views
+
+    plain, losses, step_s = T.build(T.parser().parse_args(tp_train_argv(dev))), [], []
+    try:
+        for _ in range(TP_TRAIN["steps"]):
+            b = plain.next_batch()
+            sync(dev)
+            t0 = time.perf_counter()
+            losses.append(float(plain.step(b)["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        plain.pipe.stop()
+    out = {"plain_loss": losses[0], "plain_losses": losses, "plain_step_s": step_s}
+    del plain, b
+    empty(dev)
+    cfg = configs.get("tinyllama_1_1b")
+    B, S, n = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["decode"]
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab, (B, S)))
+    params = tp_weights(cfg, dev)
+    with torch.no_grad():
+        model = Model(cfg, device=dev)
+        logits, cache = model.prefill(layer_views(params), {"tokens": prompt.to(dev)},
+                                      max_len=S + n)
+        plain, fed = [logits.cpu()], []
+        for _ in range(n):
+            fed.append(logits.argmax(-1).int())
+            logits, cache = model.decode_step(layer_views(params), cache, fed[-1])
+            plain.append(logits.cpu())
+        del cache
+        m32 = Model(cfg.replace(dtype="float32"), device=dev)
+        p32 = layer_views(upcast(params))
+        del params
+        logits, cache = m32.prefill(p32, {"tokens": prompt.to(dev)}, max_len=S + n)
+        f32 = [logits.cpu()]
+        for t in fed:
+            logits, cache = m32.decode_step(p32, cache, t)
+            f32.append(logits.cpu())
+        del cache, p32, logits
+    empty(dev)
+    valid = slice(0, cfg.vocab)
+    out.update(prompt=prompt, fed=[t.cpu() for t in fed], f32=f32,
+               plain_dist=[float((a[:, valid] - b[:, valid]).abs().max())
+                           for a, b in zip(plain, f32)])
+    return out
+
+
+def tp_twin(mesh, dev):
+    """(1): a float32 step of TinyLlama cut to 4 layers on the mesh against
+    the plain trainer's on the same seed and batch (one microbatch): the
+    loss within 1e-5 relative, every gradient leaf within 1e-4·max|g|."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, paths
+
+    cfg = configs.get("tinyllama_1_1b").replace(dtype="float32", n_layers=TP_TWIN["layers"])
+    model, ocfg = Model(cfg, device=dev), adamw.AdamWConfig()
+    base = tp_weights(cfg, dev)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (TP_TWIN["batch"],
+                                                                    TP_TWIN["seq"]))).to(dev)}
+    g, loss = make_train_step(model, ocfg, 1).grads(base, batch)
+    want, want_loss = [t.clone() for t in leaves(g)], float(loss)
+    del g
+    placed = S.place(base, S.param_shardings(mesh, base))
+    g, loss = make_train_step(model, ocfg, 1).grads(placed, S.place(batch, S.batch_shardings(
+        mesh, batch)))
+    got = leaves(S.gathered(g))
+    rel = {n: float((a - b).abs().max() / b.abs().max()) for n, a, b in zip(paths(base), got, want)}
+    rec = {"layers": cfg.n_layers, "loss": float(loss), "plain_loss": want_loss,
+           "loss_rel": abs(float(loss) - want_loss) / abs(want_loss), "grad_rel": rel}
+    if rec["loss_rel"] > TRAIN_LOSS_RTOL or max(rel.values()) > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"tp twin: the tp step and the plain step disagree: {rec}")
+    return rec
+
+
+def tp_rank(rank: int, world: int, tmp: str, dev: str) -> None:
+    """One rank of phase 20 (d): joins the gloo group, runs its work and
+    writes its record (and rank 0 its served logits)."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, 8 // world))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        with open(f"{tmp}/inputs.pkl", "rb") as fh:
+            inp = pickle.load(fh)
+        out, logits = tp_work(rank, world, inp, dev)
+        if rank == 0:
+            torch.save(logits, f"{tmp}/logits.pt")
+        with open(f"{tmp}/rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_work(rank: int, world: int, inp: dict, dev: str):
+    """Phase 20 (d) on one rank (module docstring): the float32 twin, then
+    the main path with every count at 0 before it: two bf16 train steps,
+    a prefill and 16 decode steps on the sequence-sharded cache."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import tp as TPM
+    from repro_torch.kernels.count_sketch import ops as cops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as T
+    from repro_torch.models import Model
+    from repro_torch.models import layers as LY
+
+    if dev == "cpu":                     # a CPU rehearsal counts the plain versions' calls
+        counting_cpu_kernels(fops, cops)
+    mesh = init_device_mesh(dev, (1, world), mesh_dim_names=("data", "model"))
+    twin = tp_twin(mesh, dev)
+    empty(dev)
+
+    tr = T.build(T.parser().parse_args(tp_train_argv(dev)), mesh)
+    heads, real = [], fops.flash_attention_gqa
+
+    def seen(q, *a, **k):                # records the heads each call sees
+        heads.append(q.shape[2])
+        return real(q, *a, **k)
+    fops.flash_attention_gqa = LY.flash_attention_gqa = seen
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    TPM.reset_counters()
+    for o in (fops, cops):                                              # main path starts here
+        o.reset_launches()
+    step_s, losses, norms = [], [], []
+    try:
+        for _ in range(TP_TRAIN["steps"]):
+            b = tr.next_batch()
+            sync(dev)
+            t0 = time.perf_counter()
+            m = tr.step(b)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        tr.pipe.stop()
+    train = {"flash_attention": fops.launches, "count_sketch": cops.launches,
+             "count_sketch_unsketch": cops.unsketch_launches}
+    train_heads, train_staged = sorted(set(heads)), TPM.staged_bytes
+    train_host = dict(TPM.host_seconds)
+    train_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    shards = {n: tuple(t.to_local().shape) for n, t in zip(
+        ("wq", "wo", "w_gate", "w_up", "w_down", "tok", "head"),
+        (tr.params["layers"]["attn"]["wq"], tr.params["layers"]["attn"]["wo"],
+         tr.params["layers"]["mlp"]["w_gate"], tr.params["layers"]["mlp"]["w_up"],
+         tr.params["layers"]["mlp"]["w_down"], tr.params["embed"]["tok"],
+         tr.params["embed"]["head"]))}
+    del tr, b, m
+    empty(dev)
+
+    cfg = configs.get("tinyllama_1_1b")
+    model, n = Model(cfg, device=dev), TP_SERVE["decode"]
+    params = tp_weights(cfg, dev)
+    placed = S.place(params, S.param_shardings(mesh, params))
+    del params
+    batch = {"tokens": inp["prompt"].to(dev)}
+    batch = S.place(batch, S.batch_shardings(mesh, batch))
+    fops.reset_launches()
+    heads.clear()
+    TPM.reset_counters()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = ST.placed_prefill(model, placed, batch, max_len=TP_SERVE["prompt"] + n)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches, prefill_heads = fops.launches, sorted(set(heads))
+    cache_local = tuple(cache["layers"][0]["k"].to_local().shape)
+    served = [S.gathered(logits).cpu()]
+    fops.reset_launches()
+    decode_s = []
+    for t in inp["fed"]:
+        tok = {"t": t.to(dev)}
+        tok = S.place(tok, S.batch_shardings(mesh, tok))["t"]
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = ST.placed_decode(model, placed, cache, tok)
+        sync(dev)
+        decode_s.append(time.perf_counter() - t0)
+        served.append(S.gathered(logits).cpu())
+    decode_launches = fops.launches                                    # ... and ends here
+    serve_host = dict(TPM.host_seconds)
+    fops.flash_attention_gqa = LY.flash_attention_gqa = real
+    serve_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    return {"rank": rank, "mesh": [1, world], "twin_f32": twin, "step_s": step_s,
+            "losses": losses, "grad_norms": norms, "train_launches": train,
+            "train_heads": train_heads, "train_staged_bytes": train_staged,
+            "train_peak_bytes": train_peak, "shards": shards, "prefill_s": prefill_s,
+            "prefill_launches": prefill_launches, "prefill_heads": prefill_heads,
+            "cache_local_shape": cache_local, "decode_s": decode_s,
+            "decode_launches": decode_launches,
+            "serve_staged_bytes": TPM.staged_bytes, "train_host_s": train_host,
+            "serve_host_s": serve_host,
+            "serve_peak_bytes": serve_peak, "transport": "gloo through the host",
+            "serve_host_collectives": TPM.host_collectives}, served
+
+
+def empty(dev) -> None:
+    """Free what the collector can and, on the card, the cache's blocks."""
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def counting_cpu_kernels(fops, cops):
+    """A CPU rehearsal's stand-ins: the plain flash_attention and sketches,
+    each call counted as a launch."""
+    from repro_torch.optim import grad_compress
+
+    real_attn, real_sk, real_un = (fops.flash_attention_gqa, grad_compress.count_sketch_hashed,
+                                   grad_compress.unsketch)
+
+    def attn(*a, **k):
+        fops.launches += 1
+        return real_attn(*a, **k)
+
+    def sk(*a, **k):
+        cops.launches += 1
+        return real_sk(*a, **k)
+
+    def un(*a, **k):
+        cops.unsketch_launches += 1
+        return real_un(*a, **k)
+    fops.flash_attention_gqa, grad_compress.count_sketch_hashed, grad_compress.unsketch = (
+        attn, sk, un)
+
+
+def phase_tp(dev="cuda") -> dict:
+    """Phase 20 (d) (module docstring): the references in this process,
+    then two ranks sharing the card over gloo, spawned, joined within
+    ``TP_TIMEOUT_S``; the gates; returns the ranks' records."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    ref = tp_references(dev)
+    ref_s = time.perf_counter() - t0
+    cfg = configs.get("tinyllama_1_1b")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/inputs.pkl", "wb") as fh:
+            pickle.dump({"prompt": ref["prompt"], "fed": ref["fed"]}, fh)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank, args=(r, TP_WORLD, tmp, dev))
+                 for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break                                 # one rank failed: stop the others
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * TP_WORLD:
+            raise AssertionError(f"tp: ranks exited with {codes} (a kill: one failed, or "
+                                 f"{TP_TIMEOUT_S:.0f} s passed)")
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(TP_WORLD)]
+        served = torch.load(f"{tmp}/logits.pt")
+    valid = slice(0, cfg.vocab)
+    noise = max(ref["plain_dist"])
+    dist_tp = [float((a[:, valid] - b[:, valid]).abs().max()) for a, b in zip(served, ref["f32"])]
+    L, nm = cfg.n_layers, TP_TRAIN["n_micro"]
+    want_train = {"flash_attention": 2 * L * nm * TP_TRAIN["steps"],
+                  "count_sketch": 12 * TP_TRAIN["steps"],
+                  "count_sketch_unsketch": 12 * TP_TRAIN["steps"]}
+    local_heads = cfg.n_heads // TP_WORLD
+    out = {"arch": cfg.name, "mesh": [1, TP_WORLD], "transport": "gloo through the host",
+           "references_s": ref_s, "plain_losses": ref["plain_losses"],
+           "plain_step_ms": [x * 1e3 for x in ref["plain_step_s"]],
+           "plain_dist": ref["plain_dist"],
+           "tp_dist": dist_tp, "noise_limit": TP_NOISE * noise, "ranks": ranks,
+           "seconds": time.perf_counter() - t0, **{k: dict(v) for k, v in
+                                                  (("train", TP_TRAIN), ("serve", TP_SERVE))}}
+    for r in ranks:
+        log(f"  rank {r['rank']} of (1, {TP_WORLD}) over gloo through the host (not NVLink): "
+            f"float32 twin ({r['twin_f32']['layers']} layers) loss rel "
+            f"{r['twin_f32']['loss_rel']:.2e}, grads max rel "
+            f"{max(r['twin_f32']['grad_rel'].values()):.2e}; bf16 steps "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in r['step_s'])} ms (the plain trainer's "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in ref['plain_step_s'])} ms), losses "
+            f"{r['losses']} (plain {ref['plain_losses']}), launches {r['train_launches']} on "
+            f"{r['train_heads']} heads, staged {r['train_staged_bytes'] / 1e9:.2f} GB (host s "
+            f"{ {k: round(v, 2) for k, v in r['train_host_s'].items()} }), peak "
+            f"{r['train_peak_bytes'] / 2 ** 30:.2f} GiB; shards {r['shards']}")
+        log(f"    prefill {TP_SERVE['batch']} x {TP_SERVE['prompt']} {r['prefill_s'] * 1e3:.1f} "
+            f"ms ({r['prefill_launches']} launches on {r['prefill_heads']} heads, cache layer "
+            f"{r['cache_local_shape']} a rank), decode "
+            f"{1e3 * sum(r['decode_s']) / max(1, len(r['decode_s'])):.2f} "
+            f"ms a token ({r['decode_launches']} launches), staged "
+            f"{r['serve_staged_bytes'] / 1e9:.3f} GB in {r['serve_host_collectives']} host "
+            f"collectives (host s { {k: round(v, 2) for k, v in r['serve_host_s'].items()} }), "
+            f"peak {r['serve_peak_bytes'] / 2 ** 30:.2f} GiB")
+    log(f"  logits' distance to the float32 twin: tp {max(dist_tp):.4f} (prefill "
+        f"{dist_tp[0]:.4f}), the plain-served bf16 model's {noise:.4f} (limit "
+        f"{TP_NOISE * noise:.4f}); phase 20 (d) took {out['seconds']:.1f}s")
+    for r in ranks:
+        bad = []
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"losses {r['losses']}")
+        if abs(r["losses"][0] - ref["plain_loss"]) > TP_LOSS_RTOL * abs(ref["plain_loss"]):
+            bad.append(f"step 1's loss {r['losses'][0]} against the plain {ref['plain_loss']}")
+        if r["train_launches"] != want_train or r["train_heads"] != [local_heads]:
+            bad.append(f"train launches {r['train_launches']} on {r['train_heads']} heads, "
+                       f"expected {want_train} on {local_heads}")
+        if r["prefill_launches"] != L or r["prefill_heads"] != [local_heads]:
+            bad.append(f"prefill launches {r['prefill_launches']} on {r['prefill_heads']}")
+        if r["decode_launches"] != 0:
+            bad.append(f"decode launched {r['decode_launches']} kernels")
+        if bad:
+            raise AssertionError(f"tp rank {r['rank']}: {'; '.join(bad)}")
+    if max(dist_tp) > TP_NOISE * noise or not all(math.isfinite(x) for x in dist_tp):
+        raise AssertionError(f"tp: served logits {dist_tp} from the float32 twin, past "
+                             f"{TP_NOISE} x the plain model's {noise}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-fact", type=int, default=1 << 22, help="serve-phase fact rows")
@@ -4210,7 +4628,8 @@ def main() -> int:
                              f"{[(o.__name__, o.launches) for o in (pops, wops, fops, cops)]}")
     log(f"phase 10: phase 2's schema and model data-parallel over {DP_WORLD} ranks sharing "
         f"the one card over gloo (correctness and the collectives' host cost, not multi-card "
-        f"speed)")
+        f"speed); (b)'s fits on the first {DP_FIT_ROWS} of its {args.n_fact} fact rows (for phase "
+        f"20 (d)'s time)")
     dp = phase_data_parallel(serve_schema, serve_trees, serve_scores, serve["times"])
     del serve_schema, serve_trees, serve_ens, serve_scores     # phases 5-7 run without them
     gc.collect()                          # a scorer and its snapshots hold each other
@@ -4282,8 +4701,8 @@ def main() -> int:
     host["phase 14"] = host_state("phase 14")
     log(f"phase 14: {hymba_cfg.name} training at full width and depth: global batch 8 x 2048 "
         f"(+{hymba_cfg.meta_tokens} meta positions a row), n_micro 8, count-sketch compression "
-        f"8, 4 steps after a warm-up step")
-    hymba_train = phase_hymba_train(fops, cops, (ops, pops, wops), cshapes)
+        f"8, {HYMBA_STEPS} steps after a warm-up step (cut from 4 for phase 20 (d)'s time)")
+    hymba_train = phase_hymba_train(fops, cops, (ops, pops, wops), cshapes, steps=HYMBA_STEPS)
     moe_serve = []
     for arch, depth in MOE_SERVE:
         gc.collect()
@@ -4344,6 +4763,15 @@ def main() -> int:
         "trainer; its checkpoint restored onto rebuild_mesh(1); two dry-run cells at full size")
     placed = phase_placed(fops, cops, (ops, pops, wops))
     placed["dryrun"] = dryrun_cells(dry)
+    gc.collect()
+    torch.cuda.empty_cache()                            # the card holds nothing else
+    log(f"phase 20 (d): tinyllama-1.1b tensor- and sequence-parallel on a (1, {TP_WORLD}) mesh, "
+        f"{TP_WORLD} ranks sharing the card over gloo through the host: a float32 twin at "
+        f"{TP_TWIN['layers']} layers, {TP_TRAIN['steps']} bf16 steps of {TP_TRAIN['batch']} x "
+        f"{TP_TRAIN['seq']} ({TP_TRAIN['n_micro']} microbatches, remat, compression 8), a "
+        f"prefill of {TP_SERVE['batch']} x {TP_SERVE['prompt']} and {TP_SERVE['decode']} decode "
+        f"steps on the sequence-sharded cache")
+    placed["tp"] = phase_tp()
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -4443,7 +4871,13 @@ def main() -> int:
                              "serve_llava_prefill": llava["launches_prefill"],
                              "serve_llava_decode": llava["launches_decode"],
                              "lm_train_placed_2_steps":
-                                 placed["launches"]["flash_attention"]},
+                                 placed["launches"]["flash_attention"],
+                             "lm_train_tp_2_steps_rank0":
+                                 placed["tp"]["ranks"][0]["train_launches"]["flash_attention"],
+                             "serve_tp_prefill_rank0":
+                                 placed["tp"]["ranks"][0]["prefill_launches"],
+                             "serve_tp_decode_rank0":
+                                 placed["tp"]["ranks"][0]["decode_launches"]},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -4468,7 +4902,11 @@ def main() -> int:
                                  encdec_train["launches"]["count_sketch_unsketch"],
                              "placed_train_2_steps": placed["launches"]["count_sketch"],
                              "placed_train_2_steps_unsketch":
-                                 placed["launches"]["count_sketch_unsketch"]},
+                                 placed["launches"]["count_sketch_unsketch"],
+                             "tp_train_2_steps_rank0":
+                                 placed["tp"]["ranks"][0]["train_launches"]["count_sketch"],
+                             "tp_train_2_steps_unsketch_rank0": placed["tp"]["ranks"][0][
+                                 "train_launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,

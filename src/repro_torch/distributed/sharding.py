@@ -37,20 +37,31 @@ reference recomputes every step: they take the self-attention k, v's rule.
 
 How a placed step computes (``launch/steps.py``): the parameters, AdamW's
 moments and the batch are DTensors; a block reads its leaves through
-:func:`take`, which gathers each :class:`Placed` leaf whole
-(:class:`_Gather`), so every kernel sees plain tensors and the peak holds
-one block's weights, as FSDP does; each dp rank computes on its own rows,
-and the ranks of one tp group compute the same rows.  The gather's
-backward reduces explicitly: the rank's gradient of the whole leaf is
-summed over the dp ranks and brought back to the leaf's placement
-(reduce-scatter where a dp axis shards the leaf, all-reduce where it
-replicates it, a local slice over tp).  DTensor's own backward of
-``full_tensor()`` takes the local slice without the sum.  A cache leaf is
-gathered over its tp axes only: its rows stay the rank's own.
-:func:`constrain` is the reference's activation constraint: a DTensor is
-redistributed to the logical spec's placements on the active mesh
-(:func:`use_mesh`); a plain tensor, a rank's own rows in a placed step,
-passes unchanged, as does anything outside a mesh or on a mesh of one.
+:func:`take`, which gathers each :class:`Placed` leaf (:class:`_Gather`),
+so every kernel sees plain tensors and the peak holds one block's
+weights, as FSDP does; each dp rank computes on its own rows.  Without
+tensor parallelism a leaf is gathered whole and the ranks of one tp group
+compute the same rows.  With it (a dense config on a mesh whose "model"
+axis has more than one rank: ``distributed/tp.py``), :func:`wrap`'s
+``tp`` names the leaves that keep their shard over "model" (the block
+computes on the rank's heads, d_ff and vocab slice) and the others are
+gathered over every axis.  The gather's backward reduces explicitly: the
+rank's gradient of the gathered tensor is summed over the dp ranks (each
+dp rank's own rows gave it) and, under tensor parallelism, over the tp
+ranks where the block read the leaf whole over tp (each tp rank's own
+sequence slice or heads gave it: the norm scales, ``wk``, ``wv``), and
+brought back to the leaf's placement (reduce-scatter where an axis
+summed over shards the leaf, all-reduce where it replicates it).
+DTensor's own backward of ``full_tensor()`` takes the local slice
+without the sum.  A cache leaf is gathered over its tp axes only (its
+rows stay the rank's own), or not at all under tensor parallelism (the
+rank keeps its slots).  On a gloo mesh (the CPU, or two ranks sharing
+one card) a redistribution runs one mesh dimension at a time through the
+host transport of ``distributed/tp.py``.  :func:`constrain` is the
+reference's activation constraint: a DTensor is redistributed to the
+logical spec's placements on the active mesh (:func:`use_mesh`); a plain
+tensor, a rank's own rows in a placed step, passes unchanged, as does
+anything outside a mesh or on a mesh of one.
 """
 from __future__ import annotations
 
@@ -66,6 +77,7 @@ from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Sha
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from ..tree import leaves, paths, unflatten
+from . import tp as TP
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -296,23 +308,74 @@ def is_whole(t: DTensor) -> bool:
 
 
 def gathered(tree) -> Any:
-    """Each DTensor leaf whole (``full_tensor()``, a collective every rank
-    calls; the local tensor itself where it is whole already, so an
-    in-place update of the result updates the leaf); other leaves as they
-    are."""
-    return unflatten(tree, [(t.to_local() if is_whole(t) else t.full_tensor())
-                            if isinstance(t, DTensor) else t for t in leaves(tree)])
+    """Each DTensor leaf whole (a collective every rank calls, on the host
+    on a gloo mesh; the local tensor itself where it is whole already, so
+    an in-place update of the result updates the leaf); other leaves as
+    they are."""
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        if is_whole(t):
+            return t.to_local()
+        mesh = t.device_mesh
+        if not TP.on_host(mesh):
+            return t.full_tensor()
+        return redistribute(t.to_local(), mesh, t.placements, (Replicate(),) * mesh.ndim)
+    return unflatten(tree, [one(t) for t in leaves(tree)])
+
+
+def redistribute(local: torch.Tensor, mesh, placements, target) -> torch.Tensor:
+    """This rank's tensor of ``local`` (placed as ``placements``, which may
+    hold ``Partial``) redistributed to ``target``: by DTensor, or on a gloo
+    mesh by :func:`_by_axis` (the host transport of ``distributed/tp.py``)."""
+    if tuple(placements) == tuple(target):
+        return local
+    if TP.on_host(mesh):
+        return _by_axis(local, mesh, placements, target)
+    return DTensor.from_local(local, mesh, placements, run_check=False).redistribute(
+        mesh, target).to_local()
+
+
+def _by_axis(t: torch.Tensor, mesh, placements, target) -> torch.Tensor:
+    """:func:`redistribute` one mesh dimension at a time by tp's
+    collectives: ``Shard(d)`` → ``Replicate`` an all-gather, the inner mesh
+    dimension first (a tensor dimension split over several mesh dimensions
+    is split major first); then ``Partial`` → ``Replicate`` an all-reduce,
+    ``Partial`` → ``Shard(d)`` a reduce-scatter and ``Replicate`` →
+    ``Shard(d)`` a local slice, the major mesh dimension first.  Every sum
+    is in rank order, so every rank gets the same bits."""
+    moves = [(i, p, q) for i, (p, q) in enumerate(zip(placements, target))
+             if p != q and mesh.size(i) > 1]
+    for i, p, q in reversed(moves):
+        if p.is_shard():
+            if not q.is_replicate():
+                raise ValueError(f"no move from {p} to {q} on mesh dimension {i}")
+            t = TP.gather(t, TP.axis(mesh, i), p.dim)
+    for i, p, q in moves:
+        if p.is_shard():
+            continue
+        ax = TP.axis(mesh, i)
+        if p.is_partial():
+            t = TP.reduce_scatter(t, ax, q.dim) if q.is_shard() else TP.reduce(t, ax)
+        elif q.is_shard():
+            t = TP.local_slice(t, ax, q.dim).contiguous()
+        else:
+            raise ValueError(f"no move from {p} to {q} on mesh dimension {i}")
+    return t
 
 
 # ----------------------------------------------------------------- gather --
 @dataclasses.dataclass(frozen=True)
 class Placed:
     """A rank's local tensor of a leaf and how to gather it: its mesh, its
-    placements and the placements to gather to (``target``)."""
+    placements and the placements to gather to (``target``); ``tp_partial``:
+    its gradient is partial over tp where ``target`` replicates it over tp
+    (tensor parallelism, module docstring)."""
     local: torch.Tensor
     mesh: Any
     placements: Tuple[Placement, ...]
     target: Tuple[Placement, ...]
+    tp_partial: bool = False
 
     @property
     def shape(self) -> torch.Size:
@@ -324,27 +387,34 @@ class Placed:
         return torch.Size(size)
 
 
-def wrap(local_tree, shardings, keep_rows: bool = False) -> Any:
+def wrap(local_tree, shardings, keep_rows: bool = False, tp=None) -> Any:
     """``local_tree``'s tensors as :class:`Placed` leaves under
     ``shardings``, gathered whole on :func:`take`, or with ``keep_rows``
-    over every axis but dp (a cache: the rows stay the rank's own).  A
-    leaf stays plain where that gather and its gradient's reduction move
+    over every axis but dp (a cache: the rows stay the rank's own).
+    ``tp``: tensor parallelism (a predicate on a leaf's path, True where
+    the leaf keeps its shard over "model"; module docstring).  A leaf
+    stays plain where that gather and its gradient's reduction move
     nothing: where no mesh dimension of more than one rank splits it (to
-    gather) or, for a parameter, is a dp axis (to sum its gradient over),
-    as on a mesh of one."""
+    gather) or, for a parameter, is an axis to sum its gradient over (dp;
+    tp where it is read whole over tp), as on a mesh of one."""
     mesh = next((s.mesh for s in leaves(shardings) if s.mesh is not None), None)
     dp = set(mesh_axes(mesh)["dp"]) if mesh is not None else set()
     out = []
-    for t, sh in zip(leaves(local_tree), leaves(shardings)):
+    for path, t, sh in zip(path_strings(local_tree), leaves(local_tree), leaves(shardings)):
         if sh.mesh is None:
             out.append(t)
             continue
         pl = sh.placements
         names = sh.mesh.mesh_dim_names
-        target = tuple(p if keep_rows and n in dp else Replicate() for p, n in zip(pl, names))
-        moves = any(sh.mesh.size(i) > 1 and (p != q or (not keep_rows and n in dp))
-                    for i, (p, q, n) in enumerate(zip(pl, target, names)))
-        out.append(Placed(t, sh.mesh, pl, target) if moves else t)
+        keep = tp is not None and tp(path)
+        target = tuple(p if (keep_rows and n in dp) or (keep and n == TP.TP_AXIS) else Replicate()
+                       for p, n in zip(pl, names))
+        partial = tp is not None
+        moves = any(sh.mesh.size(i) > 1 and (
+            p != q or (not keep_rows and n in dp)
+            or (partial and n == TP.TP_AXIS and not q.is_shard()))
+            for i, (p, q, n) in enumerate(zip(pl, target, names)))
+        out.append(Placed(t, sh.mesh, pl, target, partial) if moves else t)
     return unflatten(local_tree, out)
 
 
@@ -352,7 +422,8 @@ def take(tree) -> Any:
     """``tree`` with every :class:`Placed` leaf gathered (differentiably:
     :class:`_Gather`); plain leaves as they are."""
     if isinstance(tree, Placed):
-        return _Gather.apply(tree.local, tree.mesh, tree.placements, tree.target)
+        return _Gather.apply(tree.local, tree.mesh, tree.placements, tree.target,
+                             tree.tp_partial)
     if isinstance(tree, dict):
         return {k: take(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -364,24 +435,26 @@ class _Gather(torch.autograd.Function):
     """Forward: ``local`` gathered from ``placements`` to ``target``.
     Backward: this rank's gradient of the gathered tensor, summed over the
     dp ranks where ``target`` gathered a dp axis (each dp rank's own rows
-    gave it), and sliced back to ``placements``: a reduce-scatter, an
-    all-reduce or a local slice, by DTensor's redistribution from
-    ``Partial`` over dp and ``Replicate`` over tp."""
+    gave it) and, with ``tp_partial``, over the tp ranks where ``target``
+    replicates it over tp, and sliced back to ``placements``: a
+    reduce-scatter, an all-reduce or a local slice, by DTensor's
+    redistribution from ``Partial`` over the summed axes and ``Replicate``
+    over the others."""
 
     @staticmethod
-    def forward(ctx, local, mesh, placements, target):
+    def forward(ctx, local, mesh, placements, target, tp_partial=False):
         ctx.mesh, ctx.placements, ctx.target = mesh, placements, target
-        return DTensor.from_local(local.detach(), mesh, placements, run_check=False).redistribute(
-            mesh, target).to_local()
+        ctx.tp_partial = tp_partial
+        return redistribute(local.detach(), mesh, placements, target)
 
     @staticmethod
     def backward(ctx, grad):
         mesh = ctx.mesh
-        dp = set(mesh_axes(mesh)["dp"])
-        src = tuple(t if t.is_shard() else (Partial() if name in dp else Replicate())
-                    for t, name in zip(ctx.target, mesh.mesh_dim_names))
-        g = DTensor.from_local(grad.contiguous(), mesh, src, run_check=False)
-        return g.redistribute(mesh, ctx.placements).to_local(), None, None, None
+        summed = set(mesh_axes(mesh)["dp"]) | ({TP.TP_AXIS} if ctx.tp_partial else set())
+        src = tuple(t if t.is_shard() else
+                    (Partial() if name in summed and mesh.size(i) > 1 else Replicate())
+                    for i, (t, name) in enumerate(zip(ctx.target, mesh.mesh_dim_names)))
+        return redistribute(grad.contiguous(), mesh, src, ctx.placements), None, None, None, None
 
 
 # -------------------------------------------------------------- the mesh --

@@ -14,24 +14,35 @@ accumulators are allocated once, at the first step.
 
 Placed (``distributed/sharding.py``): where the parameters are DTensors,
 so are AdamW's moments and the batch (rows over dp), and the step runs on
-each rank's local tensors.  A block gathers its own weights whole
-(``sharding.take``: every kernel sees plain tensors) and each dp rank
-computes on its own rows: its microbatch j is the j-th of its rows cut
-in ``n_micro`` (the reference's microbatch j is the j-th of the global
-batch cut in ``n_micro``: the same rows in all, grouped otherwise).  The
-gradient is reduced explicitly: the gather's backward sums it over the
-dp ranks and reduce-scatters it to the leaf's placement, each rank's
-loss weighted by its share of the microbatch's tokens, t_r / Σ t, so
-the sum is the mean over every rank's tokens (with tokens of equal
-count, the reference's mean; an MoE's aux loss is each rank's own
-routing's).  The compressor sketches each leaf whole, gathered (its
-hashes and error feedback one process's), and gives back the rank's
-slice; the clip takes the norm of the whole gradient (each shard's
-squares summed over the mesh dimensions that split it) and AdamW
-updates the local shards.  On plain tensors the step is the one
-process's.  :func:`placed_prefill` and :func:`placed_decode` serve the
-same way: each block's weights gathered, each cache layer gathered over
-tp only (the rows stay the rank's own), the outputs placed back.
+each rank's local tensors.  Each dp rank computes on its own rows: its
+microbatch j is the j-th of its rows cut in ``n_micro`` (the reference's
+microbatch j is the j-th of the global batch cut in ``n_micro``: the same
+rows in all, grouped otherwise).  A block gathers its own weights
+(``sharding.take``: every kernel sees plain tensors).  Over tp, a dense
+config on a mesh whose "model" axis has more than one rank computes
+tensor- and sequence-parallel (``distributed/tp.py``): its blocks keep
+their shards of ``wq``, ``wo``, the MLP and the embedding over tp
+(gathered over the fsdp axes only) and run on the rank's heads, d_ff and
+vocab columns, the residual stream the rank's sequence slice between
+blocks, the loss vocab-parallel; every other config, and a mesh of one
+over tp, gathers each block's weights whole, the ranks of one tp group
+computing the same rows.  The gradient is reduced explicitly: the
+gather's backward sums it over the dp ranks (and, tensor-parallel, over
+the tp ranks where the block read the leaf whole over tp) and
+reduce-scatters it to the leaf's placement, each rank's loss weighted by
+its share of the microbatch's tokens, t_r / Σ t, so the sum is the mean
+over every rank's tokens (with tokens of equal count, the reference's
+mean; an MoE's aux loss is each rank's own routing's).  The compressor
+sketches each leaf whole, gathered (its hashes and error feedback one
+process's), and gives back the rank's slice; the clip takes the norm of
+the whole gradient (each shard's squares summed over the mesh dimensions
+that split it) and AdamW updates the local shards.  On plain tensors the
+step is the one process's.  :func:`placed_prefill` and
+:func:`placed_decode` serve the same way; tensor-parallel, each rank keeps
+its block of span/tp cache slots and its vocab columns of the logits,
+else each cache layer is gathered over tp (the rows stay the rank's own).
+With the gloo backend every collective runs on the host
+(``distributed/tp.py``'s transport).
 """
 from __future__ import annotations
 
@@ -39,11 +50,11 @@ from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 
 from .. import configs
 from ..distributed import sharding
+from ..distributed import tp as TP
 from ..models.config import ModelConfig
 from ..models.lm import STACKS, Model, layer_views
 from ..optim import adamw
@@ -140,7 +151,7 @@ def _dp_dims(mesh) -> List[int]:
 
 def _all_reduce(t: torch.Tensor, mesh, dims) -> torch.Tensor:
     for d in dims:
-        t = funcol.all_reduce(t, "sum", (mesh, d))
+        t = TP.reduce(t, TP.axis(mesh, d))
     return t
 
 
@@ -207,13 +218,16 @@ def make_train_step(model, ocfg: adamw.AdamWConfig, n_micro: int, compressor=Non
         slots = _slots(held)
         dp = _dp_dims(mesh) if placed else []
         shard = _view_shardings(params, held) if placed else None
+        tpc = TP.context(mesh, model.cfg) if placed else None
+        keep = TP.keeps(model.cfg, tpc) if tpc is not None else None
+        kw = {} if tpc is None else {"tpc": tpc}
         loss_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
         with sharding.use_mesh(mesh):                   # constrain's mesh, as the reference's
             for mb in split_micro(sharding.local(batch), n_micro):
                 views = layer_views(map_tree(torch.Tensor.detach, held))
                 wrt = [t.requires_grad_() for t in leaves(views)]
-                loss, metrics = model.loss(views if shard is None else sharding.wrap(views, shard),
-                                           mb)
+                loss, metrics = model.loss(
+                    views if shard is None else sharding.wrap(views, shard, tp=keep), mb, **kw)
                 ce = metrics["ce"].detach()
                 if dp:                                  # this rank's share of the tokens
                     w = metrics["tokens"] / _all_reduce(metrics["tokens"].detach(), mesh, dp)
@@ -296,9 +310,41 @@ def _logit_shardings(mesh, logits):
                                                                   logits.shape))
 
 
-def _served(model, params):
+def _served(model, params, tpc=None):
     held = sharding.local(params)
-    return sharding.wrap(layer_views(held), _view_shardings(params, held))
+    return sharding.wrap(layer_views(held), _view_shardings(params, held),
+                         tp=None if tpc is None else TP.keeps(model.cfg, tpc))
+
+
+def _local_placed(tree, glob, mesh, shardings_fn):
+    """A rank's tensors, each already its slice of the global leaf in
+    ``glob`` (a tree of its global shapes) under ``shardings_fn(mesh,
+    glob)``, as DTensors; raises where a slice disagrees with the rules."""
+    out = []
+    for t, g, sh in zip(leaves(tree), leaves(glob), leaves(shardings_fn(mesh, glob))):
+        want = tuple(s.stop - s.start for s in sharding.shard_slices(g.shape, mesh,
+                                                                     sh.placements))
+        if tuple(t.shape) != want:
+            raise ValueError(f"a rank's {tuple(t.shape)} is not its slice {want} of "
+                             f"{tuple(g.shape)} under {sh.placements}")
+        out.append(DTensor.from_local(t, mesh, sh.placements, run_check=False,
+                                      shape=torch.Size(g.shape),
+                                      stride=sharding.contiguous_stride(g.shape)))
+    return unflatten(tree, out)
+
+
+def _global(t, rows: int, span: Optional[int] = None):
+    """The global shape of a rank's cache leaf: ``rows`` times its rows and,
+    for a layer's k, v and kpos, the layer's whole ``span`` (a plain
+    record: a meta tensor made under the dry run's census would count as
+    live)."""
+    shape = (t.shape[0] * rows,) + (() if span is None else (span,)) + tuple(
+        t.shape[1 if span is None else 2:])
+    return SimpleNamespace(shape=torch.Size(shape))
+
+
+def _global_logits(logits, rows: int, cfg: ModelConfig):
+    return SimpleNamespace(shape=torch.Size((logits.shape[0] * rows, cfg.padded_vocab)))
 
 
 def placed_prefill(model, params, batch, max_len: Optional[int] = None):
@@ -306,23 +352,46 @@ def placed_prefill(model, params, batch, max_len: Optional[int] = None):
     docstring): (logits, cache) as DTensors, the logits (dp, tp) and the
     cache under ``sharding.cache_shardings``."""
     mesh = _mesh(params)
+    tpc = TP.context(mesh, model.cfg)
+    local = sharding.local(batch)
     with sharding.use_mesh(mesh), torch.no_grad():
-        logits, cache = model.prefill(_served(model, params), sharding.local(batch), max_len)
+        logits, cache = model.prefill(_served(model, params, tpc), local, max_len,
+                                      **({} if tpc is None else {"tpc": tpc}))
     rows = _rows(batch)
-    return (_rows_placed(logits, mesh, _logit_shardings, rows),
-            _rows_placed(cache, mesh, sharding.cache_shardings, rows))
+    if tpc is None:
+        return (_rows_placed(logits, mesh, _logit_shardings, rows),
+                _rows_placed(cache, mesh, sharding.cache_shardings, rows))
+    n_tok = local["tokens"].shape[1]
+    total = (local["patches"].shape[1] if "patches" in local else 0) + (
+        n_tok if max_len is None else max(max_len, n_tok))      # the model's cache positions
+    glob = {"pos": _global(cache["pos"], rows), "layers": [
+        {k: _global(t, rows, total if w is None else min(w, total)) for k, t in lc.items()}
+        for lc, w in zip(cache["layers"], model.windows)]}
+    return (_local_placed(logits, _global_logits(logits, rows, model.cfg), mesh,
+                          _logit_shardings),
+            _local_placed(cache, glob, mesh, sharding.cache_shardings))
 
 
 def placed_decode(model, params, cache, tokens):
-    """``model.decode_step`` on placed parameters, cache and tokens: each
-    cache layer gathered over tp in its block, the rows the rank's own;
+    """``model.decode_step`` on placed parameters, cache and tokens, the
+    rows the rank's own: tensor-parallel on the rank's block of each
+    layer's slots, else each cache layer gathered over tp in its block;
     (logits, cache) placed as :func:`placed_prefill`'s."""
     mesh = _mesh(params)
-    shard = sharding.cache_shardings(mesh, cache)
-    held = sharding.wrap(sharding.local(cache), shard, keep_rows=True)
+    tpc = TP.context(mesh, model.cfg)
+    rows = _rows(tokens)
+    if tpc is not None:
+        tpc = tpc.with_spans(lc["k"].shape[1] for lc in cache["layers"])
+        with sharding.use_mesh(mesh), torch.no_grad():
+            logits, new = model.decode_step(_served(model, params, tpc), sharding.local(cache),
+                                            sharding.local(tokens), tpc=tpc)
+        return (_local_placed(logits, _global_logits(logits, rows, model.cfg), mesh,
+                              _logit_shardings),
+                unflatten(new, [_like(t, d) for t, d in zip(leaves(new), leaves(cache))]))
+    held = sharding.wrap(sharding.local(cache), sharding.cache_shardings(mesh, cache),
+                         keep_rows=True)
     held = {k: v if k == "layers" else sharding.take(v) for k, v in held.items()}
     with sharding.use_mesh(mesh), torch.no_grad():
         logits, new = model.decode_step(_served(model, params), held, sharding.local(tokens))
-    rows = _rows(tokens)
     return (_rows_placed(logits, mesh, _logit_shardings, rows),
             _rows_placed(new, mesh, sharding.cache_shardings, rows))

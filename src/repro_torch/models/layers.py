@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import attention_train, flash_attention_gqa
 from ..kernels.flash_attention.ref import KV_CHUNK
+from ..distributed.tp import gather as tp_gather
 from .config import ModelConfig
 
 
@@ -87,9 +88,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, d
 
 def attention_qkv(p, cfg: ModelConfig, x, positions):
     """q (B, S, N, dh) and k, v (B, S, Kh, dh) of x, q and k rotated by
-    ``positions`` (B, S)."""
+    ``positions`` (B, S); N the heads of ``wq`` (a tp rank's shard holds
+    its own)."""
     B, S, _ = x.shape
-    N, Kh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    Kh, dh = cfg.kv_heads, cfg.head_dim
+    N = p["wq"].shape[-1] // dh
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -172,6 +175,65 @@ def decode_attention(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos, layer_
     return out.to(x.dtype) @ p["wo"], k, v
 
 
+def local_kv(k: torch.Tensor, v: torch.Tensor, head0: int, n: int, G: int):
+    """The K/V heads (B, S, ·, dh) that the query heads head0..head0+n−1
+    read in GQA groups of G (a tp rank's own query heads): the groups they
+    cover where G divides n, their one K/V head where n divides G, else one
+    K/V head a query head (the kernel then runs with G 1)."""
+    if n % G == 0:
+        lo = head0 // G
+        return k[:, :, lo:lo + n // G], v[:, :, lo:lo + n // G]
+    if G % n == 0:
+        h = head0 // G
+        return k[:, :, h:h + 1], v[:, :, h:h + 1]
+    idx = torch.arange(head0, head0 + n, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def decode_attention_tp(p, cfg: ModelConfig, x, cache_k, cache_v, kpos, pos, tp, own: bool,
+                        layer_window=None):
+    """:func:`decode_attention` on a tp rank's block of the cache's slots
+    (``distributed/tp.py``): the rank's query heads' q (``wq`` its shard
+    where it holds one) all-gathered over tp, every head's partial
+    attention over the rank's own slots (m, l, o: the row max, Σexp and
+    the unnormalised P·V, float32), the partials all-gathered and merged
+    by log-sum-exp in rank order, the new token's own term added once;
+    then the rank's heads' output through its ``wo`` shard (a partial sum
+    over tp, which the caller reduces) or every head's through a whole
+    ``wo``.  ``own``: False where the cache is whole on every rank (tp does
+    not divide its span): only rank 0's slots count.  Returns (out, new k
+    entry, new v entry), k and v whole over tp."""
+    B = x.shape[0]
+    N, Kh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q, k, v = attention_qkv(p, cfg, x, pos[:, None])
+    if q.shape[2] != N:
+        q = tp_gather(q, tp, 2)
+    valid = (kpos >= 0) & (kpos < pos[:, None]) & own
+    if layer_window is not None:
+        valid &= (pos[:, None] - kpos) < layer_window
+    G = N // Kh
+    qg = q.reshape(B, Kh, G, dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, cache_k.float()) / math.sqrt(dh)
+    s = torch.where(valid[:, None, None], s, torch.tensor(-1e30, device=s.device))
+    m = s.amax(-1)
+    pc = torch.exp(s - m[..., None]) * valid[:, None, None]
+    o = torch.einsum("bhgs,bshd->bhgd", pc, cache_v.float())
+    parts = tp_gather(torch.cat([m[..., None], pc.sum(-1)[..., None], o], -1)[None], tp, 0)
+    s_self = torch.einsum("bhgd,bhd->bhg", qg, k[:, 0].float()) / math.sqrt(dh)
+    M = torch.maximum(parts[..., 0].amax(0), s_self)
+    L = torch.exp(s_self - M)
+    O = L[..., None] * v[:, 0, :, None].float()
+    for r in range(tp.size):                          # rank order
+        w = torch.exp(parts[r, ..., 0] - M)
+        L = L + parts[r, ..., 1] * w
+        O = O + parts[r, ..., 2:] * w[..., None]
+    out = (O / L[..., None]).reshape(B, 1, N * dh)
+    n = p["wo"].shape[0] // dh
+    if n != N:                                        # the rank's heads, its wo shard
+        out = out[..., tp.rank * n * dh:(tp.rank + 1) * n * dh]
+    return out.to(x.dtype) @ p["wo"], k, v
+
+
 def cross_decode_attention(p, cfg: ModelConfig, x, k, v):
     """One decode step's cross-attention: q of x (B, 1, D) over the
     cached k, v (B, Sk, Kh, dh) of the encoder's output, every position
@@ -230,7 +292,9 @@ def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ p["head"]
 
 
-def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    ids = torch.arange(logits.shape[-1], device=logits.device)
+def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Ids ≥ cfg.vocab at −1e30; ``offset``: the id of the logits' first
+    column (a tp rank's vocab slice)."""
+    ids = offset + torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(ids < cfg.vocab, logits, torch.full((), -1e30, dtype=logits.dtype,
                                                            device=logits.device))

@@ -80,6 +80,23 @@ again and the peak holds one block's weights; the embedding, the final
 norm and the head are taken where they are read.  On plain tensors
 ``take`` is the identity.  ``sharding.constrain`` marks the reference's
 ten activation constraints (its ``models/lm.py``), no-ops outside a mesh.
+
+Tensor and sequence parallelism (a dense config given a tp context
+``tpc``, ``distributed/tp.py``, which the placed steps pass on a mesh
+whose "model" axis has more than one rank): the blocks' leaves arrive as the rank's
+shards of ``wq``, ``wo`` and the MLP's (its heads and d_ff) and of the
+embedding (its vocab rows), ``wk``/``wv`` whole.  The embedding is
+vocab-parallel, and its sum over tp is scattered to the rank's sequence
+slice; the residual stream between blocks is (B, S/tp, D) where tp
+divides S (else whole).  A block norms its slice, gathers the sequence,
+computes its heads (each reading its GQA group's K/V head) and its d_ff
+columns, and scatters the partial sum back to its slice; the loss gathers
+the final normed stream, takes the rank's vocab columns of the logits and
+a vocab-parallel cross-entropy and z-loss.  A prefill keeps the rank's
+block of span/tp cache slots; a decode step attends over them
+(``layers.decode_attention_tp``), and only the rank owning slot pos mod
+span writes the new k, v.  The logits a prefill or decode step returns
+are the rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -89,6 +106,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.schema import resolve_device
+from ..distributed import tp as TP
 from ..distributed.sharding import constrain, take
 from . import layers as L
 from . import moe as MOE
@@ -203,17 +221,23 @@ class Model:
             params["meta"] = (meta * 0.02).to(device=dev, dtype=dt)
         return params
 
-    def _embed_inputs(self, params, batch):
+    def _embed_inputs(self, params, batch, tpc=None):
         """The decoder's input (B, M + P + S, D): the meta tokens, the
         patches (``frontend="patches"``, where the batch holds them) and
-        the token embeddings, and the prefix length M + P."""
+        the token embeddings, and the prefix length M + P; with a tp context
+        ``tpc``, the vocab-parallel embedding in the residual's layout."""
         cfg = self.cfg
-        h = L.embed(_pick(params["embed"], "tok"),
-                    torch.as_tensor(batch["tokens"]).to(self.device).long())
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
+        h = (L.embed(_pick(params["embed"], "tok"), tokens) if tpc is None
+             else TP.embed_partial(take(params["embed"]["tok"]), tokens, tpc))
         n_prefix = 0
         if cfg.frontend == "patches" and "patches" in batch:
             patches = torch.as_tensor(batch["patches"]).to(device=self.device, dtype=h.dtype)
+            if tpc is not None and tpc.rank:       # rank 0's part of the sum over tp
+                patches = torch.zeros_like(patches)
             h, n_prefix = torch.cat([patches, h], 1), patches.shape[1]
+        if tpc is not None:                        # the sum over tp, to the residual's layout
+            h = TP.leave(h, tpc, TP.seq_parallel(tpc, h.shape[1]), partial=True)
         if cfg.meta_tokens:
             meta = take(params["meta"])[None].expand(h.shape[0], -1, -1)
             h, n_prefix = torch.cat([meta, h], 1), n_prefix + cfg.meta_tokens
@@ -237,7 +261,7 @@ class Model:
         return L.rmsnorm(x, take(params["enc_ln_f"]["scale"]), cfg.norm_eps), pos, aux
 
     # -------------------------------------------------------------- loss --
-    def loss(self, params, batch):
+    def loss(self, params, batch, tpc=None):
         """Next-token cross-entropy, the reference's ``Model.loss``: (ce +
         1e-4 · z-loss + aux, {"ce", "aux", "tokens"}), over
         ``batch["tokens"]`` (B, S) with an optional ``loss_mask`` (and
@@ -252,32 +276,41 @@ class Model:
         Each block runs under activation checkpointing when ``cfg.remat``
         (the reference's ``jax.checkpoint``), so its attention's or its
         WKV's forward, and an MoE block's routing, run twice a backward
-        pass."""
+        pass.  Under a tp context ``tpc`` (module docstring) the logits
+        are the rank's vocab columns and the cross-entropy is
+        vocab-parallel."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         enc = None
         if cfg.kind == "encdec":
             enc, _, aux = self._encode(params, batch, cfg.remat)
-        h, n_prefix = self._embed_inputs(params, batch)
-        positions = _positions(h.shape[0], h.shape[1], self.device)   # prefixes counted
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
+        h, n_prefix = self._embed_inputs(params, batch, tpc)
+        S = n_prefix + tokens.shape[1]                 # prefixes counted
+        sp = TP.seq_parallel(tpc, S)
+        positions = _positions(h.shape[0], S, self.device)
         block = self._block_train_rwkv if cfg.kind == "rwkv" else self._block_train
+        kw = {} if tpc is None else {"tpc": tpc}
         h = constrain(h, "dp", "tp", None)
         for p, w in zip(params["layers"], self.windows):
             args = (p, h, positions, w, enc)
-            h, a = (torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
-                    if cfg.remat else block(*args))
+            h, a = (torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False, **kw)
+                    if cfg.remat else block(*args, **kw))
             h = constrain(h, "dp", "tp", None)
             aux = aux + a
-        h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)[:, n_prefix:]
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
+        h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
+        h = TP.enter(h, tpc, sp)[:, n_prefix:]
         logits = constrain(L.unembed(self._head(params), cfg, h[:, :-1]).float(), "dp", None, "tp")
-        logits = L.mask_pad_logits(cfg, logits)
+        logits = L.mask_pad_logits(cfg, logits, _vocab_offset(tpc, logits))
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
         mask = (torch.ones(targets.shape, dtype=torch.float32, device=self.device) if mask is None
                 else torch.as_tensor(mask).to(self.device)[:, :targets.shape[1]].float())
-        lse = torch.logsumexp(logits, -1)
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        if tpc is None:
+            lse = torch.logsumexp(logits, -1)
+            gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        else:
+            lse, gold = TP.cross_entropy_parts(logits, targets, tpc)
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = ((lse - gold) * mask).sum() / denom
         zloss = 1e-4 * torch.square(lse * mask).sum() / denom
@@ -288,20 +321,25 @@ class Model:
         return _pick(params["embed"], "tok" if self.cfg.tie_embeddings else "head")
 
     def _block_train(self, p, x, positions, window: Optional[int] = None, enc=None,
-                     causal: bool = True):
+                     causal: bool = True, tpc=None):
         """One dense, hybrid, moe or encdec block of the training forward
         (no cache), its attention over ``window``, then (a decoder block of
         encdec) its cross-attention over the encoder's output ``enc``;
         ``causal=False`` for an encoder block.  Returns (x, the block's MoE
-        aux loss, zero for other kinds)."""
+        aux loss, zero for other kinds).  With a tp context ``tpc``
+        ``x`` is the rank's sequence slice where tp divides the sequence, and the block computes on the rank's heads and d_ff
+        columns (module docstring)."""
         cfg = self.cfg
         p = take(p)
+        sp = TP.seq_parallel(tpc, positions.shape[1])
         h = constrain(L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps), "dp", None, None)
-        q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
+        h = TP.enter(h, tpc, sp)
+        q, k, v = _local_heads(cfg, *L.attention_qkv(p["attn"], cfg, h, positions), tpc)
         out = L.attend(p["attn"], q, k, v, causal, kv_chunk=cfg.kv_chunk, window=window)
         if cfg.kind == "hybrid":
             out = _mix(p, cfg, out, SSM.ssm_branch(p["ssm"], cfg, h))
-        x = x + constrain(out, "dp", None, None)
+        x = x + constrain(TP.leave(out, tpc, sp, _sharded(p["attn"]["wo"], cfg.n_heads
+                                                           * cfg.head_dim)), "dp", None, None)
         if enc is not None:
             x = x + constrain(self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc)),
                               "dp", None, None)
@@ -309,7 +347,9 @@ class Model:
         if cfg.kind == "moe":
             out, aux = MOE.moe_ffn(p["moe"], cfg, h2)
             return x + constrain(out, "dp", None, None), aux
-        return x + constrain(L.mlp(p["mlp"], cfg, h2), "dp", None, None), torch.zeros(
+        out = TP.leave(L.mlp(p["mlp"], cfg, TP.enter(h2, tpc, sp)), tpc, sp,
+                       _sharded(p["mlp"]["w_down"], cfg.d_ff))
+        return x + constrain(out, "dp", None, None), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
     def _cross(self, p, x, xk, xv):
@@ -332,20 +372,22 @@ class Model:
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     # ----------------------------------------------------------- prefill --
-    def prefill(self, params, batch, max_len: Optional[int] = None):
+    def prefill(self, params, batch, max_len: Optional[int] = None, tpc=None):
         """Full-sequence forward building the decode cache.  batch:
         ``{"tokens": (B, S) int}`` (with ``patches`` or ``src_frames`` for
         a front end); ``max_len``: the token positions the cache makes room
         for (S + the decode tokens to come; None: S, the reference's
         layout, which has room for one decode step), the meta and patch
-        positions not counted.  Returns (last_logits (B, padded vocab)
-        float32, ids ≥ vocab at −1e30, cache)."""
+        positions not counted; ``tpc``: a tp context (module docstring).
+        Returns (last_logits (B, padded vocab) float32, ids ≥ vocab at
+        −1e30, cache)."""
         cfg = self.cfg
         cache: Dict[str, Any] = {}
         if cfg.kind == "encdec":
             cache["enc_out"], cache["enc_pos"], _ = self._encode(params, batch)
-        h, n_prefix = self._embed_inputs(params, batch)
-        B, S = h.shape[:2]                     # S counts the prefixes
+        h, n_prefix = self._embed_inputs(params, batch, tpc)
+        B = h.shape[0]
+        S = n_prefix + torch.as_tensor(batch["tokens"]).shape[1]   # S counts the prefixes
         total = S if max_len is None else max(n_prefix + max_len, S)
         positions = _positions(B, S, self.device)
         layers = []
@@ -355,12 +397,13 @@ class Model:
             else:
                 w = self.windows[i]
                 h, lc = self._prefill_attn(p, h, positions, total if w is None else min(w, total),
-                                           w, cache.get("enc_out"))
+                                           w, cache.get("enc_out"), tpc)
             layers.append(lc)
         cache.update(layers=layers, pos=torch.full((B,), S, dtype=torch.int32, device=self.device))
         h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
-        logits = L.unembed(self._head(params), cfg, h[:, -1]).float()
-        return L.mask_pad_logits(cfg, logits), cache
+        logits = L.unembed(self._head(params), cfg,
+                           TP.last_position(h, tpc, TP.seq_parallel(tpc, S))).float()
+        return L.mask_pad_logits(cfg, logits, _vocab_offset(tpc, logits)), cache
 
     def _prefill_rwkv(self, p, x):
         """One block: the WKV call gives the output and the terminal state
@@ -376,51 +419,72 @@ class Model:
         x = x + RWKV.channel_mix(p["mix"], cfg, h2)
         return x, {"S": S_fin, "x_last_tm": h[:, -1], "x_last_cm": h2[:, -1]}
 
-    def _prefill_attn(self, p, x, positions, span: int, window: Optional[int], enc=None):
+    def _prefill_attn(self, p, x, positions, span: int, window: Optional[int], enc=None,
+                      tpc=None):
         """One dense, hybrid, moe or encdec decoder block with the layer's
         window; its cache holds the last min(span, S) positions.  K and V
         are computed once, for the attention and for the cache, and the
         hybrid block's SSM branch gives its terminal state as it runs (the
         reference computes both twice); a decoder block of encdec keeps its
-        cross-attention's k, v of ``enc``."""
+        cross-attention's k, v of ``enc``.  Under a tp context the block
+        computes as :meth:`_block_train`'s and keeps the rank's block of
+        span/tp slots where tp divides the span."""
         cfg = self.cfg
         p = take(p)
+        sp = TP.seq_parallel(tpc, positions.shape[1])
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
-        out = L.attend(p["attn"], q, k, v, window=window)
+        q, k, v = L.attention_qkv(p["attn"], cfg, TP.enter(h, tpc, sp), positions)
+        out = L.attend(p["attn"], *_local_heads(cfg, q, k, v, tpc), window=window)
         lc = _ring(k, v, positions, span)
+        if tpc is not None and tpc.divides(span):
+            lc = {n: TP.local_slice(t, tpc, 1) for n, t in lc.items()}
         if cfg.kind == "hybrid":
             s, lc["ssm"] = SSM.ssm_branch(p["ssm"], cfg, h, return_state=True)
             out = _mix(p, cfg, out, s)
-        x = x + out
+        x = x + TP.leave(out, tpc, sp, _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim))
         if enc is not None:
             lc["xk"], lc["xv"] = L.cross_kv(p["xattn"], cfg, enc)
             x = x + self._cross(p, x, lc["xk"], lc["xv"])
-        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + _ffn(p, cfg, h2), lc
+        h2 = TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc, sp)
+        return x + TP.leave(_ffn(p, cfg, h2), tpc, sp, _ffn_sharded(p, cfg)), lc
 
     # ------------------------------------------------------------ decode --
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, tpc=None):
         """One token for every sequence.  tokens: (B,) → (logits, cache);
         the cache passed in is left as it was.  A dense model raises where
         the cache lacks room for the position (see the module docstring).
         An encdec decoder block cross-attends to its cached k, v of the
-        encoder's output, plain (one query a sequence: no kernel)."""
+        encoder's output, plain (one query a sequence: no kernel).
+        ``tpc``: a tp context (module docstring)."""
         cfg = self.cfg
         pos = cache["pos"]
+        spans = self._spans(cache, tpc)
         if cfg.kind != "rwkv" and pos.device.type != "meta":     # meta: no values to check
-            self._check_room(cache, int(pos.max()))
-        h = L.embed(_pick(params["embed"], "tok"), tokens.to(self.device)[:, None])
+            self._check_room(spans, int(pos.max()))
+        ids = tokens.to(self.device)[:, None]
+        h = (L.embed(_pick(params["embed"], "tok"), ids) if tpc is None else
+             TP.leave(TP.embed_partial(take(params["embed"]["tok"]), ids.long(), tpc), tpc,
+                      False, True))
         layers = []
         for i, (p, lc) in enumerate(zip(params["layers"], cache["layers"])):
             if cfg.kind == "rwkv":
                 h, new_lc = self._decode_rwkv(p, h, lc)
             else:
-                h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i])
+                h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i], spans[i], tpc)
             layers.append(new_lc)
         h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
-        logits = L.mask_pad_logits(cfg, L.unembed(self._head(params), cfg, h).float()[:, 0])
+        logits = L.unembed(self._head(params), cfg, h).float()[:, 0]
+        logits = L.mask_pad_logits(cfg, logits, _vocab_offset(tpc, logits))
         return logits, {**cache, "layers": layers, "pos": pos + 1}
+
+    def _spans(self, cache, tpc):
+        """Each attention layer's global cache span: a tp context's where
+        the cache holds the rank's slots, else the layer's own."""
+        if self.cfg.kind == "rwkv":
+            return [None] * len(cache["layers"])
+        if tpc is not None and tpc.spans is not None:
+            return list(tpc.spans)
+        return [lc["k"].shape[1] for lc in cache["layers"]]
 
     def _decode_rwkv(self, p, x, lc):
         cfg = self.cfg
@@ -432,12 +496,11 @@ class Model:
         x = x + RWKV.channel_mix(p["mix"], cfg, h2, x_last=lc["x_last_cm"])
         return x, {"S": st["S"], "x_last_tm": h[:, 0], "x_last_cm": h2[:, 0]}
 
-    def _check_room(self, cache, pos: int) -> None:
+    def _check_room(self, spans, pos: int) -> None:
         """Raises where a layer's cache no longer holds the positions that a
         step at ``pos`` reads: min(pos, w − 1) of them (pos for a global
-        layer) against the layer's span."""
-        for lc, w in zip(cache["layers"], self.windows):
-            span = lc["k"].shape[1]
+        layer) against the layer's (global) span."""
+        for span, w in zip(spans, self.windows):
             need = pos if w is None else min(pos, w - 1)
             if need > span:
                 raise ValueError(
@@ -445,16 +508,29 @@ class Model:
                     f"cache holds {span}: give prefill a max_len of the prompt plus every decode "
                     f"token")
 
-    def _decode_attn(self, p, x, lc, pos, window: Optional[int]):
+    def _decode_attn(self, p, x, lc, pos, window: Optional[int], span: int, tpc=None):
         cfg = self.cfg
         p, lc = take(p), take(lc)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-        out, k_new, v_new = L.decode_attention(p["attn"], cfg, h, lc["k"], lc["v"], lc["kpos"],
-                                               pos, layer_window=window)
-        slot = pos[:1].long() % lc["k"].shape[1]    # every row at pos[0]'s slot, as the reference
-        new_lc = {**lc, "k": lc["k"].index_copy(1, slot, k_new),
-                  "v": lc["v"].index_copy(1, slot, v_new),
-                  "kpos": lc["kpos"].index_copy(1, slot, pos[:, None])}
+        slot = pos[:1].long() % span                # every row at pos[0]'s slot, as the reference
+        if tpc is None:
+            out, k_new, v_new = L.decode_attention(p["attn"], cfg, h, lc["k"], lc["v"],
+                                                   lc["kpos"], pos, layer_window=window)
+            new_lc = {**lc, "k": lc["k"].index_copy(1, slot, k_new),
+                      "v": lc["v"].index_copy(1, slot, v_new),
+                      "kpos": lc["kpos"].index_copy(1, slot, pos[:, None])}
+        else:                                       # the rank's slots: its block, or all of them
+            n = lc["k"].shape[1]
+            split = n != span
+            out, k_new, v_new = L.decode_attention_tp(p["attn"], cfg, h, lc["k"], lc["v"],
+                                                      lc["kpos"], pos, tpc,
+                                                      own=split or tpc.rank == 0,
+                                                      layer_window=window)
+            out = TP.leave(out, tpc, False, _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim))
+            hit = torch.arange(n, device=slot.device) == slot - (tpc.rank * n if split else 0)
+            new_lc = {**lc, "k": torch.where(hit[None, :, None, None], k_new, lc["k"]),
+                      "v": torch.where(hit[None, :, None, None], v_new, lc["v"]),
+                      "kpos": torch.where(hit[None], pos[:, None], lc["kpos"])}
         if cfg.kind == "hybrid":
             s, new_lc["ssm"] = SSM.ssm_step(p["ssm"], cfg, h, lc["ssm"])
             out = _mix(p, cfg, out, s)
@@ -463,7 +539,7 @@ class Model:
             hx = L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps)
             x = x + L.cross_decode_attention(p["xattn"], cfg, hx, lc["xk"], lc["xv"])
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + _ffn(p, cfg, h2), new_lc
+        return x + TP.leave(_ffn(p, cfg, h2), tpc, False, _ffn_sharded(p, cfg)), new_lc
 
     # ------------------------------------------------------- cache specs --
     def init_cache(self, batch_size: int, max_len: int, src_len: int = 0, patches: int = 0):
@@ -509,6 +585,30 @@ def _ffn(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.kind == "moe":
         return MOE.moe_ffn(p["moe"], cfg, h, capacity_factor=SERVE_CAPACITY)[0]
     return L.mlp(p["mlp"], cfg, h)
+
+
+def _sharded(w: torch.Tensor, whole: int) -> bool:
+    """Whether a row-parallel ``w`` is a tp rank's shard of its ``whole``
+    rows (its product then a partial sum over tp)."""
+    return w.shape[0] != whole
+
+
+def _ffn_sharded(p, cfg: ModelConfig) -> bool:
+    return cfg.kind != "moe" and _sharded(p["mlp"]["w_down"], cfg.d_ff)
+
+
+def _local_heads(cfg: ModelConfig, q, k, v, tpc):
+    """q of a tp rank's own heads and the K/V heads they read (all of them
+    outside a tp context, or where the rank computes every head)."""
+    n = q.shape[2]
+    if tpc is None or n == cfg.n_heads:
+        return q, k, v
+    return (q, *L.local_kv(k, v, tpc.rank * n, n, cfg.n_heads // cfg.kv_heads))
+
+
+def _vocab_offset(tpc, logits: torch.Tensor) -> int:
+    """The id of the first of a tp rank's vocab columns (0 outside tp)."""
+    return 0 if tpc is None else tpc.rank * logits.shape[-1]
 
 
 def _mix(p, cfg: ModelConfig, attn: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:

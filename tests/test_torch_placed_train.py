@@ -379,9 +379,9 @@ def test_restore_onto_another_rank_count(runs):
 
 def test_placed_prefill_and_decode_match_one_process(runs):
     """``steps.placed_prefill`` and ``placed_decode`` on (2, 2): each rank
-    prefills its rows with each block's weights gathered and decodes with
-    each cache layer gathered over tp (the span split over "model"); the
-    logits within 1e-5·max|logit| of one process's."""
+    prefills its rows tensor- and sequence-parallel over "model" and
+    decodes on its block of the cache's slots (the span split over
+    "model"); the logits within 1e-5·max|logit| of one process's."""
     want = runs["serve"]
     for rank, res in enumerate(runs[4]):
         for name, got, ref in zip(("prefill", "decode"), res["serve"], want):
