@@ -31,8 +31,9 @@ Phases (any failure exits non-zero):
    - the rwkv6_chunk kernel (``rwkv6_chunk.cu``) against its plain version
      in float64 at the RWKV-6 prefill's shape (8, 1024, 32, 64, c 16), one
      long prompt (1, 4096, 32, 64, 16), one prompt of the prefill's length
-     (1, 1024, 32, 64, 16) and the reference test's (2, 64, 2, 32, 16) and
-     (3, 48, 1, 16, 8), on numpy-seeded inputs (standard-normal r, k, v,
+     (1, 1024, 32, 64, 16), the reference test's (2, 64, 2, 32, 16) and
+     (3, 48, 1, 16, 8) and phase 20 (d)'s tp prefill on a rank's 16 heads
+     (8, 1024, 16, 64, 16), on numpy-seeded inputs (standard-normal r, k, v,
      u; log-decays uniform in [−2, −0.01]): |kernel − plain_f64| ≤ 2e-5 · W
      per element, W the plain WKV of |r|, |k|, |v|, |u| with the same
      decays, and the terminal state within 2e-5 per entry of the state of
@@ -46,7 +47,8 @@ Phases (any failure exits non-zero):
      ends, held to the same gates; prints the largest err/W;
    - the WKV backward kernel (``rwkv6_chunk_bwd.cu``) against its plain
      version (``ref.rwkv6_chunk_bwd_ref``) in float64 at phase 11's training
-     shape (1, 2048, 32, 64, c 16), the reference test's (2, 64, 2, 32, 16)
+     shape (1, 2048, 32, 64, c 16), phase 20 (d)'s on a tp rank's 16 heads
+     (1, 2048, 16, 64, 16), the reference test's (2, 64, 2, 32, 16)
      and (3, 48, 1, 16, 8), and in strong-decay chunks ((1, 256, 2, 64, 16)
      and (1, 128, 2, 32, 8), every chunk decaying by 53–59, just inside the
      −60 clip, or by 80–96, past it) and at the training shape with every
@@ -99,7 +101,10 @@ Phases (any failure exits non-zero):
      TinyLlama's 32 and their 2 K/V heads: the bf16 training forward with
      its lse at a microbatch (1, 2048, 16, 2, 64), the bf16 prefill (8,
      2048, 16, 2, 64) and the float32 twin's training forward with its
-     lse (2, 2048, 16, 2, 64).  A windowed row's bound counts the band's pairs, Σ_i min(i + 1, w), and
+     lse (2, 2048, 16, 2, 64); a tp rank's 24 of DBRX's 48 heads and 4 of
+     its 8 K/V heads, the bf16 prefill (1, 2048, 24, 4, 128) and the
+     training forward with its lse at that shape.  A windowed row's bound
+     counts the band's pairs, Σ_i min(i + 1, w), and
      its library call is ``scaled_dot_product_attention`` with a boolean
      band mask.  Before the cases, the
      built library's SASS (``cuobjdump``, found beside ``nvcc`` or in
@@ -347,8 +352,9 @@ Phases (any failure exits non-zero):
    2,048, 32 heads of 64, vocab 65,536, bf16, ~1.58 B parameters, random
    from a seed), its pipeline ``TokenPipeline(65536, 8, 2048, seed=1,
    example_weights=w)``; 8 microbatches, remat, compression 8 with error
-   feedback, AdamW; 4 steps after an untimed warm-up step.  Gates: a finite
-   loss every step; launches over the 4 steps: rwkv6_chunk 2 · 24 · 8 a
+   feedback, AdamW; ``RWKV_STEPS`` = 2 steps (4 before phase 20 (d)'s
+   MoE and RWKV parts needed the time) after an untimed warm-up step.
+   Gates: a finite loss every step; launches over the steps: rwkv6_chunk 2 · 24 · 8 a
    step (forward and remat recompute), its backward 24 · 8, count_sketch
    and its unsketch once a gradient leaf of 32 elements or more, the
    other kernels 0; the warm-up batch's ``doc_ids`` equal to a CPU
@@ -516,14 +522,15 @@ Phases (any failure exits non-zero):
    twin cut to 2 layers.  Gates as phase 12's; one launch a layer a
    prefill, none in decode.
 
-20. Placement, the card emptied first.  (a) TinyLlama-1.1B at full width
-   and depth trained by ``launch/train.py``'s ``run`` (what ``main``
-   runs: ``--full --steps 2 --batch 8 --seq 2048 --n-micro 8
-   --compress-grads 8 --ckpt-every 0``) on ``make_host_mesh()``, (1, 1)
+20. Placement, the card emptied first.  (a) TinyLlama-1.1B at full width,
+   cut to 8 of its 22 layers (for phase 20 (d)'s time), trained by
+   ``launch/train.py``'s ``run`` (what ``main`` runs: ``--full --layers 8
+   --steps 2 --batch 8 --seq 2048 --n-micro 8 --compress-grads 8
+   --ckpt-every 0``) on ``make_host_mesh()``, (1, 1)
    on the one card, the parameters, AdamW's state and every batch placed
    as DTensors by the reference's rules, after the plain trainer twice on
-   the same seed and batches.  Gates: 352 flash_attention, 12 sketch and
-   12 unsketch launches a step on the placed run (the counts set to 0 just
+   the same seed and batches.  Gates: 2 · 8 · 8 = 128 flash_attention, 12
+   sketch and 12 unsketch launches a step on the placed run (the counts set to 0 just
    before it, read just after); losses and grad norms bit-equal to both
    plain runs'; parameters apart in at most ``PLACED_APART`` of the
    elements, each by at most 2·Σlr plus a bf16 rounding flip, for the
@@ -532,7 +539,7 @@ Phases (any failure exits non-zero):
    and AdamW's first steps amplify that where a compressed g is tiny).
    Prints the step ms of the placed run and of the second plain run (the
    placement's overhead), tokens/s and peak memory.  (b) The run's final
-   blocking checkpoint (15.4 GB) restored by ``runtime/elastic.
+   blocking checkpoint (5.6 GB at 8 layers) restored by ``runtime/elastic.
    restore_elastic`` onto ``rebuild_mesh(1)``, bit for bit.  (c) Two
    dry-run cells at full size, each through ``launch/dryrun.py``'s CLI in
    a subprocess within 300 s: TinyLlama × train_4k × 16x16 (256 fake
@@ -542,32 +549,49 @@ Phases (any failure exits non-zero):
    a microbatch.  Prints each record's bytes, flops, census and
    ``lower_s``.  The cells need no card: they start right after the build,
    run beside phases 1-19 on two of the host's cores, and are collected
-   here.  Both are dense, so they run tensor- and sequence-parallel over
-   the 16 "model" ranks.  (d) Tensor and sequence parallelism on the card
-   (``distributed/tp.py``): TinyLlama-1.1B on a (1, 2) mesh, two processes
-   spawned on ``cuda:0`` in a gloo group, every collective staged through
-   the host (the transport for two ranks sharing one card; its times are
-   gloo's through the host, not NVLink's).  This process first makes the
-   references and frees them: the plain trainer's two bf16 steps (4 ×
-   2,048, 4 microbatches, compression 8) on the run's seed and batches, and
-   the plain-served bf16 model's prefill of 8 × 2,048 and 16 greedy decode
+   here.  Two more cells, DBRX-132B × prefill_32k × 16x16 and RWKV-6 ×
+   train_4k × 16x16 (256 each), the MoE one expert-parallel.  All four run
+   tensor- and sequence-parallel over the 16 "model" ranks.  (d) Tensor,
+   sequence and expert parallelism on the card (``distributed/tp.py``,
+   ``models/moe.moe_ffn_tp``, RWKV-6's heads over tp): two processes
+   spawned on ``cuda:0`` in a gloo group on a (1, 2) mesh, every
+   collective staged through the host (the transport for two ranks sharing
+   one card; its times are gloo's through the host, not NVLink's).
+   ``TP_PARTS`` lists the configurations, each at full width:
+   TinyLlama-1.1B (cut to 4 of its 22 layers for the script's time),
+   DBRX-132B (1 layer trained, 2 served), Llama-4-Scout (2 layers served)
+   and RWKV-6 1.6B (4 of 24 layers).  This process first makes the
+   references and frees them, part by part: the plain trainer's two bf16
+   steps on the run's seed and batches (TinyLlama and RWKV-6: 4 × 2,048, 4
+   microbatches, compression 8; DBRX: 4 × 2,048, 4 microbatches, no
+   compression), and the plain-served bf16 model's prefill (TinyLlama 8 ×
+   2,048, DBRX and Scout 1 × 2,048, RWKV-6 8 × 1,024) and 16 greedy decode
    steps beside its float32 twin's (the same weights upcast, the same
-   tokens fed).  Each rank then runs (1) a float32 step of the model cut
-   to 4 layers on the mesh against the plain trainer's on the same seed
-   and 2 × 2,048 batch: loss within 1e-5 relative, every gradient leaf
-   within 1e-4·max|g|; then, the counts at 0, (2) two bf16 steps of the
-   plain trainer's configuration through ``launch/train.py``'s ``build``
-   on the mesh: losses finite, step 1's within 1e-2 relative of the plain
-   trainer's, flash_attention 2 · 22 · 4 launches a step (22 a microbatch
-   forward, twice under remat), each on the rank's 16 heads, 12 sketches
-   and 12 unsketches a step; (3) ``steps.placed_prefill`` of the 8 × 2,048
-   prompt with room for 16 tokens, 22 launches on 16 heads, then 16
-   ``placed_decode`` steps of the fed tokens on the sequence-sharded
-   cache, no launch: every step's logits (rank 0's, gathered) no further
-   from the float32 twin's than 2× the plain-served bf16 model's largest
-   distance to them.  Prints per rank the step ms, prefill ms, decode ms
-   a token, peak memory, the shards' shapes and the bytes staged through
-   the host.
+   tokens fed).  Each rank then runs, part by part: (1) a float32 gradient
+   stage of the model (TinyLlama at 2 layers, RWKV-6 at 4, both 2 × 2,048,
+   DBRX at 1 layer and 1 × 2,048) on the mesh against the plain one-process
+   stage on the same seed and batch, the ranks taking the plain stage in
+   turns and keeping their shard's slice of its gradient on the host, an
+   MoE's routing replayed from the plain run (the choices its own top-k
+   would have made otherwise counted): loss within 1e-5 relative, every
+   gradient leaf within 1e-4·max|g|; then, the counts at 0 before each run
+   and read after it, (2) two bf16 steps of the plain trainer's
+   configuration through ``launch/train.py``'s ``build`` on the mesh:
+   losses finite, step 1's within 1e-2 relative of the plain trainer's,
+   flash_attention 2 · layers · 4 launches a step (twice a microbatch
+   forward under remat) on the rank's half of the heads (TinyLlama 16, DBRX
+   24), RWKV-6's WKV 2 · 4 · 4 forwards and 4 · 4 K1 backwards a step on
+   16 of its 32 heads, a sketch and an unsketch a sketched leaf a step, an
+   MoE's every remat recompute routed as its forward; (3)
+   ``steps.placed_prefill`` of the part's prompt with room for 16 tokens,
+   one launch a layer on the rank's heads (an MoE prefill dropping no
+   (token, expert) pair at factor 4.0), then 16 ``placed_decode`` steps of
+   the fed tokens, no launch: every step's logits (rank 0's, gathered) no
+   further from the float32 twin's than 2× the plain-served bf16 model's
+   largest distance to them.  Prints per rank and part the step ms,
+   prefill ms, decode ms a token, peak memory, the shards' shapes, an
+   MoE's experts held, drops and loads, and the bytes staged through the
+   host with the host seconds by stage.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -902,6 +926,7 @@ def phase_wkv(ops, ref, dev="cuda"):
         ("one_1x1024", 1, 1024, 32, 64, 16),            # one prompt of the prefill's length
         ("ref_test_hs32", 2, 64, 2, 32, 16),             # tests/test_kernels.py's off shapes
         ("ref_test_hs16_c8", 3, 48, 1, 16, 8),
+        ("tp_prefill_8x1024", 8, 1024, 16, 64, 16),     # phase 20 (d): a tp rank's 16 heads
     ]
     return [wkv_case(ops, ref, *c, dev=dev) for c in cases]
 
@@ -1003,6 +1028,7 @@ def wkv_bwd_case(ops, ref, name, B, S, H, hs, c, seed=0, dev="cuda", decay=(0.01
 def phase_wkv_bwd(ops, ref, dev="cuda"):
     cases = [
         ("train_1x2048", 1, 2048, 32, 64, 16, {}),                     # phase 11's microbatch
+        ("tp_train_1x2048", 1, 2048, 16, 64, 16, {}),       # phase 20 (d): a tp rank's 16 heads
         ("ref_test_hs32", 2, 64, 2, 32, 16, {}),
         ("ref_test_hs16_c8", 3, 48, 1, 16, 8, {}),
         ("strong_53_59", 1, 256, 2, 64, 16, {"decay": (3.3, 3.7), "timed": False}),
@@ -1180,6 +1206,9 @@ def phase_attn(ops, ref, dev="cuda"):
         ("tp_train_1x2048_lse", 1, 2048, 16, 2, 64, True, bf16, None, True),  # a microbatch
         ("tp_prefill_8x2048", 8, 2048, 16, 2, 64, True, bf16),
         ("tp_twin_2x2048_f32_lse", 2, 2048, 16, 2, 64, True, f32, None, True),  # the f32 twin
+        # phase 20 (d): a tp rank's 24 of DBRX's 48 heads and 4 of its 8 K/V heads
+        ("tp_dbrx_prefill_1x2048", 1, 2048, 24, 4, 128, True, bf16),
+        ("tp_dbrx_train_1x2048_lse", 1, 2048, 24, 4, 128, True, bf16, None, True),
     ]
     recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None,
                       with_lse=len(c) > 9 and c[9], Sk=c[10] if len(c) > 10 else None)
@@ -3413,6 +3442,7 @@ def phase_rwkv_train(wops, cops, other_ops, weights, steps: int = 4, batch: int 
     return out
 
 
+RWKV_STEPS = 2                     # phase 11(b)'s timed steps (cut from 4 for phase 20 (d)'s time)
 HYMBA_TRAIN_KINDS = ("ssm_branch", "attention_bwd")    # record_function ranges, phase 14
 HYMBA_STEPS = 2                    # phase 14's timed steps (cut from 4 for phase 20 (d)'s time)
 
@@ -3536,8 +3566,9 @@ def moe_routing(model, params, tokens) -> dict:
 
 # ------------------------------------------------------------- phases 16-19 --
 def param_count(cfg) -> tuple:
-    """(parameters, those of them float32 in a bf16 model: the routers) of
-    a dense, moe or encdec config, from its widths alone."""
+    """(parameters, those of them float32 in a bf16 model: the routers,
+    RWKV's w0 and u) of a dense, moe, encdec or rwkv config, from its
+    widths alone."""
     D, N, Kh, dh, F = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
     attn = 2 * D * N * dh + 2 * D * Kh * dh + ((N + 2 * Kh) * dh if cfg.qkv_bias else 0)
     mlp = (3 if cfg.act == "swiglu" else 2) * D * F
@@ -3546,6 +3577,9 @@ def param_count(cfg) -> tuple:
         f32 = D * cfg.n_experts
         ffn = f32 + 3 * cfg.n_experts * D * F + (3 * D * F if cfg.shared_expert else 0)
     block = attn + ffn + 2 * D
+    if cfg.kind == "rwkv":          # six D×D, ck and cv, the decay's LoRA, 12 vectors of D
+        f32 = 2 * D
+        block = 6 * D * D + 2 * D * F + 2 * 64 * D + 12 * D
     total = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2) + D
     total += cfg.n_layers * block
     if cfg.kind == "encdec":
@@ -3893,10 +3927,11 @@ def host_state(tag: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 20 --
-PLACED_ARGS = ("--arch", "tinyllama_1_1b", "--full", "--steps", "2", "--batch", "8", "--seq",
-               "2048", "--n-micro", "8", "--compress-grads", "8", "--ckpt-every", "0",
-               "--log-every", "1")
-DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", "16x16"), ("llama3_405b", "decode_32k", "2x16x16"))
+PLACED_ARGS = ("--arch", "tinyllama_1_1b", "--full", "--layers", "8", "--steps", "2", "--batch",
+               "8", "--seq", "2048", "--n-micro", "8", "--compress-grads", "8", "--ckpt-every",
+               "0", "--log-every", "1")           # 8 of 22 layers: cut for phase 20 (d)'s time
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", "16x16"), ("llama3_405b", "decode_32k", "2x16x16"),
+                ("dbrx_132b", "prefill_32k", "16x16"), ("rwkv6_1_6b", "train_4k", "16x16"))
 DRYRUN_TIMEOUT_S = 300
 PLACED_APART = 1e-5                # placed vs plain parameters: the share of elements apart
 
@@ -3905,8 +3940,8 @@ def rule_bytes(arch: str, shape_name: str, tag: str) -> dict:
     """A dry-run cell's argument bytes a rank holds, summed here from the
     placement rules on an abstract mesh of the cell's shape (no process
     group): the parameters (built on ``meta``), for training AdamW's step,
-    moments and the batch, for decode the cache and the tokens; and how
-    many parameter leaves the rules shard."""
+    moments and the batch, for a prefill the batch, for decode the cache
+    and the tokens; and how many parameter leaves the rules shard."""
     from repro_torch import configs
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import dryrun, steps
@@ -3936,6 +3971,7 @@ def rule_bytes(arch: str, shape_name: str, tag: str) -> dict:
     if mode == "train":
         opt = adamw.init(adamw.AdamWConfig(), params)
         total += 4 + local(opt.m, pshard) + local(opt.v, pshard)
+    if mode in ("train", "prefill"):
         total += local(specs["batch"], S.batch_shardings(mesh, specs["batch"]))
     else:
         total += local(specs["cache"], S.cache_shardings(mesh, specs["cache"]))
@@ -4172,112 +4208,329 @@ def phase_placed(fops, cops, other_ops, dev="cuda", argv=PLACED_ARGS) -> dict:
 # ------------------------------------------------------------- phase 20 (d) --
 TP_WORLD = 2                       # ranks sharing the one card over gloo: a (1, 2) mesh
 TP_TIMEOUT_S = 900.0               # every rank joined within this, or the phase fails
-TP_TRAIN = dict(batch=4, seq=2048, n_micro=4, steps=2)
-TP_SERVE = dict(batch=8, prompt=2048, decode=16)
-TP_TWIN = dict(layers=4, batch=2, seq=2048)
+TP_STEPS, TP_DECODE = 2, 16        # bf16 steps of a trained part, decode steps of a served one
 TP_LOSS_RTOL = 1e-2                # bf16 step 1 against the plain trainer's
 TP_NOISE = 2.0                     # logits: within this times the plain bf16 model's distance
+# Phase 20 (d)'s configurations, each at its full width: its float32 twin (layers, batch,
+# seq; None: none), its bf16 steps (layers, batch, seq, microbatches, compression; None: not
+# trained) and its serve (layers, batch, prompt).  TinyLlama cut from 22 layers to 4 (its twin
+# from 4 to 2) for the time the MoE and RWKV parts take; DBRX trained on 1 layer (its state
+# at 40 would not fit), the MoE LMs served on 2 (the stream crosses a block boundary), RWKV-6
+# on 4 of 24.
+TP_PARTS = (
+    {"arch": "tinyllama_1_1b", "twin": (2, 2, 2048), "train": (4, 4, 2048, 4, 8),
+     "serve": (4, 8, 2048)},
+    {"arch": "dbrx_132b", "twin": (1, 1, 2048), "train": (1, 4, 2048, 4, 0),
+     "serve": (2, 1, 2048)},
+    {"arch": "llama4_scout_17b_a16e", "twin": None, "train": None, "serve": (2, 1, 2048)},
+    {"arch": "rwkv6_1_6b", "twin": (4, 2, 2048), "train": (4, 4, 2048, 4, 8),
+     "serve": (4, 8, 1024)},
+)
 
 
-def tp_train_argv(dev):
-    return ("--arch", "tinyllama_1_1b", "--full", "--steps", str(TP_TRAIN["steps"]), "--batch",
-            str(TP_TRAIN["batch"]), "--seq", str(TP_TRAIN["seq"]), "--n-micro",
-            str(TP_TRAIN["n_micro"]), "--compress-grads", "8", "--ckpt-every", "0",
-            "--device", dev)
+def tp_train_argv(part, dev):
+    layers, batch, seq, n_micro, compress = part["train"]
+    return (("--arch", part["arch"], "--full", "--layers", str(layers), "--steps",
+             str(TP_STEPS), "--batch", str(batch), "--seq", str(seq), "--n-micro",
+             str(n_micro), "--ckpt-every", "0", "--device", dev)
+            + (("--compress-grads", str(compress)) if compress else ()))
 
 
 def tp_weights(cfg, dev):
-    """The run's weights: TinyLlama's init from seed 0, stacked (the
+    """A part's weights: the config's init from seed 0, stacked (the
     trainer's ``build``)."""
     from repro_torch.models import Model, stack_layers
 
     return stack_layers(Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0)))
 
 
+def tp_serve_cfg(part):
+    from repro_torch import configs
+
+    return configs.get(part["arch"]).replace(n_layers=part["serve"][0])
+
+
 def tp_references(dev="cuda") -> dict:
     """Phase 20 (d)'s one-process references, made before the ranks start
-    and freed after: the plain trainer's bf16 steps on the run's seed and
-    batches, and the plain-served bf16 model's prefill and 16 greedy
-    decode steps beside its float32 twin's (the same weights in float32,
-    the same tokens fed)."""
+    and freed after, by part: the plain trainer's bf16 steps on the run's
+    seed and batches, and the plain-served bf16 model's prefill and 16
+    greedy decode steps beside its float32 twin's (the same weights in
+    float32, the same tokens fed)."""
     from repro_torch import configs
     from repro_torch.launch import train as T
     from repro_torch.models import Model, layer_views
 
-    plain, losses, step_s = T.build(T.parser().parse_args(tp_train_argv(dev))), [], []
-    try:
-        for _ in range(TP_TRAIN["steps"]):
-            b = plain.next_batch()
-            sync(dev)
-            t0 = time.perf_counter()
-            losses.append(float(plain.step(b)["loss"]))
-            step_s.append(time.perf_counter() - t0)
-    finally:
-        plain.pipe.stop()
-    out = {"plain_loss": losses[0], "plain_losses": losses, "plain_step_s": step_s}
-    del plain, b
-    empty(dev)
-    cfg = configs.get("tinyllama_1_1b")
-    B, S, n = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["decode"]
-    prompt = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab, (B, S)))
-    params = tp_weights(cfg, dev)
-    with torch.no_grad():
-        model = Model(cfg, device=dev)
-        logits, cache = model.prefill(layer_views(params), {"tokens": prompt.to(dev)},
-                                      max_len=S + n)
-        plain, fed = [logits.cpu()], []
-        for _ in range(n):
-            fed.append(logits.argmax(-1).int())
-            logits, cache = model.decode_step(layer_views(params), cache, fed[-1])
-            plain.append(logits.cpu())
-        del cache
-        m32 = Model(cfg.replace(dtype="float32"), device=dev)
-        p32 = layer_views(upcast(params))
-        del params
-        logits, cache = m32.prefill(p32, {"tokens": prompt.to(dev)}, max_len=S + n)
-        f32 = [logits.cpu()]
-        for t in fed:
-            logits, cache = m32.decode_step(p32, cache, t)
-            f32.append(logits.cpu())
-        del cache, p32, logits
-    empty(dev)
-    valid = slice(0, cfg.vocab)
-    out.update(prompt=prompt, fed=[t.cpu() for t in fed], f32=f32,
-               plain_dist=[float((a[:, valid] - b[:, valid]).abs().max())
-                           for a, b in zip(plain, f32)])
+    out = {}
+    for part in TP_PARTS:
+        ref = out[part["arch"]] = {}
+        full = configs.get(part["arch"])
+        if part["twin"] and dev == "cuda":      # its weights; the plain stage adds as much again
+            reckon("phase 20 (d)'s float32 twin", full.replace(
+                dtype="float32", n_layers=part["twin"][0]), full.n_layers, train=False)
+        if part["train"]:
+            if dev == "cuda":
+                reckon("phase 20 (d)'s plain trainer", full.replace(n_layers=part["train"][0]),
+                       full.n_layers, train=True, compress=bool(part["train"][4]))
+            plain, losses, step_s = T.build(T.parser().parse_args(tp_train_argv(part, dev))), [], []
+            try:
+                for _ in range(TP_STEPS):
+                    b = plain.next_batch()
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    losses.append(float(plain.step(b)["loss"]))
+                    step_s.append(time.perf_counter() - t0)
+            finally:
+                plain.pipe.stop()
+            ref.update(plain_loss=losses[0], plain_losses=losses, plain_step_s=step_s)
+            del plain, b
+            empty(dev)
+        cfg = tp_serve_cfg(part)
+        _, B, S = part["serve"]
+        prompt = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab, (B, S)))
+        params = tp_weights(cfg, dev)
+        with torch.no_grad():
+            model = Model(cfg, device=dev)
+            logits, cache = model.prefill(layer_views(params), {"tokens": prompt.to(dev)},
+                                          max_len=S + TP_DECODE)
+            plain, fed = [logits.cpu()], []
+            for _ in range(TP_DECODE):
+                fed.append(logits.argmax(-1).int())
+                logits, cache = model.decode_step(layer_views(params), cache, fed[-1])
+                plain.append(logits.cpu())
+            del cache
+            m32 = Model(cfg.replace(dtype="float32"), device=dev)
+            p32 = layer_views(upcast(params))
+            del params
+            logits, cache = m32.prefill(p32, {"tokens": prompt.to(dev)}, max_len=S + TP_DECODE)
+            f32 = [logits.cpu()]
+            for t in fed:
+                logits, cache = m32.decode_step(p32, cache, t)
+                f32.append(logits.cpu())
+            del cache, p32, logits
+        empty(dev)
+        valid = slice(0, cfg.vocab)
+        ref.update(prompt=prompt, fed=[t.cpu() for t in fed], f32=f32,
+                   plain_dist=[float((a[:, valid] - b[:, valid]).abs().max())
+                               for a, b in zip(plain, f32)])
     return out
 
 
-def tp_twin(mesh, dev):
-    """(1): a float32 step of TinyLlama cut to 4 layers on the mesh against
-    the plain trainer's on the same seed and batch (one microbatch): the
-    loss within 1e-5 relative, every gradient leaf within 1e-4·max|g|."""
+class RouteReplay:
+    """A stand-in for ``models/moe.route`` that takes, call by call, the
+    choices another run recorded (``RouteLog.calls``), and counts the
+    choices its own top-k would have made otherwise."""
+
+    def __init__(self, calls):
+        from repro_torch.models import moe
+
+        self.calls, self._route, self.untied, self.choices = iter(calls), moe.route, 0, 0
+
+    def __call__(self, p, cfg, xt, capacity_factor=None, expert=None, aux_rows=None):
+        expert = next(self.calls)[0]
+        with torch.no_grad():
+            self.untied += int((self._route(p, cfg, xt, capacity_factor).expert != expert).sum())
+        self.choices += expert.numel()
+        return self._route(p, cfg, xt, capacity_factor, expert=expert, aux_rows=aux_rows)
+
+
+def tp_twin(mesh, part, dev):
+    """(1): a float32 gradient stage of the part's model cut to the twin's
+    depth on the mesh against the plain one-process stage on the same
+    seed and batch (one microbatch, an MoE's routing replayed from the
+    plain run): the loss within 1e-5 relative, every gradient leaf within
+    1e-4·max|g|.  The ranks run the plain stage in turns, each keeping its
+    shard's slice of the plain gradient on the host, so the card never
+    holds two plain states (DBRX's float32 layer is 18 GB of weights)."""
+    import torch.distributed as dist
+
     from repro_torch import configs
     from repro_torch.distributed import sharding as S
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.optim import adamw
     from repro_torch.tree import leaves, paths
 
-    cfg = configs.get("tinyllama_1_1b").replace(dtype="float32", n_layers=TP_TWIN["layers"])
+    layers, B, seq = part["twin"]
+    cfg = configs.get(part["arch"]).replace(dtype="float32", n_layers=layers)
     model, ocfg = Model(cfg, device=dev), adamw.AdamWConfig()
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (B, seq))).to(dev)}
+    rank, routes, want = dist.get_rank(), RouteLog(), {}
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            base = tp_weights(cfg, dev)
+            with swapped(moe, "route", routes):
+                g, loss = make_train_step(model, ocfg, 1).grads(base, batch)
+            shard = S.param_shardings(mesh, base)
+            for name, t, sh in zip(paths(base), leaves(g), leaves(shard)):
+                want[name] = (t[S.shard_slices(t.shape, mesh, sh.placements)].cpu(),
+                              float(t.abs().max()))
+            want_loss = float(loss)
+            del base, g
+            empty(dev)
+        dist.barrier()
     base = tp_weights(cfg, dev)
-    rng = np.random.default_rng(7)
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (TP_TWIN["batch"],
-                                                                    TP_TWIN["seq"]))).to(dev)}
-    g, loss = make_train_step(model, ocfg, 1).grads(base, batch)
-    want, want_loss = [t.clone() for t in leaves(g)], float(loss)
-    del g
     placed = S.place(base, S.param_shardings(mesh, base))
-    g, loss = make_train_step(model, ocfg, 1).grads(placed, S.place(batch, S.batch_shardings(
-        mesh, batch)))
-    got = leaves(S.gathered(g))
-    rel = {n: float((a - b).abs().max() / b.abs().max()) for n, a, b in zip(paths(base), got, want)}
-    rec = {"layers": cfg.n_layers, "loss": float(loss), "plain_loss": want_loss,
-           "loss_rel": abs(float(loss) - want_loss) / abs(want_loss), "grad_rel": rel}
+    del base
+    replay = RouteReplay(routes.calls)
+    with swapped(moe, "route", replay):
+        g, loss = make_train_step(model, ocfg, 1).grads(placed, S.place(batch, S.batch_shardings(
+            mesh, batch)))
+    rel = {n: float((t.to_local() - want[n][0].to(dev)).abs().max()) / want[n][1]
+           for n, t in zip(paths(placed), leaves(g))}
+    rec = {"layers": layers, "batch": B, "seq": seq, "loss": float(loss), "plain_loss": want_loss,
+           "loss_rel": abs(float(loss) - want_loss) / abs(want_loss), "grad_rel": rel,
+           "choices_differing_untied": replay.untied, "choices": replay.choices}
+    del placed, g, want
+    empty(dev)
     if rec["loss_rel"] > TRAIN_LOSS_RTOL or max(rel.values()) > TRAIN_GRAD_RTOL:
-        raise AssertionError(f"tp twin: the tp step and the plain step disagree: {rec}")
+        raise AssertionError(f"tp twin ({cfg.name}): the tp step and the plain step "
+                             f"disagree: {rec}")
     return rec
+
+
+class Seen:
+    """Records the heads of each call of a kernel wrapper, as it stands in
+    for it in ``modules`` (flash_attention's in its ops module and in
+    ``models/layers``, the WKV's in ``models/rwkv6``: each takes (B, S,
+    heads, d) first)."""
+
+    def __init__(self, modules, name):
+        self.modules, self.name, self.heads = modules, name, []
+        self.real = getattr(modules[0], name)
+        for m in modules:
+            setattr(m, name, self)
+
+    def __call__(self, x, *a, **k):
+        self.heads.append(x.shape[2])
+        return self.real(x, *a, **k)
+
+    def take(self):
+        out, self.heads = sorted(set(self.heads)), []
+        return out
+
+    def restore(self):
+        for m in self.modules:
+            setattr(m, self.name, self.real)
+
+
+def tp_counts(fops, wops, cops) -> dict:
+    return {"flash_attention": fops.launches, "rwkv6_chunk": wops.launches,
+            "rwkv6_chunk_bwd": wops.bwd_launches, "count_sketch": cops.launches,
+            "count_sketch_unsketch": cops.unsketch_launches}
+
+
+def tp_reset(dev, *ops) -> None:
+    """Every count at 0, the peak memory's too: a path starts here."""
+    from repro_torch.distributed import tp as TPM
+
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    TPM.reset_counters()
+    for o in ops:
+        o.reset_launches()
+
+
+def tp_train(mesh, part, ops, seen, dev):
+    """(2): the part's bf16 steps through ``launch/train.py``'s ``build``
+    on the mesh, the counts at 0 just before the steps and read just
+    after; an MoE's routings recorded (remat mismatches, drops, loads)."""
+    from repro_torch.distributed import tp as TPM
+    from repro_torch.launch import train as T
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves, paths
+
+    tr = T.build(T.parser().parse_args(tp_train_argv(part, dev)), mesh)
+    cfg, routes = tr.model.cfg, RouteLog()
+    step_s, losses, norms = [], [], []
+    for s in seen:
+        s.take()
+    tp_reset(dev, *ops)                                                 # the path starts here
+    try:
+        with swapped(moe, "route", routes):
+            for _ in range(TP_STEPS):
+                b = tr.next_batch()
+                sync(dev)
+                t0 = time.perf_counter()
+                m = tr.step(b)
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+    finally:
+        tr.pipe.stop()
+    rec = {"step_s": step_s, "losses": losses, "grad_norms": norms,
+           "train_launches": tp_counts(*ops),                           # ... and ends here
+           "train_heads": {s.name: s.take() for s in seen}, "train_staged_bytes": TPM.staged_bytes,
+           "train_host_s": dict(TPM.host_seconds),
+           "train_peak_bytes": torch.cuda.max_memory_allocated() if dev == "cuda" else 0,
+           "sketched_leaves": (sum(p.numel() >= 4 * tr.compressor.ratio for p in leaves(tr.params))
+                               if tr.compressor is not None else 0),
+           "shards": {n: tuple(t.to_local().shape) for n, t in zip(paths(tr.params),
+                                                                   leaves(tr.params))
+                      if t.to_local().shape != t.shape}}
+    if cfg.kind == "moe":
+        rec["remat_routing_mismatches"], rec["remat_routing_pairs"] = routes.remat_mismatches(
+            cfg.n_layers)
+        rec["routing_by_layer"] = routes.stats(cfg.n_layers, cfg.n_experts)
+        rec["experts_held"] = tr.params["layers"]["moe"]["w_gate"].to_local().shape[1]
+    del tr, b, m, routes
+    return rec
+
+
+def tp_serve(mesh, part, inp, ops, seen, dev):
+    """(3): ``steps.placed_prefill`` of the part's prompt with room for 16
+    tokens, then 16 ``placed_decode`` steps of the fed tokens, the counts at
+    0 before each and read after; an MoE prefill's drops and loads.
+    Returns (the record, the logits gathered)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import tp as TPM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import Model, moe
+
+    cfg = tp_serve_cfg(part)
+    model = Model(cfg, device=dev)
+    params = tp_weights(cfg, dev)
+    placed = S.place(params, S.param_shardings(mesh, params))
+    del params
+    batch = {"tokens": inp["prompt"].to(dev)}
+    batch = S.place(batch, S.batch_shardings(mesh, batch))
+    routes = RouteLog()
+    for s in seen:
+        s.take()
+    tp_reset(dev, *ops)                                                 # the prefill starts here
+    sync(dev)
+    t0 = time.perf_counter()
+    with swapped(moe, "route", routes):
+        logits, cache = ST.placed_prefill(model, placed, batch,
+                                          max_len=part["serve"][2] + TP_DECODE)
+    sync(dev)
+    rec = {"prefill_s": time.perf_counter() - t0, "prefill_launches": tp_counts(*ops),
+           "prefill_heads": {s.name: s.take() for s in seen},
+           "cache_local_shapes": {k: tuple(t.to_local().shape)
+                                  for k, t in cache["layers"][0].items()}}
+    if cfg.kind == "moe":
+        rec["routing"] = {"capacity": [c for _, _, c in routes.calls],
+                          "dropped_pairs": [int((~k).sum()) for _, k, _ in routes.calls],
+                          "load": [torch.bincount(e.reshape(-1), minlength=cfg.n_experts).tolist()
+                                   for e, _, _ in routes.calls]}
+    served = [S.gathered(logits).cpu()]
+    tp_reset(dev, *ops)                                                 # decode starts here
+    decode_s = []
+    for t in inp["fed"]:
+        tok = {"t": t.to(dev)}
+        tok = S.place(tok, S.batch_shardings(mesh, tok))["t"]
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = ST.placed_decode(model, placed, cache, tok)
+        sync(dev)
+        decode_s.append(time.perf_counter() - t0)
+        served.append(S.gathered(logits).cpu())
+    rec.update(decode_s=decode_s, decode_launches=tp_counts(*ops),      # ... and ends here
+               serve_staged_bytes=TPM.staged_bytes, serve_host_s=dict(TPM.host_seconds),
+               serve_host_collectives=TPM.host_collectives,
+               serve_peak_bytes=torch.cuda.max_memory_allocated() if dev == "cuda" else 0)
+    del placed, cache, logits
+    return rec, served
 
 
 def tp_rank(rank: int, world: int, tmp: str, dev: str) -> None:
@@ -4306,111 +4559,44 @@ def tp_rank(rank: int, world: int, tmp: str, dev: str) -> None:
 
 
 def tp_work(rank: int, world: int, inp: dict, dev: str):
-    """Phase 20 (d) on one rank (module docstring): the float32 twin, then
-    the main path with every count at 0 before it: two bf16 train steps,
-    a prefill and 16 decode steps on the sequence-sharded cache."""
+    """Phase 20 (d) on one rank (module docstring), part by part: the
+    float32 twin, then the main path, each of its runs with every count at
+    0 before it: the bf16 train steps, a prefill and 16 decode steps."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch import configs
-    from repro_torch.distributed import sharding as S
-    from repro_torch.distributed import tp as TPM
     from repro_torch.kernels.count_sketch import ops as cops
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.launch import steps as ST
-    from repro_torch.launch import train as T
-    from repro_torch.models import Model
+    from repro_torch.kernels.rwkv6_chunk import ops as wops
     from repro_torch.models import layers as LY
+    from repro_torch.models import rwkv6
 
     if dev == "cpu":                     # a CPU rehearsal counts the plain versions' calls
-        counting_cpu_kernels(fops, cops)
+        counting_cpu_kernels(fops, cops, wops)
     mesh = init_device_mesh(dev, (1, world), mesh_dim_names=("data", "model"))
-    twin = tp_twin(mesh, dev)
-    empty(dev)
-
-    tr = T.build(T.parser().parse_args(tp_train_argv(dev)), mesh)
-    heads, real = [], fops.flash_attention_gqa
-
-    def seen(q, *a, **k):                # records the heads each call sees
-        heads.append(q.shape[2])
-        return real(q, *a, **k)
-    fops.flash_attention_gqa = LY.flash_attention_gqa = seen
-    if dev == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    TPM.reset_counters()
-    for o in (fops, cops):                                              # main path starts here
-        o.reset_launches()
-    step_s, losses, norms = [], [], []
+    ops = (fops, wops, cops)
+    seen = (Seen((fops, LY), "flash_attention_gqa"), Seen((rwkv6,), "rwkv6_chunk"))
+    out, served = {"rank": rank, "mesh": [1, world], "transport": "gloo through the host",
+                   "parts": {}}, {}
     try:
-        for _ in range(TP_TRAIN["steps"]):
-            b = tr.next_batch()
-            sync(dev)
+        for part in TP_PARTS:
+            rec = out["parts"][part["arch"]] = {}
             t0 = time.perf_counter()
-            m = tr.step(b)
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
+            if part["twin"]:
+                rec["twin_f32"] = tp_twin(mesh, part, dev)
+            t1 = time.perf_counter()
+            if part["train"]:
+                rec.update(tp_train(mesh, part, ops, seen, dev))
+                empty(dev)
+            t2 = time.perf_counter()
+            srec, served[part["arch"]] = tp_serve(mesh, part, inp[part["arch"]], ops, seen, dev)
+            rec.update(srec, seconds={"twin": t1 - t0, "train": t2 - t1,
+                                      "serve": time.perf_counter() - t2})
+            empty(dev)
+            log(f"  rank {rank}: {part['arch']} done, seconds {rec['seconds']}")
     finally:
-        tr.pipe.stop()
-    train = {"flash_attention": fops.launches, "count_sketch": cops.launches,
-             "count_sketch_unsketch": cops.unsketch_launches}
-    train_heads, train_staged = sorted(set(heads)), TPM.staged_bytes
-    train_host = dict(TPM.host_seconds)
-    train_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
-    shards = {n: tuple(t.to_local().shape) for n, t in zip(
-        ("wq", "wo", "w_gate", "w_up", "w_down", "tok", "head"),
-        (tr.params["layers"]["attn"]["wq"], tr.params["layers"]["attn"]["wo"],
-         tr.params["layers"]["mlp"]["w_gate"], tr.params["layers"]["mlp"]["w_up"],
-         tr.params["layers"]["mlp"]["w_down"], tr.params["embed"]["tok"],
-         tr.params["embed"]["head"]))}
-    del tr, b, m
-    empty(dev)
-
-    cfg = configs.get("tinyllama_1_1b")
-    model, n = Model(cfg, device=dev), TP_SERVE["decode"]
-    params = tp_weights(cfg, dev)
-    placed = S.place(params, S.param_shardings(mesh, params))
-    del params
-    batch = {"tokens": inp["prompt"].to(dev)}
-    batch = S.place(batch, S.batch_shardings(mesh, batch))
-    fops.reset_launches()
-    heads.clear()
-    TPM.reset_counters()
-    if dev == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    sync(dev)
-    t0 = time.perf_counter()
-    logits, cache = ST.placed_prefill(model, placed, batch, max_len=TP_SERVE["prompt"] + n)
-    sync(dev)
-    prefill_s = time.perf_counter() - t0
-    prefill_launches, prefill_heads = fops.launches, sorted(set(heads))
-    cache_local = tuple(cache["layers"][0]["k"].to_local().shape)
-    served = [S.gathered(logits).cpu()]
-    fops.reset_launches()
-    decode_s = []
-    for t in inp["fed"]:
-        tok = {"t": t.to(dev)}
-        tok = S.place(tok, S.batch_shardings(mesh, tok))["t"]
-        sync(dev)
-        t0 = time.perf_counter()
-        logits, cache = ST.placed_decode(model, placed, cache, tok)
-        sync(dev)
-        decode_s.append(time.perf_counter() - t0)
-        served.append(S.gathered(logits).cpu())
-    decode_launches = fops.launches                                    # ... and ends here
-    serve_host = dict(TPM.host_seconds)
-    fops.flash_attention_gqa = LY.flash_attention_gqa = real
-    serve_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
-    return {"rank": rank, "mesh": [1, world], "twin_f32": twin, "step_s": step_s,
-            "losses": losses, "grad_norms": norms, "train_launches": train,
-            "train_heads": train_heads, "train_staged_bytes": train_staged,
-            "train_peak_bytes": train_peak, "shards": shards, "prefill_s": prefill_s,
-            "prefill_launches": prefill_launches, "prefill_heads": prefill_heads,
-            "cache_local_shape": cache_local, "decode_s": decode_s,
-            "decode_launches": decode_launches,
-            "serve_staged_bytes": TPM.staged_bytes, "train_host_s": train_host,
-            "serve_host_s": serve_host,
-            "serve_peak_bytes": serve_peak, "transport": "gloo through the host",
-            "serve_host_collectives": TPM.host_collectives}, served
+        for s in seen:
+            s.restore()
+    return out, served
 
 
 def empty(dev) -> None:
@@ -4420,9 +4606,9 @@ def empty(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def counting_cpu_kernels(fops, cops):
-    """A CPU rehearsal's stand-ins: the plain flash_attention and sketches,
-    each call counted as a launch."""
+def counting_cpu_kernels(fops, cops, wops=None):
+    """A CPU rehearsal's stand-ins: the plain flash_attention, WKV (forward
+    and backward) and sketches, each call counted as a launch."""
     from repro_torch.optim import grad_compress
 
     real_attn, real_sk, real_un = (fops.flash_attention_gqa, grad_compress.count_sketch_hashed,
@@ -4441,6 +4627,34 @@ def counting_cpu_kernels(fops, cops):
         return real_un(*a, **k)
     fops.flash_attention_gqa, grad_compress.count_sketch_hashed, grad_compress.unsketch = (
         attn, sk, un)
+    if wops is not None:
+        real_fwd, real_bwd = wops._forward, wops.rwkv6_chunk_bwd
+
+        def fwd(*a, **k):
+            wops.launches += 1
+            return real_fwd(*a, **k)
+
+        def bwd(*a, **k):
+            wops.bwd_launches += 1
+            return real_bwd(*a, **k)
+        wops._forward, wops.rwkv6_chunk_bwd = fwd, bwd
+
+
+def tp_want(part, cfg) -> dict:
+    """A part's launch counts: (its train steps', a prefill's, a decode
+    step's) and the heads each kernel sees on a tp rank."""
+    z = dict.fromkeys(("flash_attention", "rwkv6_chunk", "rwkv6_chunk_bwd", "count_sketch",
+                       "count_sketch_unsketch"), 0)
+    rwkv, train = cfg.kind == "rwkv", None
+    if part["train"]:
+        layers, _, _, n_micro, compress = part["train"]
+        fwd = 2 * layers * n_micro * TP_STEPS                 # forward and remat recompute
+        train = {**z, **({"rwkv6_chunk": fwd, "rwkv6_chunk_bwd": fwd // 2} if rwkv
+                         else {"flash_attention": fwd})}
+    prefill = {**z, ("rwkv6_chunk" if rwkv else "flash_attention"): part["serve"][0]}
+    heads = ((cfg.d_model // cfg.rwkv_head_size) if rwkv else cfg.n_heads) // TP_WORLD
+    return {"train": train, "prefill": prefill, "decode": z, "heads": heads,
+            "kernel": "rwkv6_chunk" if rwkv else "flash_attention_gqa"}
 
 
 def phase_tp(dev="cuda") -> dict:
@@ -4451,15 +4665,13 @@ def phase_tp(dev="cuda") -> dict:
     import pickle
     import tempfile
 
-    from repro_torch import configs
-
     t0 = time.perf_counter()
     ref = tp_references(dev)
     ref_s = time.perf_counter() - t0
-    cfg = configs.get("tinyllama_1_1b")
+    log(f"  phase 20 (d)'s references took {ref_s:.1f}s")
     with tempfile.TemporaryDirectory() as tmp:
         with open(f"{tmp}/inputs.pkl", "wb") as fh:
-            pickle.dump({"prompt": ref["prompt"], "fed": ref["fed"]}, fh)
+            pickle.dump({a: {"prompt": r["prompt"], "fed": r["fed"]} for a, r in ref.items()}, fh)
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=tp_rank, args=(r, TP_WORLD, tmp, dev))
                  for r in range(TP_WORLD)]
@@ -4480,61 +4692,89 @@ def phase_tp(dev="cuda") -> dict:
                                  f"{TP_TIMEOUT_S:.0f} s passed)")
         ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(TP_WORLD)]
         served = torch.load(f"{tmp}/logits.pt")
-    valid = slice(0, cfg.vocab)
-    noise = max(ref["plain_dist"])
-    dist_tp = [float((a[:, valid] - b[:, valid]).abs().max()) for a, b in zip(served, ref["f32"])]
-    L, nm = cfg.n_layers, TP_TRAIN["n_micro"]
-    want_train = {"flash_attention": 2 * L * nm * TP_TRAIN["steps"],
-                  "count_sketch": 12 * TP_TRAIN["steps"],
-                  "count_sketch_unsketch": 12 * TP_TRAIN["steps"]}
-    local_heads = cfg.n_heads // TP_WORLD
-    out = {"arch": cfg.name, "mesh": [1, TP_WORLD], "transport": "gloo through the host",
-           "references_s": ref_s, "plain_losses": ref["plain_losses"],
-           "plain_step_ms": [x * 1e3 for x in ref["plain_step_s"]],
-           "plain_dist": ref["plain_dist"],
-           "tp_dist": dist_tp, "noise_limit": TP_NOISE * noise, "ranks": ranks,
-           "seconds": time.perf_counter() - t0, **{k: dict(v) for k, v in
-                                                  (("train", TP_TRAIN), ("serve", TP_SERVE))}}
-    for r in ranks:
-        log(f"  rank {r['rank']} of (1, {TP_WORLD}) over gloo through the host (not NVLink): "
-            f"float32 twin ({r['twin_f32']['layers']} layers) loss rel "
-            f"{r['twin_f32']['loss_rel']:.2e}, grads max rel "
-            f"{max(r['twin_f32']['grad_rel'].values()):.2e}; bf16 steps "
-            f"{', '.join(f'{x * 1e3:.1f}' for x in r['step_s'])} ms (the plain trainer's "
-            f"{', '.join(f'{x * 1e3:.1f}' for x in ref['plain_step_s'])} ms), losses "
-            f"{r['losses']} (plain {ref['plain_losses']}), launches {r['train_launches']} on "
-            f"{r['train_heads']} heads, staged {r['train_staged_bytes'] / 1e9:.2f} GB (host s "
-            f"{ {k: round(v, 2) for k, v in r['train_host_s'].items()} }), peak "
-            f"{r['train_peak_bytes'] / 2 ** 30:.2f} GiB; shards {r['shards']}")
-        log(f"    prefill {TP_SERVE['batch']} x {TP_SERVE['prompt']} {r['prefill_s'] * 1e3:.1f} "
-            f"ms ({r['prefill_launches']} launches on {r['prefill_heads']} heads, cache layer "
-            f"{r['cache_local_shape']} a rank), decode "
-            f"{1e3 * sum(r['decode_s']) / max(1, len(r['decode_s'])):.2f} "
-            f"ms a token ({r['decode_launches']} launches), staged "
-            f"{r['serve_staged_bytes'] / 1e9:.3f} GB in {r['serve_host_collectives']} host "
-            f"collectives (host s { {k: round(v, 2) for k, v in r['serve_host_s'].items()} }), "
-            f"peak {r['serve_peak_bytes'] / 2 ** 30:.2f} GiB")
-    log(f"  logits' distance to the float32 twin: tp {max(dist_tp):.4f} (prefill "
-        f"{dist_tp[0]:.4f}), the plain-served bf16 model's {noise:.4f} (limit "
-        f"{TP_NOISE * noise:.4f}); phase 20 (d) took {out['seconds']:.1f}s")
-    for r in ranks:
-        bad = []
-        if not all(math.isfinite(x) for x in r["losses"]):
-            bad.append(f"losses {r['losses']}")
-        if abs(r["losses"][0] - ref["plain_loss"]) > TP_LOSS_RTOL * abs(ref["plain_loss"]):
-            bad.append(f"step 1's loss {r['losses'][0]} against the plain {ref['plain_loss']}")
-        if r["train_launches"] != want_train or r["train_heads"] != [local_heads]:
-            bad.append(f"train launches {r['train_launches']} on {r['train_heads']} heads, "
-                       f"expected {want_train} on {local_heads}")
-        if r["prefill_launches"] != L or r["prefill_heads"] != [local_heads]:
-            bad.append(f"prefill launches {r['prefill_launches']} on {r['prefill_heads']}")
-        if r["decode_launches"] != 0:
-            bad.append(f"decode launched {r['decode_launches']} kernels")
-        if bad:
-            raise AssertionError(f"tp rank {r['rank']}: {'; '.join(bad)}")
-    if max(dist_tp) > TP_NOISE * noise or not all(math.isfinite(x) for x in dist_tp):
-        raise AssertionError(f"tp: served logits {dist_tp} from the float32 twin, past "
-                             f"{TP_NOISE} x the plain model's {noise}")
+    out = {"mesh": [1, TP_WORLD], "transport": "gloo through the host", "references_s": ref_s,
+           "steps": TP_STEPS, "decode": TP_DECODE, "parts": {}, "ranks": ranks}
+    bad = []
+    for part in TP_PARTS:
+        arch, r0 = part["arch"], ref[part["arch"]]
+        cfg = tp_serve_cfg(part)
+        want, valid = tp_want(part, cfg), slice(0, cfg.vocab)
+        noise = max(r0["plain_dist"])
+        dist_tp = [float((a[:, valid] - b[:, valid]).abs().max())
+                   for a, b in zip(served[arch], r0["f32"])]
+        out["parts"][arch] = {**{k: part[k] for k in ("twin", "train", "serve")},
+                              "plain_dist": r0["plain_dist"], "tp_dist": dist_tp,
+                              "noise_limit": TP_NOISE * noise,
+                              **({"plain_losses": r0["plain_losses"],
+                                  "plain_step_ms": [x * 1e3 for x in r0["plain_step_s"]]}
+                                 if part["train"] else {})}
+        for r in ranks:
+            rec, tag = r["parts"][arch], f"tp {arch} rank {r['rank']}"
+            if "twin_f32" in rec:
+                tw = rec["twin_f32"]
+                log(f"  {tag} of (1, {TP_WORLD}) over gloo through the host (not NVLink): float32 "
+                    f"twin ({tw['layers']} layers, {tw['batch']} x {tw['seq']}) loss rel "
+                    f"{tw['loss_rel']:.2e}, grads max rel {max(tw['grad_rel'].values()):.2e}"
+                    + (f"; routing replayed: {tw['choices_differing_untied']} of "
+                       f"{tw['choices']} choices would have differed untied"
+                       if tw["choices"] else ""))
+            if part["train"]:
+                log(f"    bf16 steps {', '.join(f'{x * 1e3:.1f}' for x in rec['step_s'])} ms (the "
+                    f"plain trainer's {', '.join(f'{x * 1e3:.1f}' for x in r0['plain_step_s'])} "
+                    f"ms), losses {rec['losses']} (plain {r0['plain_losses']}), launches "
+                    f"{ {k: v for k, v in rec['train_launches'].items() if v} } on heads "
+                    f"{rec['train_heads']}, staged {rec['train_staged_bytes'] / 1e9:.2f} GB "
+                    f"(host s { {k: round(v, 2) for k, v in rec['train_host_s'].items()} }), peak "
+                    f"{rec['train_peak_bytes'] / 2 ** 30:.2f} GiB; shards {rec['shards']}")
+                if cfg.kind == "moe":
+                    log(f"    experts held {rec['experts_held']} of {cfg.n_experts}; remat "
+                        f"routing mismatches {rec['remat_routing_mismatches']} of "
+                        f"{rec['remat_routing_pairs']} pairs; routing by layer (drops, loads) "
+                        f"{rec['routing_by_layer']}")
+            launched = {k: v for k, v in rec["prefill_launches"].items() if v}
+            host_s = {k: round(v, 2) for k, v in rec["serve_host_s"].items()}
+            log(f"    prefill {part['serve'][1]} x {part['serve'][2]} ({part['serve'][0]} layers) "
+                f"{rec['prefill_s'] * 1e3:.1f} ms ({launched} on heads {rec['prefill_heads']}, "
+                f"cache layer {rec['cache_local_shapes']} a rank), decode "
+                f"{1e3 * sum(rec['decode_s']) / max(1, len(rec['decode_s'])):.2f} ms a token "
+                f"({sum(rec['decode_launches'].values())} launches), staged "
+                f"{rec['serve_staged_bytes'] / 1e9:.3f} GB in {rec['serve_host_collectives']} host "
+                f"collectives (host s {host_s}), peak {rec['serve_peak_bytes'] / 2 ** 30:.2f} GiB"
+                + (f"; prefill routing at factor 4.0: drops {rec['routing']['dropped_pairs']}, "
+                   f"loads {rec['routing']['load']}" if cfg.kind == "moe" else ""))
+            if part["train"]:
+                if not all(math.isfinite(x) for x in rec["losses"]):
+                    bad.append(f"{tag}: losses {rec['losses']}")
+                if abs(rec["losses"][0] - r0["plain_loss"]) > TP_LOSS_RTOL * abs(r0["plain_loss"]):
+                    bad.append(f"{tag}: step 1's loss {rec['losses'][0]} against the plain "
+                               f"{r0['plain_loss']}")
+                sk = rec["sketched_leaves"] * TP_STEPS
+                train_want = {**want["train"], "count_sketch": sk, "count_sketch_unsketch": sk}
+                if (rec["train_launches"] != train_want
+                        or rec["train_heads"][want["kernel"]] != [want["heads"]]):
+                    bad.append(f"{tag}: train launches {rec['train_launches']} on "
+                               f"{rec['train_heads']}, expected {train_want} on {want['heads']}")
+                if cfg.kind == "moe" and rec["remat_routing_mismatches"]:
+                    bad.append(f"{tag}: {rec['remat_routing_mismatches']} remat routing "
+                               f"mismatches")
+            if (rec["prefill_launches"] != want["prefill"]
+                    or rec["prefill_heads"][want["kernel"]] != [want["heads"]]):
+                bad.append(f"{tag}: prefill launches {rec['prefill_launches']} on "
+                           f"{rec['prefill_heads']}, expected {want['prefill']}")
+            if rec["decode_launches"] != want["decode"]:
+                bad.append(f"{tag}: decode launched {rec['decode_launches']}")
+            if cfg.kind == "moe" and any(rec["routing"]["dropped_pairs"]):
+                bad.append(f"{tag}: the prefill dropped pairs {rec['routing']['dropped_pairs']}")
+        log(f"  {arch}: logits' distance to the float32 twin: tp {max(dist_tp):.4f} (prefill "
+            f"{dist_tp[0]:.4f}), the plain-served bf16 model's {noise:.4f} (limit "
+            f"{TP_NOISE * noise:.4f})")
+        if max(dist_tp) > TP_NOISE * noise or not all(math.isfinite(x) for x in dist_tp):
+            bad.append(f"tp {arch}: served logits {dist_tp} from the float32 twin, past "
+                       f"{TP_NOISE} x the plain model's {noise}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20 (d) took {out['seconds']:.1f}s (references {ref_s:.1f}s)")
+    if bad:
+        raise AssertionError("tp: " + "; ".join(bad))
     return out
 
 
@@ -4667,10 +4907,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     host["phase 11 (b)"] = host_state("phase 11 (b)")
-    log("phase 11 (b): rwkv6-1.6b training at full width on batches drawn by phase 11 (a)'s "
-        "weights: global batch 8 x 2048, n_micro 8, count-sketch compression 8, 4 steps after a "
-        "warm-up step")
-    rwkv_train = phase_rwkv_train(wops, cops, (ops, pops, fops), weights, profile=args.profile)
+    log(f"phase 11 (b): rwkv6-1.6b training at full width on batches drawn by phase 11 (a)'s "
+        f"weights: global batch 8 x 2048, n_micro 8, count-sketch compression 8, {RWKV_STEPS} "
+        f"steps after a warm-up step (cut from 4 for phase 20 (d)'s time)")
+    rwkv_train = phase_rwkv_train(wops, cops, (ops, pops, fops), weights, steps=RWKV_STEPS,
+                                  profile=args.profile)
     dense_serve = []
     for arch, batch, depth in DENSE_SERVE:
         gc.collect()
@@ -4758,20 +4999,27 @@ def main() -> int:
     llava["reckoning"] = lplan
     gc.collect()
     torch.cuda.empty_cache()                            # the card holds nothing else
-    log("phase 20: tinyllama-1.1b trained placed on make_host_mesh() (1 x 1 here) at full width "
-        "and depth, global batch 8 x 2048, n_micro 8, compression 8, 2 steps beside the plain "
-        "trainer; its checkpoint restored onto rebuild_mesh(1); two dry-run cells at full size")
+    log("phase 20: tinyllama-1.1b trained placed on make_host_mesh() (1 x 1 here) at full width, "
+        "8 of its 22 layers (cut for phase 20 (d)'s time), global batch 8 x 2048, n_micro 8, "
+        "compression 8, 2 steps beside the plain trainer; its checkpoint restored onto "
+        "rebuild_mesh(1); four dry-run cells at full size")
     placed = phase_placed(fops, cops, (ops, pops, wops))
     placed["dryrun"] = dryrun_cells(dry)
     gc.collect()
     torch.cuda.empty_cache()                            # the card holds nothing else
-    log(f"phase 20 (d): tinyllama-1.1b tensor- and sequence-parallel on a (1, {TP_WORLD}) mesh, "
-        f"{TP_WORLD} ranks sharing the card over gloo through the host: a float32 twin at "
-        f"{TP_TWIN['layers']} layers, {TP_TRAIN['steps']} bf16 steps of {TP_TRAIN['batch']} x "
-        f"{TP_TRAIN['seq']} ({TP_TRAIN['n_micro']} microbatches, remat, compression 8), a "
-        f"prefill of {TP_SERVE['batch']} x {TP_SERVE['prompt']} and {TP_SERVE['decode']} decode "
-        f"steps on the sequence-sharded cache")
+    log(f"phase 20 (d): tensor, sequence and expert parallelism on a (1, {TP_WORLD}) mesh, "
+        f"{TP_WORLD} ranks sharing the card over gloo through the host, each config at full "
+        f"width (float32 twin (layers, batch, seq); {TP_STEPS} bf16 steps (layers, batch, seq, "
+        f"microbatches, compression), remat; serve (layers, batch, prompt) and {TP_DECODE} "
+        f"decode steps): "
+        + "; ".join(f"{configs.get(p['arch']).name} ({configs.get(p['arch']).n_layers} layers) "
+                    f"twin {p['twin']}, train {p['train']}, serve {p['serve']}"
+                    for p in TP_PARTS)
+        + " (cut for the script's time: TinyLlama from 22 layers to 4, its twin from 4 to 2)")
     placed["tp"] = phase_tp()
+    tp0 = placed["tp"]["ranks"][0]["parts"]
+    tp_l, tp_d, tp_s, tp_r = (tp0[a] for a in ("tinyllama_1_1b", "dbrx_132b",
+                                               "llama4_scout_17b_a16e", "rwkv6_1_6b"))
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -4820,7 +5068,10 @@ def main() -> int:
         "shape": {k: whead[k] for k in ("B", "S", "H", "hs", "chunk")},
         "launches_by_path": {"lm_prefill": lm["launches_prefill"],
                              "lm_decode": lm["launches_decode"],
-                             "lm_train_4_steps": rwkv_train["launches"]["rwkv6_chunk"]},
+                             f"lm_train_{RWKV_STEPS}_steps": rwkv_train["launches"]["rwkv6_chunk"],
+                             "lm_train_tp_2_steps_rank0": tp_r["train_launches"]["rwkv6_chunk"],
+                             "lm_prefill_tp_rank0": tp_r["prefill_launches"]["rwkv6_chunk"],
+                             "lm_decode_tp_rank0": tp_r["decode_launches"]["rwkv6_chunk"]},
         "strong_decay": wstrong,
         "shapes": wshapes,
     }, {
@@ -4833,7 +5084,10 @@ def main() -> int:
         "bound_ms": bhead["bound_ms"], "bound_by": bhead["bound_by"],
         "library_ms": None,                                  # no single PyTorch call
         "shape": {k: bhead[k] for k in ("B", "S", "H", "hs", "chunk")},
-        "launches_by_path": {"lm_train_4_steps": rwkv_train["launches"]["rwkv6_chunk_bwd"]},
+        "launches_by_path": {f"lm_train_{RWKV_STEPS}_steps":
+                                 rwkv_train["launches"]["rwkv6_chunk_bwd"],
+                             "lm_train_tp_2_steps_rank0":
+                                 tp_r["train_launches"]["rwkv6_chunk_bwd"]},
         "shapes": bshapes,
     }, {
         "name": "flash_attention", "route": "cuda",
@@ -4873,11 +5127,19 @@ def main() -> int:
                              "lm_train_placed_2_steps":
                                  placed["launches"]["flash_attention"],
                              "lm_train_tp_2_steps_rank0":
-                                 placed["tp"]["ranks"][0]["train_launches"]["flash_attention"],
-                             "serve_tp_prefill_rank0":
-                                 placed["tp"]["ranks"][0]["prefill_launches"],
-                             "serve_tp_decode_rank0":
-                                 placed["tp"]["ranks"][0]["decode_launches"]},
+                                 tp_l["train_launches"]["flash_attention"],
+                             "serve_tp_prefill_rank0": tp_l["prefill_launches"]["flash_attention"],
+                             "serve_tp_decode_rank0": tp_l["decode_launches"]["flash_attention"],
+                             "lm_train_tp_dbrx_2_steps_rank0":
+                                 tp_d["train_launches"]["flash_attention"],
+                             "serve_tp_dbrx_prefill_rank0":
+                                 tp_d["prefill_launches"]["flash_attention"],
+                             "serve_tp_dbrx_decode_rank0":
+                                 tp_d["decode_launches"]["flash_attention"],
+                             "serve_tp_scout_prefill_rank0":
+                                 tp_s["prefill_launches"]["flash_attention"],
+                             "serve_tp_scout_decode_rank0":
+                                 tp_s["decode_launches"]["flash_attention"]},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -4891,8 +5153,9 @@ def main() -> int:
         "launches_by_path": {"lm_train_4_steps": train["launches"]["count_sketch"],
                              "lm_train_4_steps_unsketch":
                                  train["launches"]["count_sketch_unsketch"],
-                             "rwkv_train_4_steps": rwkv_train["launches"]["count_sketch"],
-                             "rwkv_train_4_steps_unsketch":
+                             f"rwkv_train_{RWKV_STEPS}_steps":
+                                 rwkv_train["launches"]["count_sketch"],
+                             f"rwkv_train_{RWKV_STEPS}_steps_unsketch":
                                  rwkv_train["launches"]["count_sketch_unsketch"],
                              "hymba_train_4_steps": hymba_train["launches"]["count_sketch"],
                              "hymba_train_4_steps_unsketch":
@@ -4903,10 +5166,13 @@ def main() -> int:
                              "placed_train_2_steps": placed["launches"]["count_sketch"],
                              "placed_train_2_steps_unsketch":
                                  placed["launches"]["count_sketch_unsketch"],
-                             "tp_train_2_steps_rank0":
-                                 placed["tp"]["ranks"][0]["train_launches"]["count_sketch"],
-                             "tp_train_2_steps_unsketch_rank0": placed["tp"]["ranks"][0][
-                                 "train_launches"]["count_sketch_unsketch"]},
+                             "tp_train_2_steps_rank0": tp_l["train_launches"]["count_sketch"],
+                             "tp_train_2_steps_unsketch_rank0":
+                                 tp_l["train_launches"]["count_sketch_unsketch"],
+                             "tp_rwkv_train_2_steps_rank0":
+                                 tp_r["train_launches"]["count_sketch"],
+                             "tp_rwkv_train_2_steps_unsketch_rank0":
+                                 tp_r["train_launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,

@@ -41,11 +41,11 @@ moments and the batch are DTensors; a block reads its leaves through
 so every kernel sees plain tensors and the peak holds one block's
 weights, as FSDP does; each dp rank computes on its own rows.  Without
 tensor parallelism a leaf is gathered whole and the ranks of one tp group
-compute the same rows.  With it (a dense config on a mesh whose "model"
-axis has more than one rank: ``distributed/tp.py``), :func:`wrap`'s
-``tp`` names the leaves that keep their shard over "model" (the block
-computes on the rank's heads, d_ff and vocab slice) and the others are
-gathered over every axis.  The gather's backward reduces explicitly: the
+compute the same rows.  With it (a dense, MoE or RWKV config on a mesh
+whose "model" axis has more than one rank: ``distributed/tp.py``),
+:func:`wrap`'s ``tp`` names the leaves that keep their shard over "model"
+(the block computes on the rank's heads, d_ff, experts and vocab slice)
+and the others are gathered over every axis.  The gather's backward reduces explicitly: the
 rank's gradient of the gathered tensor is summed over the dp ranks (each
 dp rank's own rows gave it) and, under tensor parallelism, over the tp
 ranks where the block read the leaf whole over tp (each tp rank's own

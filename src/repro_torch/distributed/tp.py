@@ -1,8 +1,12 @@
 """Tensor and sequence parallelism over a mesh's "model" axis (tp): the
-dense model's blocks computed on a rank's own heads, d_ff and vocab
-slices, Megatron-LM style, as the reference's block is laid out under
-GSPMD (its ``models/lm.py``: the residual stream sequence-sharded over tp
-between blocks, heads and d_ff over tp inside, logits vocab-sharded).
+dense, MoE and RWKV blocks computed on a rank's own heads, d_ff, experts
+and vocab slices, Megatron-LM style, as the reference's block is laid out
+under GSPMD (its ``models/lm.py``: the residual stream sequence-sharded
+over tp between blocks, heads, d_ff and experts over tp inside, logits
+vocab-sharded).  An MoE block is expert-parallel with an all-gather
+dispatcher (``models/moe.moe_ffn_tp``); an RWKV block runs its time mix on
+the rank's heads, ``ln_x``'s mean square summed over tp, and its channel
+mix on the rank's d_ff slice (``models/rwkv6.py``).
 
 The collectives, each an ``autograd.Function`` with its dual backward:
 
@@ -27,7 +31,8 @@ LLaVA's 56 at tp 16), takes the rank's slice.  Where tp does not divide
 the sequence the stream is whole on every rank and its gradient partial
 over tp: enter is the identity and leave sums a partial output over tp
 in both directions.  Either way every leaf that a rank reads whole over
-tp (the norm scales, ``wk``/``wv``, a gathered ``wq``) gets a gradient
+tp (the norm scales, ``wk``/``wv``, a gathered ``wq``, the router, RWKV's
+``wA``, ``cr``, lerps, ``w0``, ``u`` and ``ln_x``) gets a gradient
 that is partial over tp, which ``sharding._Gather`` sums over tp as well
 as over dp (Megatron's sequence-parallel norm-gradient all-reduce), and a
 leaf kept sharded over tp (``wq``, ``wo``, the MLP's, the embedding's) a
@@ -103,13 +108,16 @@ def axis(mesh, dim: int) -> TensorParallel:
                           dist.get_backend(mesh.get_group(dim)) == "gloo")
 
 
+TP_KINDS = ("dense", "moe", "rwkv")   # the block kinds with a tensor-parallel path
+
+
 def context(mesh, cfg) -> Optional[TensorParallel]:
-    """The tp context of a dense config on ``mesh``: None unless the mesh
-    has a "model" axis of more than one rank, the block kind is dense
-    (MoE, hybrid, encdec and RWKV keep the gathered path) and tp divides
-    the padded vocab (always, at 512)."""
+    """The tp context of a dense, MoE or RWKV config on ``mesh``: None
+    unless the mesh has a "model" axis of more than one rank, the block
+    kind is one of ``TP_KINDS`` (hybrid and encdec keep the gathered path)
+    and tp divides the padded vocab (always, at 512)."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if (mesh is None or TP_AXIS not in names or cfg.kind != "dense" or cfg.meta_tokens
+    if (mesh is None or TP_AXIS not in names or cfg.kind not in TP_KINDS or cfg.meta_tokens
             or cfg.padded_vocab % mesh.size(names.index(TP_AXIS))):
         return None
     dim = names.index(TP_AXIS)
@@ -118,12 +126,23 @@ def context(mesh, cfg) -> Optional[TensorParallel]:
 
 def keeps(cfg, tp: TensorParallel) -> Callable[[str], bool]:
     """Which leaves a block reads as its tp shard (the others it gathers
-    over tp, whole): ``wq``, ``bq`` and ``wo`` where tp divides the heads
-    (a shard must not cut one), the MLP's three and the embedding's two;
-    a leaf the rules leave whole over tp stays whole either way."""
-    pats = [r"mlp/w_(gate|up|down)$", r"embed/(tok|head)$"]
-    if cfg.n_heads % tp.size == 0:
-        pats.append(r"attn/(wq|bq|wo)$")
+    over tp, whole): the embedding's two; a dense or MoE block's ``wq``,
+    ``bq`` and ``wo`` where tp divides the heads (a shard must not cut
+    one), a dense block's MLP three, an MoE block's expert stacks (E over
+    tp) and its shared expert's three (d_ff); an RWKV block's channel-mix
+    ``ck`` and ``cv`` (d_ff) and, where tp divides its heads, the time
+    mix's ``wr``, ``wk``, ``wv``, ``wg``, ``wB`` (columns) and ``wo``
+    (rows).  A leaf the rules leave whole over tp stays whole either way."""
+    pats = [r"embed/(tok|head)$"]
+    if cfg.kind == "rwkv":
+        pats.append(r"mix/(ck|cv)$")
+        if (cfg.d_model // cfg.rwkv_head_size) % tp.size == 0:
+            pats.append(r"mix/(w[rkvg]|wB|wo)$")
+    else:
+        pats.append(r"moe/w_(gate|up|down)$|shared/w_(gate|up|down)$" if cfg.kind == "moe"
+                    else r"mlp/w_(gate|up|down)$")
+        if cfg.n_heads % tp.size == 0:
+            pats.append(r"attn/(wq|bq|wo)$")
     rx = re.compile("|".join(pats))
     return lambda path: rx.search(path) is not None
 

@@ -18,15 +18,17 @@ each rank's local tensors.  Each dp rank computes on its own rows: its
 microbatch j is the j-th of its rows cut in ``n_micro`` (the reference's
 microbatch j is the j-th of the global batch cut in ``n_micro``: the same
 rows in all, grouped otherwise).  A block gathers its own weights
-(``sharding.take``: every kernel sees plain tensors).  Over tp, a dense
-config on a mesh whose "model" axis has more than one rank computes
-tensor- and sequence-parallel (``distributed/tp.py``): its blocks keep
-their shards of ``wq``, ``wo``, the MLP and the embedding over tp
-(gathered over the fsdp axes only) and run on the rank's heads, d_ff and
-vocab columns, the residual stream the rank's sequence slice between
-blocks, the loss vocab-parallel; every other config, and a mesh of one
-over tp, gathers each block's weights whole, the ranks of one tp group
-computing the same rows.  The gradient is reduced explicitly: the
+(``sharding.take``: every kernel sees plain tensors).  Over tp, a dense,
+MoE or RWKV config on a mesh whose "model" axis has more than one rank
+computes tensor- and sequence-parallel (``distributed/tp.py``): its
+blocks keep their tp shards (``tp.keeps``: ``wq``, ``wo``, the MLP, an
+MoE block's experts and shared expert, an RWKV block's time-mix and
+channel-mix projections, the embedding; gathered over the fsdp axes only)
+and run on the rank's heads, d_ff, experts and vocab columns, the
+residual stream the rank's sequence slice between blocks, the loss
+vocab-parallel; hybrid and encdec configs, and a mesh of one over tp,
+gather each block's weights whole, the ranks of one tp group computing
+the same rows.  The gradient is reduced explicitly: the
 gather's backward sums it over the dp ranks (and, tensor-parallel, over
 the tp ranks where the block read the leaf whole over tp) and
 reduce-scatters it to the leaf's placement, each rank's loss weighted by
@@ -39,8 +41,9 @@ the whole gradient (each shard's squares summed over the mesh dimensions
 that split it) and AdamW updates the local shards.  On plain tensors the
 step is the one process's.  :func:`placed_prefill` and
 :func:`placed_decode` serve the same way; tensor-parallel, each rank keeps
-its block of span/tp cache slots and its vocab columns of the logits,
-else each cache layer is gathered over tp (the rows stay the rank's own).
+its block of span/tp cache slots (an RWKV layer its heads' state and its
+slice of D of ``x_last``) and its vocab columns of the logits, else each
+cache layer is gathered over tp (the rows stay the rank's own).
 With the gloo backend every collective runs on the host
 (``distributed/tp.py``'s transport).
 """
@@ -343,6 +346,24 @@ def _global(t, rows: int, span: Optional[int] = None):
     return SimpleNamespace(shape=torch.Size(shape))
 
 
+def _global_layers(model, local, max_len: Optional[int], layers, rows: int) -> list:
+    """The global shapes of a tp-local prefill cache's layers: an attention
+    layer's k, v and kpos over its whole span; an RWKV layer's state over
+    every head and its ``x_last`` over all of D."""
+    cfg = model.cfg
+    if cfg.kind == "rwkv":
+        hs = cfg.rwkv_head_size
+        whole = {"S": (cfg.d_model // hs, hs, hs), "x_last_tm": (cfg.d_model,),
+                 "x_last_cm": (cfg.d_model,)}
+        return [{k: SimpleNamespace(shape=torch.Size((t.shape[0] * rows,) + whole[k]))
+                 for k, t in lc.items()} for lc in layers]
+    n_tok = local["tokens"].shape[1]
+    total = (local["patches"].shape[1] if "patches" in local else 0) + (
+        n_tok if max_len is None else max(max_len, n_tok))      # the model's cache positions
+    return [{k: _global(t, rows, total if w is None else min(w, total)) for k, t in lc.items()}
+            for lc, w in zip(layers, model.windows)]
+
+
 def _global_logits(logits, rows: int, cfg: ModelConfig):
     return SimpleNamespace(shape=torch.Size((logits.shape[0] * rows, cfg.padded_vocab)))
 
@@ -361,12 +382,8 @@ def placed_prefill(model, params, batch, max_len: Optional[int] = None):
     if tpc is None:
         return (_rows_placed(logits, mesh, _logit_shardings, rows),
                 _rows_placed(cache, mesh, sharding.cache_shardings, rows))
-    n_tok = local["tokens"].shape[1]
-    total = (local["patches"].shape[1] if "patches" in local else 0) + (
-        n_tok if max_len is None else max(max_len, n_tok))      # the model's cache positions
-    glob = {"pos": _global(cache["pos"], rows), "layers": [
-        {k: _global(t, rows, total if w is None else min(w, total)) for k, t in lc.items()}
-        for lc, w in zip(cache["layers"], model.windows)]}
+    glob = {"pos": _global(cache["pos"], rows), "layers": _global_layers(
+        model, local, max_len, cache["layers"], rows)}
     return (_local_placed(logits, _global_logits(logits, rows, model.cfg), mesh,
                           _logit_shardings),
             _local_placed(cache, glob, mesh, sharding.cache_shardings))
@@ -381,7 +398,8 @@ def placed_decode(model, params, cache, tokens):
     tpc = TP.context(mesh, model.cfg)
     rows = _rows(tokens)
     if tpc is not None:
-        tpc = tpc.with_spans(lc["k"].shape[1] for lc in cache["layers"])
+        if model.cfg.kind != "rwkv":
+            tpc = tpc.with_spans(lc["k"].shape[1] for lc in cache["layers"])
         with sharding.use_mesh(mesh), torch.no_grad():
             logits, new = model.decode_step(_served(model, params, tpc), sharding.local(cache),
                                             sharding.local(tokens), tpc=tpc)

@@ -62,6 +62,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import configs
 from repro_torch.checkpoint import Checkpointer
@@ -191,10 +192,17 @@ def build(args, mesh=None) -> Trainer:
     stub = cfg.frontend is not None or cfg.kind == "encdec"
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=1, make_batch=functools.partial(
         make_batch_for, cfg, SyntheticLM(cfg.vocab, seed=1)) if stub else None)
-    opt_state = adamw.init(ocfg, params)
-    if mesh is not None:
-        shard = state_shardings(mesh, (params, opt_state))
-        params, opt_state = sharding.place(params, shard[0]), sharding.place(opt_state, shard[1])
+    if mesh is None:
+        opt_state = adamw.init(ocfg, params)
+    else:           # AdamW's state made for the rank's own slices: no rank holds a whole moment
+        params = sharding.place(params, sharding.param_shardings(mesh, params))
+        held = adamw.init(ocfg, sharding.local(params))
+        like = lambda t, p: DTensor.from_local(t, mesh, p.placements, run_check=False,
+                                               shape=p.shape, stride=p.stride())
+        opt_state = held._replace(m=map_tree(like, held.m, params),
+                                  v=map_tree(like, held.v, params),
+                                  master=map_tree(like, held.master, params) if held.master
+                                  else ())
     return Trainer(model, ocfg, params, opt_state,
                    make_train_step(model, ocfg, args.n_micro, compressor=compressor),
                    compressor, pipe, mesh)

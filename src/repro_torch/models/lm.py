@@ -81,11 +81,15 @@ norm and the head are taken where they are read.  On plain tensors
 ``take`` is the identity.  ``sharding.constrain`` marks the reference's
 ten activation constraints (its ``models/lm.py``), no-ops outside a mesh.
 
-Tensor and sequence parallelism (a dense config given a tp context
-``tpc``, ``distributed/tp.py``, which the placed steps pass on a mesh
-whose "model" axis has more than one rank): the blocks' leaves arrive as the rank's
-shards of ``wq``, ``wo`` and the MLP's (its heads and d_ff) and of the
-embedding (its vocab rows), ``wk``/``wv`` whole.  The embedding is
+Tensor and sequence parallelism (a dense, MoE or RWKV config given a tp
+context ``tpc``, ``distributed/tp.py``, which the placed steps pass on a
+mesh whose "model" axis has more than one rank): the blocks' leaves
+arrive as the rank's shards of ``wq``, ``wo`` and the MLP's (its heads
+and d_ff) and of the embedding (its vocab rows), ``wk``/``wv`` whole; an
+MoE block's as its E/tp experts and its shared expert's d_ff slice (the
+FFN expert-parallel: ``moe.moe_ffn_tp``), an RWKV block's as its heads'
+columns of the time mix and its d_ff slice of the channel mix
+(``rwkv6.local_view``, ``channel_mix``).  The embedding is
 vocab-parallel, and its sum over tp is scattered to the rank's sequence
 slice; the residual stream between blocks is (B, S/tp, D) where tp
 divides S (else whole).  A block norms its slice, gathers the sequence,
@@ -95,8 +99,9 @@ the final normed stream, takes the rank's vocab columns of the logits and
 a vocab-parallel cross-entropy and z-loss.  A prefill keeps the rank's
 block of span/tp cache slots; a decode step attends over them
 (``layers.decode_attention_tp``), and only the rank owning slot pos mod
-span writes the new k, v.  The logits a prefill or decode step returns
-are the rank's vocab columns.
+span writes the new k, v; an RWKV layer's state holds the rank's heads
+and its ``x_last`` pair the rank's slice of D, gathered in a decode step.
+The logits a prefill or decode step returns are the rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -326,9 +331,10 @@ class Model:
         (no cache), its attention over ``window``, then (a decoder block of
         encdec) its cross-attention over the encoder's output ``enc``;
         ``causal=False`` for an encoder block.  Returns (x, the block's MoE
-        aux loss, zero for other kinds).  With a tp context ``tpc``
-        ``x`` is the rank's sequence slice where tp divides the sequence, and the block computes on the rank's heads and d_ff
-        columns (module docstring)."""
+        aux loss, zero for other kinds).  With a tp context ``tpc`` ``x``
+        is the rank's sequence slice where tp divides the sequence, and the
+        block computes on the rank's heads and d_ff columns, or its experts
+        (module docstring)."""
         cfg = self.cfg
         p = take(p)
         sp = TP.seq_parallel(tpc, positions.shape[1])
@@ -344,13 +350,17 @@ class Model:
             x = x + constrain(self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc)),
                               "dp", None, None)
         h2 = constrain(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), "dp", None, None)
-        if cfg.kind == "moe":
+        if cfg.kind == "moe" and tpc is None:
             out, aux = MOE.moe_ffn(p["moe"], cfg, h2)
             return x + constrain(out, "dp", None, None), aux
-        out = TP.leave(L.mlp(p["mlp"], cfg, TP.enter(h2, tpc, sp)), tpc, sp,
-                       _sharded(p["mlp"]["w_down"], cfg.d_ff))
-        return x + constrain(out, "dp", None, None), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+        h2 = TP.enter(h2, tpc, sp)
+        if cfg.kind == "moe":
+            out, aux = MOE.moe_ffn_tp(p["moe"], cfg, h2, tpc)
+            partial = MOE.is_partial(p["moe"], cfg)
+        else:
+            out, partial = L.mlp(p["mlp"], cfg, h2), _sharded(p["mlp"]["w_down"], cfg.d_ff)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + constrain(TP.leave(out, tpc, sp, partial), "dp", None, None), aux
 
     def _cross(self, p, x, xk, xv):
         """A decoder block's cross-attention output over the encoder's
@@ -359,16 +369,20 @@ class Model:
         q = L.cross_q(p["xattn"], cfg, L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps))
         return L.attend(p["xattn"], q, xk, xv, causal=False, kv_chunk=cfg.kv_chunk)
 
-    def _block_train_rwkv(self, p, x, positions=None, window=None, enc=None):
+    def _block_train_rwkv(self, p, x, positions, window=None, enc=None, tpc=None):
         """One RWKV-6 block of the training forward, the reference's
         ``block_train``: its WKV carries a gradient through the
-        rwkv6_chunk kernels' ``autograd.Function``, from a zero state."""
+        rwkv6_chunk kernels' ``autograd.Function``, from a zero state.
+        With a tp context the time mix runs on the rank's heads and the
+        channel mix on its d_ff slice (``models/rwkv6.py``)."""
         cfg = self.cfg
         p = take(p)
-        h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-        x = x + RWKV.time_mix(p["mix"], cfg, h)
-        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return (x + RWKV.channel_mix(p["mix"], cfg, h2),
+        sp = TP.seq_parallel(tpc, positions.shape[1])
+        h = TP.enter(L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps), tpc, sp)
+        mix, heads_tp = RWKV.local_view(p["mix"], cfg, tpc)
+        x = x + TP.leave(RWKV.time_mix(mix, cfg, h, heads_tp), tpc, sp, heads_tp is not None)
+        h2 = TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc, sp)
+        return (x + RWKV.channel_mix(p["mix"], cfg, h2, tpc=tpc, sp=sp),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     # ----------------------------------------------------------- prefill --
@@ -393,7 +407,7 @@ class Model:
         layers = []
         for i, p in enumerate(params["layers"]):
             if cfg.kind == "rwkv":
-                h, lc = self._prefill_rwkv(p, h)
+                h, lc = self._prefill_rwkv(p, h, tpc, TP.seq_parallel(tpc, S))
             else:
                 w = self.windows[i]
                 h, lc = self._prefill_attn(p, h, positions, total if w is None else min(w, total),
@@ -405,19 +419,26 @@ class Model:
                            TP.last_position(h, tpc, TP.seq_parallel(tpc, S))).float()
         return L.mask_pad_logits(cfg, logits, _vocab_offset(tpc, logits)), cache
 
-    def _prefill_rwkv(self, p, x):
+    def _prefill_rwkv(self, p, x, tpc=None, sp: bool = False):
         """One block: the WKV call gives the output and the terminal state
         (the reference reruns the projections and takes the state in a
-        second pass over the sequence)."""
+        second pass over the sequence).  With a tp context the block
+        computes as :meth:`_block_train_rwkv`'s, its state holds the rank's
+        heads and its ``x_last`` the whole sequence's last position (B, D),
+        kept as the rank's slice of D where the rules split it."""
         cfg = self.cfg
         p = take(p)
-        h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-        heads, g = RWKV.wkv_inputs(p["mix"], cfg, h)
-        tm, S_fin = RWKV.time_mix_out(p["mix"], cfg, h, heads, g, return_state=True)
-        x = x + tm
-        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        x = x + RWKV.channel_mix(p["mix"], cfg, h2)
-        return x, {"S": S_fin, "x_last_tm": h[:, -1], "x_last_cm": h2[:, -1]}
+        h = TP.enter(L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps), tpc, sp)
+        mix, heads_tp = RWKV.local_view(p["mix"], cfg, tpc)
+        heads, g = RWKV.wkv_inputs(mix, cfg, h)
+        tm, S_fin = RWKV.time_mix_out(mix, cfg, h, heads, g, return_state=True, tpc=heads_tp)
+        x = x + TP.leave(tm, tpc, sp, heads_tp is not None)
+        h2 = TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc, sp)
+        x = x + RWKV.channel_mix(p["mix"], cfg, h2, tpc=tpc, sp=sp)
+        last = [h[:, -1], h2[:, -1]]
+        if tpc is not None and tpc.divides(cfg.d_model):
+            last = [TP.local_slice(t, tpc, 1) for t in last]
+        return x, {"S": S_fin, "x_last_tm": last[0], "x_last_cm": last[1]}
 
     def _prefill_attn(self, p, x, positions, span: int, window: Optional[int], enc=None,
                       tpc=None):
@@ -445,8 +466,9 @@ class Model:
         if enc is not None:
             lc["xk"], lc["xv"] = L.cross_kv(p["xattn"], cfg, enc)
             x = x + self._cross(p, x, lc["xk"], lc["xv"])
-        h2 = TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc, sp)
-        return x + TP.leave(_ffn(p, cfg, h2), tpc, sp, _ffn_sharded(p, cfg)), lc
+        out, partial = _ffn(p, cfg, TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps),
+                                             tpc, sp), tpc)
+        return x + TP.leave(out, tpc, sp, partial), lc
 
     # ------------------------------------------------------------ decode --
     def decode_step(self, params, cache, tokens, tpc=None):
@@ -468,7 +490,7 @@ class Model:
         layers = []
         for i, (p, lc) in enumerate(zip(params["layers"], cache["layers"])):
             if cfg.kind == "rwkv":
-                h, new_lc = self._decode_rwkv(p, h, lc)
+                h, new_lc = self._decode_rwkv(p, h, lc, tpc)
             else:
                 h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i], spans[i], tpc)
             layers.append(new_lc)
@@ -486,15 +508,26 @@ class Model:
             return list(tpc.spans)
         return [lc["k"].shape[1] for lc in cache["layers"]]
 
-    def _decode_rwkv(self, p, x, lc):
+    def _decode_rwkv(self, p, x, lc, tpc=None):
+        """One block's step; with a tp context on the rank's heads (its
+        cached state's), the cached ``x_last`` pair, where it holds the
+        rank's slice of D, gathered over tp in one collective."""
         cfg = self.cfg
         p, lc = take(p), take(lc)
+        x_tm, x_cm = lc["x_last_tm"], lc["x_last_cm"]
+        split = x_tm.shape[-1] != cfg.d_model
+        if split:
+            x_tm, x_cm = TP.gather(torch.stack([x_tm, x_cm], 1), tpc, 2).unbind(1)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-        out, st = RWKV.time_mix_step(p["mix"], cfg, h, {"S": lc["S"], "x_last": lc["x_last_tm"]})
-        x = x + out
+        mix, heads_tp = RWKV.local_view(p["mix"], cfg, tpc)
+        out, st = RWKV.time_mix_step(mix, cfg, h, {"S": lc["S"], "x_last": x_tm}, heads_tp)
+        x = x + TP.leave(out, tpc, False, heads_tp is not None)
         h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        x = x + RWKV.channel_mix(p["mix"], cfg, h2, x_last=lc["x_last_cm"])
-        return x, {"S": st["S"], "x_last_tm": h[:, 0], "x_last_cm": h2[:, 0]}
+        x = x + RWKV.channel_mix(p["mix"], cfg, h2, x_last=x_cm, tpc=tpc)
+        last = [h[:, 0], h2[:, 0]]
+        if split:
+            last = [TP.local_slice(t, tpc, 1) for t in last]
+        return x, {"S": st["S"], "x_last_tm": last[0], "x_last_cm": last[1]}
 
     def _check_room(self, spans, pos: int) -> None:
         """Raises where a layer's cache no longer holds the positions that a
@@ -538,8 +571,8 @@ class Model:
         if "xk" in lc:
             hx = L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps)
             x = x + L.cross_decode_attention(p["xattn"], cfg, hx, lc["xk"], lc["xv"])
-        h2 = L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + TP.leave(_ffn(p, cfg, h2), tpc, False, _ffn_sharded(p, cfg)), new_lc
+        out, partial = _ffn(p, cfg, L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc)
+        return x + TP.leave(out, tpc, False, partial), new_lc
 
     # ------------------------------------------------------- cache specs --
     def init_cache(self, batch_size: int, max_len: int, src_len: int = 0, patches: int = 0):
@@ -579,22 +612,23 @@ class Model:
         return cache
 
 
-def _ffn(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _ffn(p, cfg: ModelConfig, h: torch.Tensor, tpc=None):
     """A serving block's FFN: the MLP, or the MoE FFN at capacity factor
-    4.0 (the reference's ``_prefill_block`` and ``_decode_block``)."""
+    4.0 (the reference's ``_prefill_block`` and ``_decode_block``; expert
+    parallel with a tp context).  Returns (out, whether it is a partial
+    sum over tp)."""
     if cfg.kind == "moe":
-        return MOE.moe_ffn(p["moe"], cfg, h, capacity_factor=SERVE_CAPACITY)[0]
-    return L.mlp(p["mlp"], cfg, h)
+        if tpc is None:
+            return MOE.moe_ffn(p["moe"], cfg, h, capacity_factor=SERVE_CAPACITY)[0], False
+        return (MOE.moe_ffn_tp(p["moe"], cfg, h, tpc, capacity_factor=SERVE_CAPACITY)[0],
+                MOE.is_partial(p["moe"], cfg))
+    return L.mlp(p["mlp"], cfg, h), _sharded(p["mlp"]["w_down"], cfg.d_ff)
 
 
 def _sharded(w: torch.Tensor, whole: int) -> bool:
     """Whether a row-parallel ``w`` is a tp rank's shard of its ``whole``
     rows (its product then a partial sum over tp)."""
     return w.shape[0] != whole
-
-
-def _ffn_sharded(p, cfg: ModelConfig) -> bool:
-    return cfg.kind != "moe" and _sharded(p["mlp"]["w_down"], cfg.d_ff)
 
 
 def _local_heads(cfg: ModelConfig, q, k, v, tpc):

@@ -11,9 +11,14 @@ the plain chunked version (``kernels/rwkv6_chunk/ref.py``) for a CPU
 tensor.  Where a gradient is wanted (training, from a zero state), that
 call carries it through the kernel's ``autograd.Function``, whose
 backward is the hand-written backward kernel (its plain version on the
-CPU).  Decode is the O(1) recurrent step in plain torch.  Casts follow the reference: the weights and the token
-mixes are in the model dtype, the decay and the WKV in float32, and the
-WKV output is normed in float32 and cast back before the gate and ``wo``.
+CPU).  Decode is the O(1) recurrent step in plain torch.  On a tp rank
+(``distributed/tp.py``; :func:`local_view`) the time mix runs on the
+rank's H/tp heads, the WKV through the same kernels, ``ln_x``'s mean
+square summed over tp, and ``wo`` row-parallel; the channel mix on the
+rank's d_ff slice, its gate on the rank's sequence slice.  Casts follow
+the reference: the weights and the token mixes are in the model dtype,
+the decay and the WKV in float32, and the WKV output is normed in float32
+and cast back before the gate and ``wo``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tp as TP
 from ..kernels.rwkv6_chunk import rwkv6_chunk
 from .config import ModelConfig
 from .layers import _dense_init, rmsnorm
@@ -93,33 +99,59 @@ def wkv_inputs(p, cfg: ModelConfig, x):
     return heads, g
 
 
-def time_mix_out(p, cfg: ModelConfig, x, heads, g, return_state: bool = False):
+def local_view(p, cfg: ModelConfig, tpc=None):
+    """(``p`` for a tp rank's heads, the tp context of its ``ln_x`` sum):
+    where ``wr`` holds the rank's columns only (its H/tp heads), ``w0``,
+    ``u`` and ``ln_x`` cut to them and ``tpc``; else ``p`` and None (every
+    head on every rank)."""
+    n = p["wr"].shape[1]
+    if tpc is None or n == cfg.d_model:
+        return p, None
+    c0, hs = tpc.rank * n, cfg.rwkv_head_size
+    return {**p, "w0": p["w0"][c0:c0 + n], "u": p["u"][c0 // hs:(c0 + n) // hs],
+            "ln_x": p["ln_x"][c0:c0 + n]}, tpc
+
+
+def _norm_x(out, ln_x, tpc=None):
+    """``ln_x``, an RMS norm over all of D in float32: on a tp rank's heads
+    the sum of squares of its columns is summed over tp (the sum's
+    backward sums over tp too: every rank's columns read it)."""
+    if tpc is None:
+        return rmsnorm(out, ln_x.float(), 1e-5)
+    ss = TP.all_reduce(torch.square(out).sum(-1, keepdim=True), tpc, grad_sum=True)
+    return out * torch.rsqrt(ss / (out.shape[-1] * tpc.size) + 1e-5) * ln_x.float()
+
+
+def time_mix_out(p, cfg: ModelConfig, x, heads, g, return_state: bool = False, tpc=None):
     """The time-mix output of x (B, S, D) from its WKV inputs: S is
     zero-padded to a multiple of the chunk for the WKV and cut back.  With
     ``return_state``, also the WKV state after token S, (B, H, hs, hs)
     float32, from the same call: a padded token has logw = 0 and k = 0, so
-    it decays nothing and adds nothing."""
-    B, S, D = x.shape
+    it decays nothing and adds nothing.  On a tp rank's heads (``p`` and
+    ``tpc`` from :func:`local_view`) the state holds its H/tp heads and the
+    output is a partial sum over tp (``wo``'s rows)."""
+    B, S = x.shape[:2]
     chunk = cfg.ssm_chunk
     pad = (-S) % chunk
     if pad:
         heads = tuple(F.pad(t, (0, 0, 0, 0, 0, pad)) for t in heads)
     wkv = rwkv6_chunk(*heads, p["u"], chunk, return_state=return_state)
     out, state = wkv if return_state else (wkv, None)
-    out = out[:, :S].reshape(B, S, D)
-    out = rmsnorm(out, p["ln_x"].float(), 1e-5)
+    out = _norm_x(out[:, :S].reshape(B, S, -1), p["ln_x"], tpc)
     out = (out.to(x.dtype) * g) @ p["wo"]
     return (out, state) if return_state else out
 
 
-def time_mix(p, cfg: ModelConfig, x):
-    """Training and prefill path.  x: (B, S, D)."""
+def time_mix(p, cfg: ModelConfig, x, tpc=None):
+    """Training and prefill path.  x: (B, S, D); ``p``, ``tpc`` as
+    :func:`time_mix_out`'s."""
     heads, g = wkv_inputs(p, cfg, x)
-    return time_mix_out(p, cfg, x, heads, g)
+    return time_mix_out(p, cfg, x, heads, g, tpc=tpc)
 
 
-def time_mix_step(p, cfg: ModelConfig, x, state):
-    """Decode: x (B, 1, D); state dict {S: (B, H, hs, hs), x_last: (B, D)}."""
+def time_mix_step(p, cfg: ModelConfig, x, state, tpc=None):
+    """Decode: x (B, 1, D); state dict {S: (B, H, hs, hs), x_last: (B, D)};
+    ``p``, ``tpc`` as :func:`time_mix_out`'s (S then the rank's heads)."""
     B = x.shape[0]
     r, k, v, g, logw = _projections(p, cfg, x, state["x_last"][:, None])
     rh = _heads(cfg, r)[:, 0].float()               # (B, H, hs)
@@ -130,17 +162,25 @@ def time_mix_step(p, cfg: ModelConfig, x, state):
     kv = torch.einsum("bhk,bhd->bhkd", kh, vh)
     out = torch.einsum("bhk,bhkd->bhd", rh, S0 + p["u"][None, :, :, None] * kv)
     S1 = wh[..., None] * S0 + kv
-    out = out.reshape(B, 1, cfg.d_model)
-    out = rmsnorm(out, p["ln_x"].float(), 1e-5)
+    out = _norm_x(out.reshape(B, 1, -1), p["ln_x"], tpc)
     out = (out.to(x.dtype) * g) @ p["wo"]
     return out, {"S": S1, "x_last": x[:, 0]}
 
 
-def channel_mix(p, cfg: ModelConfig, x, x_last=None):
+def channel_mix(p, cfg: ModelConfig, x, x_last=None, tpc=None, sp: bool = False):
+    """The channel mix of x (B, S, D).  On a tp rank (``tpc``) x is the
+    whole sequence and ``ck``, ``cv`` the rank's d_ff slice: ``k @ cv``,
+    a partial sum, is reduced to the residual stream's layout (the rank's
+    sequence slice under sequence parallelism, ``sp``) and gated there by
+    ``cr``, read whole, on that slice; the output is in that layout."""
     xp = _shift(x, x_last)
     dx = xp - x
     mu = p["mu_c"].to(x.dtype)
     xk = x + dx * mu[0]
     xr = x + dx * mu[1]
-    k = torch.square(torch.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (k @ p["cv"])
+    kv = torch.square(torch.relu(xk @ p["ck"])) @ p["cv"]
+    if tpc is not None:
+        kv = TP.leave(kv, tpc, sp, p["cv"].shape[0] != cfg.d_ff)
+        if sp:
+            xr = TP.local_slice(xr, tpc, 1)
+    return torch.sigmoid(xr @ p["cr"]) * kv

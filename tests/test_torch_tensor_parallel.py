@@ -36,8 +36,8 @@ reference by ``tests/test_torch_hymba*.py``).  A dry-run smoke cell beside the
 spawn: TinyLlama train_4k on (1, 4) does at most 1.5× the FLOPs a rank of
 (4, 1) (it did 4× before the blocks split over tp).  In this process:
 ``layers.local_kv`` gives each of a rank's query heads its GQA group's K/V
-head, and only a dense config on a mesh with a "model" axis of more than
-one rank gets a tp context.
+head, and only a dense, MoE or RWKV config on a mesh with a "model" axis
+of more than one rank gets a tp context.
 
 This module imports no JAX at module level: the spawned ranks import it.
 """
@@ -320,21 +320,26 @@ def test_no_rank_holds_a_whole_split_weight(runs, shape):
                                                                                      local[name])
 
 
-def test_tp_context_is_dense_only():
-    """MoE, hybrid, encdec and RWKV configs keep the gathered path; a mesh
-    without a "model" axis of more than one rank has no tp context."""
+def test_tp_context_is_dense_only(monkeypatch):
+    """Dense, MoE and RWKV configs get a tp context on a mesh whose "model"
+    axis has more than one rank (the MoE and RWKV blocks' own tp paths:
+    ``tests/test_torch_tp_moe.py``, ``tests/test_torch_tp_rwkv.py``);
+    hybrid and encdec configs keep the gathered path; a mesh without a
+    "model" axis of more than one rank has no tp context."""
     from repro_torch.distributed.sharding import AbstractMesh
 
     class _Mesh(AbstractMesh):
         def get_group(self, dim):
             raise AssertionError("no group is needed to refuse")
 
-    mesh1 = _Mesh((4, 1), ("data", "model"))
-    for arch in ("dbrx_132b", "hymba_1_5b", "seamless_m4t_medium", "rwkv6_1_6b",
-                 "tinyllama_1_1b"):
-        assert TP.context(mesh1, configs.get(arch)) is None
-        if arch != "tinyllama_1_1b":
-            assert TP.context(_Mesh((1, 4), ("data", "model")), configs.get(arch)) is None
+    monkeypatch.setattr(TP, "axis", lambda mesh, dim: ("tp", dim))
+    mesh1, mesh4 = _Mesh((4, 1), ("data", "model")), _Mesh((1, 4), ("data", "model"))
+    for arch in ("dbrx_132b", "llama4_scout_17b_a16e", "hymba_1_5b", "seamless_m4t_medium",
+                 "rwkv6_1_6b", "tinyllama_1_1b"):
+        cfg = configs.get(arch)
+        assert TP.context(mesh1, cfg) is None
+        split = cfg.kind in ("dense", "moe", "rwkv")
+        assert TP.context(mesh4, cfg) == (("tp", 1) if split else None), arch
 
 
 def test_dry_run_flops_a_rank_split_over_tp(runs):
