@@ -103,7 +103,11 @@ Phases (any failure exits non-zero):
      2048, 16, 2, 64) and the float32 twin's training forward with its
      lse (2, 2048, 16, 2, 64); a tp rank's 24 of DBRX's 48 heads and 4 of
      its 8 K/V heads, the bf16 prefill (1, 2048, 24, 4, 128) and the
-     training forward with its lse at that shape.  A windowed row's bound
+     training forward with its lse at that shape; a tp rank's 8 of
+     seamless-M4T's 16 heads and 8 of its 16 K/V heads, the bf16 prefill's
+     encoder (8, 1024, 8, 8, 64, full) and decoder (causal), the
+     cross-attention (8, 512 queries, 2,048 keys) and the training forward
+     with its lse at a microbatch (1, 1024), full and causal.  A windowed row's bound
      counts the band's pairs, Σ_i min(i + 1, w), and
      its library call is ``scaled_dot_product_attention`` with a boolean
      band mask.  Before the cases, the
@@ -336,8 +340,9 @@ Phases (any failure exits non-zero):
    ``examples/relational_data_pipeline.py``), on phase 4's resident star
    (1,048,576 fact rows, one a document; cut from phase 2's 2²² for phase
    4's reason: a (4, 2²², 257) complex sketch factor is ~16 GiB).  (a)
-   After phase 7: ``configs.get("paper_rbrt")`` (8 trees, depth 4,
-   sketch k 256, per-table SSR) fitted, then ``relational_example_weights``
+   After phase 7: ``configs.get("paper_rbrt")`` (depth 4, sketch k 256,
+   per-table SSR; its 8 trees cut to ``BRIDGE_TREES`` = 4 for phase 20
+   (d)'s time) fitted, then ``relational_example_weights``
    by ``fact`` (one compiled pass).  Gates: segment_sum launches equal the
    message emissions (edges) of the fit and of the pass (the join tree's,
    tables − 1), each emission counted where ``SumProd`` makes it (under
@@ -523,13 +528,13 @@ Phases (any failure exits non-zero):
    prefill, none in decode.
 
 20. Placement, the card emptied first.  (a) TinyLlama-1.1B at full width,
-   cut to 8 of its 22 layers (for phase 20 (d)'s time), trained by
-   ``launch/train.py``'s ``run`` (what ``main`` runs: ``--full --layers 8
+   cut to 4 of its 22 layers (for phase 20 (d)'s time), trained by
+   ``launch/train.py``'s ``run`` (what ``main`` runs: ``--full --layers 4
    --steps 2 --batch 8 --seq 2048 --n-micro 8 --compress-grads 8
    --ckpt-every 0``) on ``make_host_mesh()``, (1, 1)
    on the one card, the parameters, AdamW's state and every batch placed
    as DTensors by the reference's rules, after the plain trainer twice on
-   the same seed and batches.  Gates: 2 · 8 · 8 = 128 flash_attention, 12
+   the same seed and batches.  Gates: 2 · 4 · 8 = 64 flash_attention, 12
    sketch and 12 unsketch launches a step on the placed run (the counts set to 0 just
    before it, read just after); losses and grad norms bit-equal to both
    plain runs'; parameters apart in at most ``PLACED_APART`` of the
@@ -539,7 +544,7 @@ Phases (any failure exits non-zero):
    and AdamW's first steps amplify that where a compressed g is tiny).
    Prints the step ms of the placed run and of the second plain run (the
    placement's overhead), tokens/s and peak memory.  (b) The run's final
-   blocking checkpoint (5.6 GB at 8 layers) restored by ``runtime/elastic.
+   blocking checkpoint restored by ``runtime/elastic.
    restore_elastic`` onto ``rebuild_mesh(1)``, bit for bit.  (c) Two
    dry-run cells at full size, each through ``launch/dryrun.py``'s CLI in
    a subprocess within 300 s: TinyLlama × train_4k × 16x16 (256 fake
@@ -549,27 +554,41 @@ Phases (any failure exits non-zero):
    a microbatch.  Prints each record's bytes, flops, census and
    ``lower_s``.  The cells need no card: they start right after the build,
    run beside phases 1-19 on two of the host's cores, and are collected
-   here.  Two more cells, DBRX-132B × prefill_32k × 16x16 and RWKV-6 ×
-   train_4k × 16x16 (256 each), the MoE one expert-parallel.  All four run
-   tensor- and sequence-parallel over the 16 "model" ranks.  (d) Tensor,
-   sequence and expert parallelism on the card (``distributed/tp.py``,
-   ``models/moe.moe_ffn_tp``, RWKV-6's heads over tp): two processes
+   here.  Four more cells, DBRX-132B × prefill_32k × 16x16, RWKV-6 ×
+   train_4k × 16x16, Hymba-1.5B × train_4k × 16x16 and seamless-M4T-medium
+   × train_4k × 16x16 (256 each), the MoE one expert-parallel.  All six run
+   tensor- and sequence-parallel over the 16 "model" ranks.  Hymba's and
+   seamless's cells also run on the gathered path (``tp.context``
+   returning None: each block's weights gathered whole, the ranks of a tp
+   group computing the same rows; what the parent commit ran for these
+   kinds), and their FLOPs a rank must stay below the gathered path's
+   (seamless's at most 1/8 of it), peak live bytes printed beside.  (d)
+   Tensor, sequence and expert parallelism on the card
+   (``distributed/tp.py``, ``models/moe.moe_ffn_tp``, RWKV-6's heads,
+   Hymba's attention and SSM heads, seamless's encoder and
+   cross-attention over tp): two processes
    spawned on ``cuda:0`` in a gloo group on a (1, 2) mesh, every
    collective staged through the host (the transport for two ranks sharing
    one card; its times are gloo's through the host, not NVLink's).
    ``TP_PARTS`` lists the configurations, each at full width:
-   TinyLlama-1.1B (cut to 4 of its 22 layers for the script's time),
-   DBRX-132B (1 layer trained, 2 served), Llama-4-Scout (2 layers served)
-   and RWKV-6 1.6B (4 of 24 layers).  This process first makes the
-   references and frees them, part by part: the plain trainer's two bf16
-   steps on the run's seed and batches (TinyLlama and RWKV-6: 4 × 2,048, 4
-   microbatches, compression 8; DBRX: 4 × 2,048, 4 microbatches, no
-   compression), and the plain-served bf16 model's prefill (TinyLlama 8 ×
-   2,048, DBRX and Scout 1 × 2,048, RWKV-6 8 × 1,024) and 16 greedy decode
-   steps beside its float32 twin's (the same weights upcast, the same
-   tokens fed).  Each rank then runs, part by part: (1) a float32 gradient
-   stage of the model (TinyLlama at 2 layers, RWKV-6 at 4, both 2 × 2,048,
-   DBRX at 1 layer and 1 × 2,048) on the mesh against the plain one-process
+   TinyLlama-1.1B (cut to 2 of its 22 layers for the script's time),
+   DBRX-132B (1 layer trained, 2 served), Llama-4-Scout (2 layers served),
+   RWKV-6 1.6B (4 of 24 layers), Hymba-1.5B (2 of 32 layers trained, 4
+   served: layer 0 global, the others windowed; 128 meta positions before
+   each row's 2,048 tokens; its 25 attention and 25 SSM heads run whole on
+   each rank, as tp 2 divides neither) and seamless-M4T-medium (2 + 2 of
+   12 + 12 layers trained, 4 + 4 served; each row 1,024 frames and 1,024
+   tokens).  This process first makes the references and frees them, part
+   by part: the plain trainer's two bf16 steps on the run's seed and
+   batches (TinyLlama, RWKV-6 and Hymba: 4 × 2,048, 4 microbatches,
+   compression 8; DBRX and seamless: 4 × 2,048, 4 microbatches, no
+   compression), and the plain-served bf16 model's prefill (TinyLlama,
+   Hymba and seamless 8 × 2,048, DBRX and Scout 1 × 2,048, RWKV-6 8 ×
+   1,024) and 16 greedy decode steps beside its float32 twin's (the same
+   weights upcast, the same tokens fed).  Each rank then runs, part by
+   part: (1) a float32 gradient stage of the model (TinyLlama, Hymba and
+   seamless at 2 layers (2 + 2), RWKV-6 at 4, all 2 × 2,048, DBRX at 1
+   layer and 1 × 2,048) on the mesh against the plain one-process
    stage on the same seed and batch, the ranks taking the plain stage in
    turns and keeping their shard's slice of its gradient on the host, an
    MoE's routing replayed from the plain run (the choices its own top-k
@@ -578,13 +597,15 @@ Phases (any failure exits non-zero):
    and read after it, (2) two bf16 steps of the plain trainer's
    configuration through ``launch/train.py``'s ``build`` on the mesh:
    losses finite, step 1's within 1e-2 relative of the plain trainer's,
-   flash_attention 2 · layers · 4 launches a step (twice a microbatch
-   forward under remat) on the rank's half of the heads (TinyLlama 16, DBRX
-   24), RWKV-6's WKV 2 · 4 · 4 forwards and 4 · 4 K1 backwards a step on
-   16 of its 32 heads, a sketch and an unsketch a sketched leaf a step, an
+   flash_attention 2 · 4 launches a step an attention (twice a microbatch
+   forward under remat; seamless's encoder and cross-attention apart as
+   the non-causal ones, Hymba's windowed layer apart) on the rank's half
+   of the heads (TinyLlama 16, DBRX 24, seamless 8; all of Hymba's 25),
+   RWKV-6's WKV 2 · 4 · 4 forwards and 4 · 4 K1 backwards a step on 16 of
+   its 32 heads, a sketch and an unsketch a sketched leaf a step, an
    MoE's every remat recompute routed as its forward; (3)
    ``steps.placed_prefill`` of the part's prompt with room for 16 tokens,
-   one launch a layer on the rank's heads (an MoE prefill dropping no
+   one launch an attention on the rank's heads (an MoE prefill dropping no
    (token, expert) pair at factor 4.0), then 16 ``placed_decode`` steps of
    the fed tokens, no launch: every step's logits (rank 0's, gathered) no
    further from the float32 twin's than 2× the plain-served bf16 model's
@@ -1209,6 +1230,14 @@ def phase_attn(ops, ref, dev="cuda"):
         # phase 20 (d): a tp rank's 24 of DBRX's 48 heads and 4 of its 8 K/V heads
         ("tp_dbrx_prefill_1x2048", 1, 2048, 24, 4, 128, True, bf16),
         ("tp_dbrx_train_1x2048_lse", 1, 2048, 24, 4, 128, True, bf16, None, True),
+        # phase 20 (d): a tp rank's 8 of seamless-M4T's 16 heads and 8 of its 16 K/V heads:
+        # the encoder (full) and the decoder's self-attention (causal) at the prefill's 8 x
+        # 1,024, the cross-attention over another length (K3), the training forward's
+        ("tp_seamless_enc_8x1024", 8, 1024, 8, 8, 64, False, bf16),
+        ("tp_seamless_dec_8x1024", 8, 1024, 8, 8, 64, True, bf16),
+        ("tp_seamless_cross_8x512x2048", 8, 512, 8, 8, 64, False, bf16, None, False, 2048),
+        ("tp_seamless_enc_train_1x1024_lse", 1, 1024, 8, 8, 64, False, bf16, None, True),
+        ("tp_seamless_dec_train_1x1024_lse", 1, 1024, 8, 8, 64, True, bf16, None, True),
     ]
     recs = [attn_case(ops, ref, *c[:8], dev=dev, window=c[8] if len(c) > 8 else None,
                       with_lse=len(c) > 9 and c[9], Sk=c[10] if len(c) > 10 else None)
@@ -3274,6 +3303,7 @@ def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
 
 # ----------------------------------------------------------------- phase 11 --
 BRIDGE_TABLE = "fact"                 # the documents: one fact row each
+BRIDGE_TREES = 4                      # the paper config's 8 trees cut for phase 20 (d)'s time
 RWKV_TRAIN_KERNELS = ("rwkv6_chunk_bwd", "rwkv6_chunk_kernel", "count_sketch_",
                       "unsketch_kernel")
 
@@ -3288,7 +3318,7 @@ def phase_bridge(ops, schema, dev="cuda"):
     from repro_torch.data import relational_example_weights
     from repro_torch.obs import get_registry
 
-    cfg = configs.get("paper_rbrt")
+    cfg = dataclasses.replace(configs.get("paper_rbrt"), n_trees=BRIDGE_TREES)
     edges = get_registry().counter("sumprod.edges")
     emitted = [0]
     emit = SumProd._emit
@@ -3567,8 +3597,8 @@ def moe_routing(model, params, tokens) -> dict:
 # ------------------------------------------------------------- phases 16-19 --
 def param_count(cfg) -> tuple:
     """(parameters, those of them float32 in a bf16 model: the routers,
-    RWKV's w0 and u) of a dense, moe, encdec or rwkv config, from its
-    widths alone."""
+    RWKV's w0 and u, the SSM's dt_bias, A_log and Dskip) of a config, from
+    its widths alone."""
     D, N, Kh, dh, F = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
     attn = 2 * D * N * dh + 2 * D * Kh * dh + ((N + 2 * Kh) * dh if cfg.qkv_bias else 0)
     mlp = (3 if cfg.act == "swiglu" else 2) * D * F
@@ -3580,7 +3610,11 @@ def param_count(cfg) -> tuple:
     if cfg.kind == "rwkv":          # six D×D, ck and cv, the decay's LoRA, 12 vectors of D
         f32 = 2 * D
         block = 6 * D * D + 2 * D * F + 2 * 64 * D + 12 * D
-    total = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2) + D
+    if cfg.kind == "hybrid":        # the SSM (wx, wB, wC, wdt, wo, conv) and bn_a, bn_s
+        H, d_inner = cfg.ssm_heads or N, N * dh
+        f32 = 2 * H + d_inner
+        block += 2 * D * d_inner + 2 * D * H * cfg.ssm_state + D * H + 4 * d_inner + f32 + 2 * D
+    total = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2) + D + cfg.meta_tokens * D
     total += cfg.n_layers * block
     if cfg.kind == "encdec":
         total += cfg.n_layers * (attn + D) + cfg.enc_layers * (attn + mlp + 2 * D) + D
@@ -3927,11 +3961,20 @@ def host_state(tag: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 20 --
-PLACED_ARGS = ("--arch", "tinyllama_1_1b", "--full", "--layers", "8", "--steps", "2", "--batch",
+PLACED_ARGS = ("--arch", "tinyllama_1_1b", "--full", "--layers", "4", "--steps", "2", "--batch",
                "8", "--seq", "2048", "--n-micro", "8", "--compress-grads", "8", "--ckpt-every",
-               "0", "--log-every", "1")           # 8 of 22 layers: cut for phase 20 (d)'s time
+               "0", "--log-every", "1")           # 4 of 22 layers: cut for phase 20 (d)'s time
 DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", "16x16"), ("llama3_405b", "decode_32k", "2x16x16"),
-                ("dbrx_132b", "prefill_32k", "16x16"), ("rwkv6_1_6b", "train_4k", "16x16"))
+                ("dbrx_132b", "prefill_32k", "16x16"), ("rwkv6_1_6b", "train_4k", "16x16"),
+                ("hymba_1_5b", "train_4k", "16x16"), ("seamless_m4t_medium", "train_4k", "16x16"))
+# cells also run on the gathered path (no tp context: each block's weights gathered whole, the
+# ranks of a tp group computing the same rows), with the FLOPs a rank the tp path must stay
+# below as a share of it
+DRYRUN_GATHERED = {("hymba_1_5b", "train_4k", "16x16"): 1.0,
+                   ("seamless_m4t_medium", "train_4k", "16x16"): 1 / 8}
+_GATHERED_CELL = ("import sys; from repro_torch.distributed import tp; "
+                  "tp.context = lambda mesh, cfg: None; from repro_torch.launch import dryrun; "
+                  "sys.exit(dryrun.main(sys.argv[1:]))")
 DRYRUN_TIMEOUT_S = 300
 PLACED_APART = 1e-5                # placed vs plain parameters: the share of elements apart
 
@@ -3983,7 +4026,9 @@ def rule_bytes(arch: str, shape_name: str, tag: str) -> dict:
 def dryrun_start() -> tuple:
     """Start phase 20 (c)'s cells, each of ``DRYRUN_CELLS`` through
     ``launch/dryrun.py``'s CLI in a subprocess of its own (a fake process
-    group of 256 or 512 ranks, within ``DRYRUN_TIMEOUT_S``), side by side.
+    group of 256 or 512 ranks, within ``DRYRUN_TIMEOUT_S``), side by side,
+    and each of ``DRYRUN_GATHERED`` again with ``tp.context`` returning
+    None (the gathered path: no tensor parallelism).
     They need no card, so ``main`` starts them before phase 1 and
     :func:`dryrun_cells` collects them; the processes and their directory
     go when this process exits.  Returns (directory, processes, start)."""
@@ -3993,6 +4038,8 @@ def dryrun_start() -> tuple:
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    os.makedirs(Path(tmp) / "gathered")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     procs = []
     for arch, shape_name, tag in DRYRUN_CELLS:
         with open(Path(tmp) / f"{arch}__{shape_name}__{tag}.out", "w") as out:
@@ -4000,7 +4047,13 @@ def dryrun_start() -> tuple:
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
                  shape_name, "--mesh", "single" if tag == "16x16" else "multi", "--out", tmp,
                  "--timeout", str(DRYRUN_TIMEOUT_S)], stdout=out, stderr=subprocess.STDOUT,
-                env={**os.environ, "PYTHONPATH": str(ROOT / "src")}))
+                env=env))
+    for arch, shape_name, tag in DRYRUN_GATHERED:       # the cell itself, in this process
+        with open(Path(tmp) / "gathered" / f"{arch}__{shape_name}__{tag}.out", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _GATHERED_CELL, "--out", str(Path(tmp) / "gathered"),
+                 "--cell", arch, shape_name, tag], stdout=out, stderr=subprocess.STDOUT,
+                env=env))
 
     def stop():
         for proc in procs:
@@ -4014,21 +4067,28 @@ def dryrun_start() -> tuple:
 def dryrun_cells(started: tuple) -> list:
     """Phase 20 (c): the cells :func:`dryrun_start` started, each record's
     ``arguments`` against the rules' sum, and on a training cell at least
-    one all-gather a sharded leaf a microbatch."""
+    one all-gather a sharded leaf a microbatch; a cell of
+    ``DRYRUN_GATHERED``'s FLOPs a rank at most its share of the gathered
+    path's, its peak live bytes beside."""
     from repro_torch.launch import steps
 
     tmp, procs, t0 = started
     done = [(proc.wait(timeout=DRYRUN_TIMEOUT_S + 60), time.perf_counter() - t0)
             for proc in procs]
-    out = []
-    for (arch, shape_name, tag), (rc, wall) in zip(DRYRUN_CELLS, done):
-        path = Path(tmp) / f"{arch}__{shape_name}__{tag}.json"
+    cells = [(c, Path(tmp)) for c in DRYRUN_CELLS] + [(c, Path(tmp) / "gathered")
+                                                      for c in DRYRUN_GATHERED]
+    out, gathered = [], {}
+    for ((arch, shape_name, tag), where), (rc, wall) in zip(cells, done):
+        path = where / f"{arch}__{shape_name}__{tag}.json"
         if rc != 0 or not path.exists():
             err = path.with_name(path.name + ".err")
             raise AssertionError(f"dry run {arch} {shape_name} {tag}: exit {rc}, "
                                  f"{path.with_suffix('.out').read_text()[-3000:]} "
                                  f"{err.read_text()[-3000:] if err.exists() else ''}")
         rec = json.loads(path.read_text())
+        if where.name == "gathered":
+            gathered[arch, shape_name, tag] = rec
+            continue
         want = rule_bytes(arch, shape_name, tag)
         b, census, cost = rec["per_device_bytes"], rec["collectives"], rec["cost_analysis"]
         log(f"  dry run {arch} x {shape_name} x {tag} ({rec['world']} fake ranks): arguments "
@@ -4049,6 +4109,25 @@ def dryrun_cells(started: tuple) -> list:
                                      f"all-gathers, fewer than one a sharded leaf "
                                      f"({want['sharded_leaves']}) a microbatch ({need})")
         out.append({**rec, "rules": want, "subprocess_s": wall})
+    for rec in out:
+        cell = (rec["arch"], rec["shape"], rec["mesh"])
+        if cell not in gathered:
+            continue
+        g = gathered[cell]
+        flops, g_flops = (r["cost_analysis"]["flops_per_device"] for r in (rec, g))
+        peak, g_peak = (r["per_device_bytes"]["peak_live"] for r in (rec, g))
+        rec["gathered_path"] = {k: g[k] for k in ("per_device_bytes", "cost_analysis",
+                                                   "collectives", "lower_s")}
+        log(f"  dry run {' x '.join(cell)} against the gathered path (no tp context): flops a "
+            f"rank {flops:.4e} / {g_flops:.4e} = {flops / g_flops:.4f} (limit "
+            f"{DRYRUN_GATHERED[cell]:.4f}), peak live {peak / 2 ** 30:.2f} / "
+            f"{g_peak / 2 ** 30:.2f} GiB, census "
+            f"{ {k: v['count'] for k, v in rec['collectives'].items() if v['count']} } / "
+            f"{ {k: v['count'] for k, v in g['collectives'].items() if v['count']} }, lower_s "
+            f"{rec['lower_s']:.1f} / {g['lower_s']:.1f}")
+        if not flops < DRYRUN_GATHERED[cell] * g_flops:
+            raise AssertionError(f"dry run {cell}: flops a rank {flops} not below "
+                                 f"{DRYRUN_GATHERED[cell]} of the gathered path's {g_flops}")
     return out
 
 
@@ -4213,19 +4292,51 @@ TP_LOSS_RTOL = 1e-2                # bf16 step 1 against the plain trainer's
 TP_NOISE = 2.0                     # logits: within this times the plain bf16 model's distance
 # Phase 20 (d)'s configurations, each at its full width: its float32 twin (layers, batch,
 # seq; None: none), its bf16 steps (layers, batch, seq, microbatches, compression; None: not
-# trained) and its serve (layers, batch, prompt).  TinyLlama cut from 22 layers to 4 (its twin
-# from 4 to 2) for the time the MoE and RWKV parts take; DBRX trained on 1 layer (its state
-# at 40 would not fit), the MoE LMs served on 2 (the stream crosses a block boundary), RWKV-6
-# on 4 of 24.
+# trained) and its serve (layers, batch, prompt).  An encoder-decoder's layers count its
+# encoder's too, and its seq and prompt are half frames, half tokens; Hymba's add its 128
+# meta positions.  TinyLlama cut from 22 layers to 2 (its twin from 4 to 2) for the time the
+# MoE, RWKV, hybrid and encoder-decoder parts take; DBRX trained on 1 layer (its state at 40
+# would not fit), the MoE LMs served on 2 (the stream crosses a block boundary), RWKV-6 on 4
+# of 24; Hymba trained on 2 of 32 (one global layer, one windowed) and served on 4 (one
+# global), seamless on 2 + 2 and 4 + 4 of 12 + 12, trained uncompressed (the sketch would
+# gather its 256k-vocab embedding and head whole through gloo every step).
 TP_PARTS = (
-    {"arch": "tinyllama_1_1b", "twin": (2, 2, 2048), "train": (4, 4, 2048, 4, 8),
-     "serve": (4, 8, 2048)},
+    {"arch": "tinyllama_1_1b", "twin": (2, 2, 2048), "train": (2, 4, 2048, 4, 8),
+     "serve": (2, 8, 2048)},
     {"arch": "dbrx_132b", "twin": (1, 1, 2048), "train": (1, 4, 2048, 4, 0),
      "serve": (2, 1, 2048)},
     {"arch": "llama4_scout_17b_a16e", "twin": None, "train": None, "serve": (2, 1, 2048)},
     {"arch": "rwkv6_1_6b", "twin": (4, 2, 2048), "train": (4, 4, 2048, 4, 8),
      "serve": (4, 8, 1024)},
+    {"arch": "hymba_1_5b", "twin": (2, 2, 2048), "train": (2, 4, 2048, 4, 8),
+     "serve": (4, 8, 2048)},
+    {"arch": "seamless_m4t_medium", "twin": (2, 2, 2048), "train": (2, 4, 2048, 4, 0),
+     "serve": (4, 8, 2048)},
 )
+
+
+def tp_cfg(part, layers: int, **kw):
+    """The part's config cut to ``layers`` (an encoder-decoder's encoder
+    too), its width kept."""
+    from repro_torch import configs
+
+    cfg = configs.get(part["arch"])
+    return cfg.replace(n_layers=layers, **({"enc_layers": layers} if cfg.kind == "encdec"
+                                           else {}), **kw)
+
+
+def tp_batch(cfg, B: int, seq: int, seed: int, dev) -> dict:
+    """A part's batch of B rows of ``seq`` positions from ``seed``: token
+    ids, or for an encoder-decoder seq/2 frames (float32, scaled as the
+    trainer's stub) beside seq/2 tokens."""
+    rng = np.random.default_rng(seed)
+    encdec = cfg.kind == "encdec"
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, seq // 2 if encdec
+                                                                    else seq))).to(dev)}
+    if encdec:
+        out["src_frames"] = torch.from_numpy((rng.standard_normal(
+            (B, seq // 2, cfg.d_model)) * 0.02).astype(np.float32)).to(dev)
+    return out
 
 
 def tp_train_argv(part, dev):
@@ -4245,9 +4356,7 @@ def tp_weights(cfg, dev):
 
 
 def tp_serve_cfg(part):
-    from repro_torch import configs
-
-    return configs.get(part["arch"]).replace(n_layers=part["serve"][0])
+    return tp_cfg(part, part["serve"][0])
 
 
 def tp_references(dev="cuda") -> dict:
@@ -4265,11 +4374,11 @@ def tp_references(dev="cuda") -> dict:
         ref = out[part["arch"]] = {}
         full = configs.get(part["arch"])
         if part["twin"] and dev == "cuda":      # its weights; the plain stage adds as much again
-            reckon("phase 20 (d)'s float32 twin", full.replace(
-                dtype="float32", n_layers=part["twin"][0]), full.n_layers, train=False)
+            reckon("phase 20 (d)'s float32 twin", tp_cfg(part, part["twin"][0], dtype="float32"),
+                   full.n_layers, train=False)
         if part["train"]:
             if dev == "cuda":
-                reckon("phase 20 (d)'s plain trainer", full.replace(n_layers=part["train"][0]),
+                reckon("phase 20 (d)'s plain trainer", tp_cfg(part, part["train"][0]),
                        full.n_layers, train=True, compress=bool(part["train"][4]))
             plain, losses, step_s = T.build(T.parser().parse_args(tp_train_argv(part, dev))), [], []
             try:
@@ -4286,12 +4395,13 @@ def tp_references(dev="cuda") -> dict:
             empty(dev)
         cfg = tp_serve_cfg(part)
         _, B, S = part["serve"]
-        prompt = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab, (B, S)))
+        prompt = tp_batch(cfg, B, S, 11, "cpu")
+        on_dev = {k: v.to(dev) for k, v in prompt.items()}
+        room = prompt["tokens"].shape[1] + TP_DECODE
         params = tp_weights(cfg, dev)
         with torch.no_grad():
             model = Model(cfg, device=dev)
-            logits, cache = model.prefill(layer_views(params), {"tokens": prompt.to(dev)},
-                                          max_len=S + TP_DECODE)
+            logits, cache = model.prefill(layer_views(params), on_dev, max_len=room)
             plain, fed = [logits.cpu()], []
             for _ in range(TP_DECODE):
                 fed.append(logits.argmax(-1).int())
@@ -4301,12 +4411,12 @@ def tp_references(dev="cuda") -> dict:
             m32 = Model(cfg.replace(dtype="float32"), device=dev)
             p32 = layer_views(upcast(params))
             del params
-            logits, cache = m32.prefill(p32, {"tokens": prompt.to(dev)}, max_len=S + TP_DECODE)
+            logits, cache = m32.prefill(p32, on_dev, max_len=room)
             f32 = [logits.cpu()]
             for t in fed:
                 logits, cache = m32.decode_step(p32, cache, t)
                 f32.append(logits.cpu())
-            del cache, p32, logits
+            del cache, p32, logits, on_dev
         empty(dev)
         valid = slice(0, cfg.vocab)
         ref.update(prompt=prompt, fed=[t.cpu() for t in fed], f32=f32,
@@ -4343,7 +4453,6 @@ def tp_twin(mesh, part, dev):
     holds two plain states (DBRX's float32 layer is 18 GB of weights)."""
     import torch.distributed as dist
 
-    from repro_torch import configs
     from repro_torch.distributed import sharding as S
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model, moe
@@ -4351,10 +4460,9 @@ def tp_twin(mesh, part, dev):
     from repro_torch.tree import leaves, paths
 
     layers, B, seq = part["twin"]
-    cfg = configs.get(part["arch"]).replace(dtype="float32", n_layers=layers)
+    cfg = tp_cfg(part, layers, dtype="float32")
     model, ocfg = Model(cfg, device=dev), adamw.AdamWConfig()
-    batch = {"tokens": torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab, (B, seq))).to(dev)}
+    batch = tp_batch(cfg, B, seq, 7, dev)
     rank, routes, want = dist.get_rank(), RouteLog(), {}
     for turn in range(dist.get_world_size()):
         if turn == rank:
@@ -4415,7 +4523,9 @@ class Seen:
 
 
 def tp_counts(fops, wops, cops) -> dict:
-    return {"flash_attention": fops.launches, "rwkv6_chunk": wops.launches,
+    return {"flash_attention": fops.launches,
+            "flash_attention_noncausal": fops.noncausal_launches,
+            "flash_attention_windowed": fops.windowed_launches, "rwkv6_chunk": wops.launches,
             "rwkv6_chunk_bwd": wops.bwd_launches, "count_sketch": cops.launches,
             "count_sketch_unsketch": cops.unsketch_launches}
 
@@ -4486,13 +4596,15 @@ def tp_serve(mesh, part, inp, ops, seen, dev):
     from repro_torch.distributed import tp as TPM
     from repro_torch.launch import steps as ST
     from repro_torch.models import Model, moe
+    from repro_torch.tree import leaves, paths
 
     cfg = tp_serve_cfg(part)
     model = Model(cfg, device=dev)
     params = tp_weights(cfg, dev)
     placed = S.place(params, S.param_shardings(mesh, params))
     del params
-    batch = {"tokens": inp["prompt"].to(dev)}
+    batch = {k: v.to(dev) for k, v in inp["prompt"].items()}
+    room = batch["tokens"].shape[1] + TP_DECODE
     batch = S.place(batch, S.batch_shardings(mesh, batch))
     routes = RouteLog()
     for s in seen:
@@ -4501,13 +4613,14 @@ def tp_serve(mesh, part, inp, ops, seen, dev):
     sync(dev)
     t0 = time.perf_counter()
     with swapped(moe, "route", routes):
-        logits, cache = ST.placed_prefill(model, placed, batch,
-                                          max_len=part["serve"][2] + TP_DECODE)
+        logits, cache = ST.placed_prefill(model, placed, batch, max_len=room)
     sync(dev)
     rec = {"prefill_s": time.perf_counter() - t0, "prefill_launches": tp_counts(*ops),
            "prefill_heads": {s.name: s.take() for s in seen},
-           "cache_local_shapes": {k: tuple(t.to_local().shape)
-                                  for k, t in cache["layers"][0].items()}}
+           "cache_local_shapes": {n: tuple(t.to_local().shape) for n, t in zip(
+               paths(cache["layers"][0]), leaves(cache["layers"][0]))}}
+    if "enc_out" in cache:
+        rec["cache_local_shapes"]["enc_out"] = tuple(cache["enc_out"].to_local().shape)
     if cfg.kind == "moe":
         rec["routing"] = {"capacity": [c for _, _, c in routes.calls],
                           "dropped_pairs": [int((~k).sum()) for _, k, _ in routes.calls],
@@ -4614,9 +4727,11 @@ def counting_cpu_kernels(fops, cops, wops=None):
     real_attn, real_sk, real_un = (fops.flash_attention_gqa, grad_compress.count_sketch_hashed,
                                    grad_compress.unsketch)
 
-    def attn(*a, **k):
+    def attn(q, k, v, causal=True, return_lse=False, window=None):
         fops.launches += 1
-        return real_attn(*a, **k)
+        fops.windowed_launches += window is not None
+        fops.noncausal_launches += not causal
+        return real_attn(q, k, v, causal, return_lse, window)
 
     def sk(*a, **k):
         cops.launches += 1
@@ -4640,20 +4755,41 @@ def counting_cpu_kernels(fops, cops, wops=None):
         wops._forward, wops.rwkv6_chunk_bwd = fwd, bwd
 
 
+def tp_attention_launches(cfg, passes: int) -> dict:
+    """flash_attention's launches in ``passes`` forward passes of ``cfg``:
+    one an attention (an encoder-decoder's encoder, self- and
+    cross-attention), the non-causal ones (encoder, cross) and the windowed
+    ones apart."""
+    windowed = sum(w is not None for w in
+                   (None if not cfg.window or i in cfg.global_layers else cfg.window
+                    for i in range(cfg.n_layers)))
+    encdec = cfg.kind == "encdec"
+    return {"flash_attention": passes * (cfg.n_layers + (cfg.enc_layers + cfg.n_layers
+                                                         if encdec else 0)),
+            "flash_attention_noncausal": passes * (cfg.enc_layers + cfg.n_layers if encdec
+                                                   else 0),
+            "flash_attention_windowed": passes * windowed}
+
+
 def tp_want(part, cfg) -> dict:
     """A part's launch counts: (its train steps', a prefill's, a decode
-    step's) and the heads each kernel sees on a tp rank."""
-    z = dict.fromkeys(("flash_attention", "rwkv6_chunk", "rwkv6_chunk_bwd", "count_sketch",
-                       "count_sketch_unsketch"), 0)
+    step's) and the heads each kernel sees on a tp rank (all of them where
+    tp does not divide them: Hymba's 25)."""
+    z = dict.fromkeys(("flash_attention", "flash_attention_noncausal",
+                       "flash_attention_windowed", "rwkv6_chunk", "rwkv6_chunk_bwd",
+                       "count_sketch", "count_sketch_unsketch"), 0)
     rwkv, train = cfg.kind == "rwkv", None
     if part["train"]:
         layers, _, _, n_micro, compress = part["train"]
         fwd = 2 * layers * n_micro * TP_STEPS                 # forward and remat recompute
         train = {**z, **({"rwkv6_chunk": fwd, "rwkv6_chunk_bwd": fwd // 2} if rwkv
-                         else {"flash_attention": fwd})}
-    prefill = {**z, ("rwkv6_chunk" if rwkv else "flash_attention"): part["serve"][0]}
-    heads = ((cfg.d_model // cfg.rwkv_head_size) if rwkv else cfg.n_heads) // TP_WORLD
-    return {"train": train, "prefill": prefill, "decode": z, "heads": heads,
+                         else tp_attention_launches(tp_cfg(part, layers),
+                                                    2 * n_micro * TP_STEPS))}
+    prefill = {**z, **({"rwkv6_chunk": part["serve"][0]} if rwkv
+                       else tp_attention_launches(cfg, 1))}
+    heads = (cfg.d_model // cfg.rwkv_head_size) if rwkv else cfg.n_heads
+    return {"train": train, "prefill": prefill, "decode": z,
+            "heads": heads // TP_WORLD if heads % TP_WORLD == 0 else heads,
             "kernel": "rwkv6_chunk" if rwkv else "flash_attention_gqa"}
 
 
@@ -5000,9 +5136,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()                            # the card holds nothing else
     log("phase 20: tinyllama-1.1b trained placed on make_host_mesh() (1 x 1 here) at full width, "
-        "8 of its 22 layers (cut for phase 20 (d)'s time), global batch 8 x 2048, n_micro 8, "
+        "4 of its 22 layers (cut for phase 20 (d)'s time), global batch 8 x 2048, n_micro 8, "
         "compression 8, 2 steps beside the plain trainer; its checkpoint restored onto "
-        "rebuild_mesh(1); four dry-run cells at full size")
+        "rebuild_mesh(1); six dry-run cells at full size (two also on the gathered path)")
     placed = phase_placed(fops, cops, (ops, pops, wops))
     placed["dryrun"] = dryrun_cells(dry)
     gc.collect()
@@ -5015,11 +5151,12 @@ def main() -> int:
         + "; ".join(f"{configs.get(p['arch']).name} ({configs.get(p['arch']).n_layers} layers) "
                     f"twin {p['twin']}, train {p['train']}, serve {p['serve']}"
                     for p in TP_PARTS)
-        + " (cut for the script's time: TinyLlama from 22 layers to 4, its twin from 4 to 2)")
+        + " (cut for the script's time: TinyLlama from 22 layers to 2, its twin from 4 to 2)")
     placed["tp"] = phase_tp()
     tp0 = placed["tp"]["ranks"][0]["parts"]
-    tp_l, tp_d, tp_s, tp_r = (tp0[a] for a in ("tinyllama_1_1b", "dbrx_132b",
-                                               "llama4_scout_17b_a16e", "rwkv6_1_6b"))
+    tp_l, tp_d, tp_s, tp_r, tp_h, tp_e = (tp0[a] for a in (
+        "tinyllama_1_1b", "dbrx_132b", "llama4_scout_17b_a16e", "rwkv6_1_6b", "hymba_1_5b",
+        "seamless_m4t_medium"))
 
     head = next(s for s in shapes if s["case"] == "leaves40_f32")
     phead = next(s for s in pshapes if s["case"] == "pm256_f32")
@@ -5139,7 +5276,12 @@ def main() -> int:
                              "serve_tp_scout_prefill_rank0":
                                  tp_s["prefill_launches"]["flash_attention"],
                              "serve_tp_scout_decode_rank0":
-                                 tp_s["decode_launches"]["flash_attention"]},
+                                 tp_s["decode_launches"]["flash_attention"],
+                             **{f"{k}_tp_{tag}_rank0{sub}":
+                                    r[f"{k}_launches"][f"flash_attention{sub}"]
+                                for tag, r, subs in (("hymba", tp_h, ("", "_windowed")),
+                                                     ("seamless", tp_e, ("", "_noncausal")))
+                                for k in ("train", "prefill", "decode") for sub in subs}},
         "sass_bf16": fsass,
         "shapes": fshapes,
     }, {
@@ -5172,7 +5314,10 @@ def main() -> int:
                              "tp_rwkv_train_2_steps_rank0":
                                  tp_r["train_launches"]["count_sketch"],
                              "tp_rwkv_train_2_steps_unsketch_rank0":
-                                 tp_r["train_launches"]["count_sketch_unsketch"]},
+                                 tp_r["train_launches"]["count_sketch_unsketch"],
+                             "tp_hymba_train_2_steps_rank0": tp_h["train_launches"]["count_sketch"],
+                             "tp_hymba_train_2_steps_unsketch_rank0":
+                                 tp_h["train_launches"]["count_sketch_unsketch"]},
         "shapes": cshapes,
     }]
     log(json.dumps({"serve": serve, "paper": paper, "coeff_hist": coeff, "lm": lm,

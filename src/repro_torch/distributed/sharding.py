@@ -33,7 +33,9 @@ the reference stacks a scan kind's layers over a leading L axis
 ("layers/k"): the rules match a path's end, so a per-layer leaf's spec is
 the reference's less its leading None.  The port's encoder–decoder cache
 also holds each layer's cross-attention k, v ("layers/3/xk"), which the
-reference recomputes every step: they take the self-attention k, v's rule.
+reference recomputes every step: their rows over dp as the self-attention
+k, v's, their K/V heads over tp (where tp divides them), as the
+tensor-parallel cross-attention computes them.
 
 How a placed step computes (``launch/steps.py``): the parameters, AdamW's
 moments and the batch are DTensors; a block reads its leaves through
@@ -41,15 +43,17 @@ moments and the batch are DTensors; a block reads its leaves through
 so every kernel sees plain tensors and the peak holds one block's
 weights, as FSDP does; each dp rank computes on its own rows.  Without
 tensor parallelism a leaf is gathered whole and the ranks of one tp group
-compute the same rows.  With it (a dense, MoE or RWKV config on a mesh
-whose "model" axis has more than one rank: ``distributed/tp.py``),
+compute the same rows.  With it (any config on a mesh whose "model" axis
+has more than one rank: ``distributed/tp.py``),
 :func:`wrap`'s ``tp`` names the leaves that keep their shard over "model"
 (the block computes on the rank's heads, d_ff, experts and vocab slice)
 and the others are gathered over every axis.  The gather's backward reduces explicitly: the
 rank's gradient of the gathered tensor is summed over the dp ranks (each
 dp rank's own rows gave it) and, under tensor parallelism, over the tp
 ranks where the block read the leaf whole over tp (each tp rank's own
-sequence slice or heads gave it: the norm scales, ``wk``, ``wv``), and
+sequence slice or heads gave it: the norm scales, ``wk``, ``wv``, the
+meta tokens, a hybrid block's ``bn_a``, ``bn_s`` and the SSM's ``wdt``,
+``dt_bias``, ``A_log`` and ``Dskip``), and
 brought back to the leaf's placement (reduce-scatter where an axis
 summed over shards the leaf, all-reduce where it replicates it).
 DTensor's own backward of ``full_tensor()`` takes the local slice
@@ -114,7 +118,7 @@ _RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
 # the reference's cache table (trailing dims), and the port's cross-attention k, v
 _CACHE_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
     (r"/k$|/v$",           ("dp", "tp", None, None)),    # (B, span, Kh, dh)
-    (r"/x[kv]$",           ("dp", "tp", None, None)),    # (B, Se, Kh, dh), the port's
+    (r"/x[kv]$",           ("dp", None, "tp", None)),    # (B, Se, Kh, dh), the port's
     (r"/kpos$",            ("dp", "tp")),                # (B, span)
     (r"/S$",               ("dp", "tp", None, None)),    # rwkv (B, H, hs, hs)
     (r"x_last_tm$|x_last_cm$", ("dp", "tp")),            # (B, D)

@@ -1,12 +1,17 @@
-"""Tensor and sequence parallelism over a mesh's "model" axis (tp): the
-dense, MoE and RWKV blocks computed on a rank's own heads, d_ff, experts
-and vocab slices, Megatron-LM style, as the reference's block is laid out
-under GSPMD (its ``models/lm.py``: the residual stream sequence-sharded
-over tp between blocks, heads, d_ff and experts over tp inside, logits
+"""Tensor and sequence parallelism over a mesh's "model" axis (tp): every
+block kind computed on a rank's own heads, d_ff, experts and vocab
+slices, Megatron-LM style, as the reference's block is laid out under
+GSPMD (its ``models/lm.py``: the residual stream sequence-sharded over tp
+between blocks, heads, d_ff and experts over tp inside, logits
 vocab-sharded).  An MoE block is expert-parallel with an all-gather
 dispatcher (``models/moe.moe_ffn_tp``); an RWKV block runs its time mix on
 the rank's heads, ``ln_x``'s mean square summed over tp, and its channel
-mix on the rank's d_ff slice (``models/rwkv6.py``).
+mix on the rank's d_ff slice (``models/rwkv6.py``); a hybrid block runs
+its attention and its SSM branch (``models/ssm.local_view``) on the
+rank's heads, each branch's partial sum reduced before its norm
+(``models/lm._mix``); an encoder–decoder runs its encoder as dense blocks
+on the rank's sequence slice, gathers the encoder's output once a step,
+and cross-attends on the rank's heads and K/V heads.
 
 The collectives, each an ``autograd.Function`` with its dual backward:
 
@@ -108,17 +113,12 @@ def axis(mesh, dim: int) -> TensorParallel:
                           dist.get_backend(mesh.get_group(dim)) == "gloo")
 
 
-TP_KINDS = ("dense", "moe", "rwkv")   # the block kinds with a tensor-parallel path
-
-
 def context(mesh, cfg) -> Optional[TensorParallel]:
-    """The tp context of a dense, MoE or RWKV config on ``mesh``: None
-    unless the mesh has a "model" axis of more than one rank, the block
-    kind is one of ``TP_KINDS`` (hybrid and encdec keep the gathered path)
-    and tp divides the padded vocab (always, at 512)."""
+    """The tp context of a config on ``mesh``: None unless the mesh has a
+    "model" axis of more than one rank and tp divides the padded vocab
+    (always, at 512).  Every block kind has a tensor-parallel path."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if (mesh is None or TP_AXIS not in names or cfg.kind not in TP_KINDS or cfg.meta_tokens
-            or cfg.padded_vocab % mesh.size(names.index(TP_AXIS))):
+    if mesh is None or TP_AXIS not in names or cfg.padded_vocab % mesh.size(names.index(TP_AXIS)):
         return None
     dim = names.index(TP_AXIS)
     return None if mesh.size(dim) == 1 else axis(mesh, dim)
@@ -126,13 +126,20 @@ def context(mesh, cfg) -> Optional[TensorParallel]:
 
 def keeps(cfg, tp: TensorParallel) -> Callable[[str], bool]:
     """Which leaves a block reads as its tp shard (the others it gathers
-    over tp, whole): the embedding's two; a dense or MoE block's ``wq``,
-    ``bq`` and ``wo`` where tp divides the heads (a shard must not cut
-    one), a dense block's MLP three, an MoE block's expert stacks (E over
-    tp) and its shared expert's three (d_ff); an RWKV block's channel-mix
-    ``ck`` and ``cv`` (d_ff) and, where tp divides its heads, the time
-    mix's ``wr``, ``wk``, ``wv``, ``wg``, ``wB`` (columns) and ``wo``
-    (rows).  A leaf the rules leave whole over tp stays whole either way."""
+    over tp, whole): the embedding's two; a dense, hybrid, MoE or encdec
+    block's ``wq``, ``bq`` and ``wo`` where tp divides the heads (a shard
+    must not cut one), a dense, hybrid or encdec block's MLP three, an MoE
+    block's expert stacks (E over tp) and its shared expert's three
+    (d_ff); a hybrid block's SSM ``wx``, ``wB``, ``wC``, ``conv`` (columns)
+    and ``wo`` (rows) where tp divides the SSM heads; a decoder block's
+    cross-attention ``wq``, ``bq`` and ``wo`` where tp divides the heads and
+    its ``wk``, ``wv``, ``bk`` and ``bv``, and an encoder block's
+    self-attention's (no decode cache holds its k, v), where tp divides the
+    K/V heads; an
+    RWKV block's channel-mix ``ck`` and ``cv`` (d_ff) and, where tp divides
+    its heads, the time mix's ``wr``, ``wk``, ``wv``, ``wg``, ``wB``
+    (columns) and ``wo`` (rows).  A leaf the rules leave whole over tp
+    stays whole either way."""
     pats = [r"embed/(tok|head)$"]
     if cfg.kind == "rwkv":
         pats.append(r"mix/(ck|cv)$")
@@ -142,7 +149,11 @@ def keeps(cfg, tp: TensorParallel) -> Callable[[str], bool]:
         pats.append(r"moe/w_(gate|up|down)$|shared/w_(gate|up|down)$" if cfg.kind == "moe"
                     else r"mlp/w_(gate|up|down)$")
         if cfg.n_heads % tp.size == 0:
-            pats.append(r"attn/(wq|bq|wo)$")
+            pats.append(r"attn/(wq|bq|wo)$")      # the cross-attention's too (xattn/...)
+        if cfg.kind == "encdec" and cfg.kv_heads % tp.size == 0:
+            pats.append(r"(xattn|^enc_layers/.*attn)/(wk|wv|bk|bv)$")
+        if cfg.kind == "hybrid" and (cfg.ssm_heads or cfg.n_heads) % tp.size == 0:
+            pats.append(r"ssm/(wx|wB|wC|conv|wo)$")
     rx = re.compile("|".join(pats))
     return lambda path: rx.search(path) is not None
 

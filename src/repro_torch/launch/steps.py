@@ -18,17 +18,18 @@ each rank's local tensors.  Each dp rank computes on its own rows: its
 microbatch j is the j-th of its rows cut in ``n_micro`` (the reference's
 microbatch j is the j-th of the global batch cut in ``n_micro``: the same
 rows in all, grouped otherwise).  A block gathers its own weights
-(``sharding.take``: every kernel sees plain tensors).  Over tp, a dense,
-MoE or RWKV config on a mesh whose "model" axis has more than one rank
-computes tensor- and sequence-parallel (``distributed/tp.py``): its
-blocks keep their tp shards (``tp.keeps``: ``wq``, ``wo``, the MLP, an
-MoE block's experts and shared expert, an RWKV block's time-mix and
-channel-mix projections, the embedding; gathered over the fsdp axes only)
-and run on the rank's heads, d_ff, experts and vocab columns, the
-residual stream the rank's sequence slice between blocks, the loss
-vocab-parallel; hybrid and encdec configs, and a mesh of one over tp,
-gather each block's weights whole, the ranks of one tp group computing
-the same rows.  The gradient is reduced explicitly: the
+(``sharding.take``: every kernel sees plain tensors).  Over tp, every
+config on a mesh whose "model" axis has more than one rank computes
+tensor- and sequence-parallel (``distributed/tp.py``): its blocks keep
+their tp shards (``tp.keeps``: ``wq``, ``wo``, the MLP, an MoE block's
+experts and shared expert, an RWKV block's time-mix and channel-mix
+projections, a hybrid block's SSM projections, a decoder block's
+cross-attention, the embedding; gathered over the fsdp axes only) and
+run on the rank's heads, d_ff, experts and vocab columns, the residual
+stream the rank's sequence slice between blocks, the loss
+vocab-parallel; on a mesh of one over tp each block gathers its weights
+whole, the ranks of one tp group computing the same rows.  The gradient
+is reduced explicitly: the
 gather's backward sums it over the dp ranks (and, tensor-parallel, over
 the tp ranks where the block read the leaf whole over tp) and
 reduce-scatters it to the leaf's placement, each rank's loss weighted by
@@ -42,7 +43,9 @@ that split it) and AdamW updates the local shards.  On plain tensors the
 step is the one process's.  :func:`placed_prefill` and
 :func:`placed_decode` serve the same way; tensor-parallel, each rank keeps
 its block of span/tp cache slots (an RWKV layer its heads' state and its
-slice of D of ``x_last``) and its vocab columns of the logits, else each
+slice of D of ``x_last``, a hybrid layer its SSM heads' state and their
+conv columns, an encdec layer its K/V heads' cross k, v, and the cache
+its slice of ``enc_out``) and its vocab columns of the logits, else each
 cache layer is gathered over tp (the rows stay the rank's own).
 With the gloo backend every collective runs on the host
 (``distributed/tp.py``'s transport).
@@ -348,20 +351,33 @@ def _global(t, rows: int, span: Optional[int] = None):
 
 def _global_layers(model, local, max_len: Optional[int], layers, rows: int) -> list:
     """The global shapes of a tp-local prefill cache's layers: an attention
-    layer's k, v and kpos over its whole span; an RWKV layer's state over
+    layer's k, v and kpos over its whole span, a hybrid layer's SSM state
+    over every head and its conv tail over all of d_inner, an encdec
+    layer's cross k, v over every K/V head; an RWKV layer's state over
     every head and its ``x_last`` over all of D."""
     cfg = model.cfg
+    whole = lambda t, rest: SimpleNamespace(shape=torch.Size((t.shape[0] * rows,) + rest))
     if cfg.kind == "rwkv":
         hs = cfg.rwkv_head_size
-        whole = {"S": (cfg.d_model // hs, hs, hs), "x_last_tm": (cfg.d_model,),
-                 "x_last_cm": (cfg.d_model,)}
-        return [{k: SimpleNamespace(shape=torch.Size((t.shape[0] * rows,) + whole[k]))
-                 for k, t in lc.items()} for lc in layers]
+        rest = {"S": (cfg.d_model // hs, hs, hs), "x_last_tm": (cfg.d_model,),
+                "x_last_cm": (cfg.d_model,)}
+        return [{k: whole(t, rest[k]) for k, t in lc.items()} for lc in layers]
     n_tok = local["tokens"].shape[1]
-    total = (local["patches"].shape[1] if "patches" in local else 0) + (
+    total = cfg.meta_tokens + (local["patches"].shape[1] if "patches" in local else 0) + (
         n_tok if max_len is None else max(max_len, n_tok))      # the model's cache positions
-    return [{k: _global(t, rows, total if w is None else min(w, total)) for k, t in lc.items()}
-            for lc, w in zip(layers, model.windows)]
+    H, d_inner = cfg.ssm_heads or cfg.n_heads, cfg.n_heads * cfg.head_dim
+    out = []
+    for lc, w in zip(layers, model.windows):
+        g = {k: _global(lc[k], rows, total if w is None else min(w, total))
+             for k in ("k", "v", "kpos")}
+        if "ssm" in lc:
+            g["ssm"] = {"h": whole(lc["ssm"]["h"], (H, cfg.ssm_state, d_inner // H)),
+                        "conv": whole(lc["ssm"]["conv"], (lc["ssm"]["conv"].shape[1], d_inner))}
+        for k in ("xk", "xv"):
+            if k in lc:
+                g[k] = whole(lc[k], (lc[k].shape[1], cfg.kv_heads, cfg.head_dim))
+        out.append(g)
+    return out
 
 
 def _global_logits(logits, rows: int, cfg: ModelConfig):
@@ -384,6 +400,10 @@ def placed_prefill(model, params, batch, max_len: Optional[int] = None):
                 _rows_placed(cache, mesh, sharding.cache_shardings, rows))
     glob = {"pos": _global(cache["pos"], rows), "layers": _global_layers(
         model, local, max_len, cache["layers"], rows)}
+    if "enc_out" in cache:
+        Se = local["src_frames"].shape[1]
+        glob.update(enc_out=_global(cache["enc_out"], rows, Se),
+                    enc_pos=_global(cache["enc_pos"], rows, Se))
     return (_local_placed(logits, _global_logits(logits, rows, model.cfg), mesh,
                           _logit_shardings),
             _local_placed(cache, glob, mesh, sharding.cache_shardings))

@@ -161,7 +161,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--full", action="store_true", help="the full published config")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the config to this many layers (its width kept)")
+                    help="cut the config to this many layers, an encoder-decoder's encoder "
+                         "too (its width kept)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -183,7 +184,8 @@ def build(args, mesh=None) -> Trainer:
     parameters and AdamW's state placed on ``mesh`` where one is given."""
     cfg = (configs.get if args.full else configs.get_smoke)(args.arch)
     if args.layers is not None:
-        cfg = cfg.replace(n_layers=args.layers)
+        cfg = cfg.replace(n_layers=args.layers,
+                          **({"enc_layers": args.layers} if cfg.kind == "encdec" else {}))
     model = Model(cfg, device=args.device)
     ocfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
     compressor = (CountSketchCompressor(ratio=args.compress_grads)

@@ -88,11 +88,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, d
 
 def attention_qkv(p, cfg: ModelConfig, x, positions):
     """q (B, S, N, dh) and k, v (B, S, Kh, dh) of x, q and k rotated by
-    ``positions`` (B, S); N the heads of ``wq`` (a tp rank's shard holds
-    its own)."""
+    ``positions`` (B, S); N and Kh the heads of ``wq`` and ``wk`` (a tp
+    rank's shards hold its own)."""
     B, S, _ = x.shape
-    Kh, dh = cfg.kv_heads, cfg.head_dim
-    N = p["wq"].shape[-1] // dh
+    dh = cfg.head_dim
+    N, Kh = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -103,24 +103,24 @@ def attention_qkv(p, cfg: ModelConfig, x, positions):
 
 def cross_q(p, cfg: ModelConfig, x):
     """The cross-attention's queries (B, S, N, dh) of the decoder's x,
-    not rotated."""
+    not rotated; N the heads of ``wq`` (a tp rank's shard holds its own)."""
     B, S, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    return q.reshape(B, S, -1, cfg.head_dim)
 
 
 def cross_kv(p, cfg: ModelConfig, enc):
     """The cross-attention's k, v (B, Sk, Kh, dh) of the encoder's output
     ``enc`` (B, Sk, D), not rotated (a prefill computes them once a layer
-    and the decode steps read them from the cache)."""
+    and the decode steps read them from the cache); Kh the K/V heads of
+    ``wk`` (a tp rank's shard holds its own)."""
     B, Sk, _ = enc.shape
     k, v = enc @ p["wk"], enc @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return (k.reshape(B, Sk, cfg.kv_heads, cfg.head_dim),
-            v.reshape(B, Sk, cfg.kv_heads, cfg.head_dim))
+    return k.reshape(B, Sk, -1, cfg.head_dim), v.reshape(B, Sk, -1, cfg.head_dim)
 
 
 def attend(p, q, k, v, causal: bool = True, kv_chunk: int = KV_CHUNK, window=None):
@@ -238,10 +238,13 @@ def cross_decode_attention(p, cfg: ModelConfig, x, k, v):
     """One decode step's cross-attention: q of x (B, 1, D) over the
     cached k, v (B, Sk, Kh, dh) of the encoder's output, every position
     seen, in float32 as :func:`decode_attention` (no kernel: one query a
-    sequence), projected by ``wo``."""
-    B = x.shape[0]
-    N, Kh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    qg = cross_q(p, cfg, x).reshape(B, Kh, N // Kh, dh).float()
+    sequence), projected by ``wo``.  The queries are ``wq``'s heads, read
+    in groups of k's heads (a tp rank's query heads over the K/V heads they
+    read: its own shard's, or :func:`local_kv`'s selection)."""
+    B, Kh, dh = x.shape[0], k.shape[2], cfg.head_dim
+    q = cross_q(p, cfg, x)
+    N = q.shape[2]
+    qg = q.reshape(B, Kh, N // Kh, dh).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(dh)
     out = torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1), v.float())
     return out.reshape(B, 1, N * dh).to(x.dtype) @ p["wo"]

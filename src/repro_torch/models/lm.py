@@ -81,27 +81,47 @@ norm and the head are taken where they are read.  On plain tensors
 ``take`` is the identity.  ``sharding.constrain`` marks the reference's
 ten activation constraints (its ``models/lm.py``), no-ops outside a mesh.
 
-Tensor and sequence parallelism (a dense, MoE or RWKV config given a tp
-context ``tpc``, ``distributed/tp.py``, which the placed steps pass on a
-mesh whose "model" axis has more than one rank): the blocks' leaves
-arrive as the rank's shards of ``wq``, ``wo`` and the MLP's (its heads
-and d_ff) and of the embedding (its vocab rows), ``wk``/``wv`` whole; an
-MoE block's as its E/tp experts and its shared expert's d_ff slice (the
-FFN expert-parallel: ``moe.moe_ffn_tp``), an RWKV block's as its heads'
-columns of the time mix and its d_ff slice of the channel mix
-(``rwkv6.local_view``, ``channel_mix``).  The embedding is
-vocab-parallel, and its sum over tp is scattered to the rank's sequence
-slice; the residual stream between blocks is (B, S/tp, D) where tp
-divides S (else whole).  A block norms its slice, gathers the sequence,
-computes its heads (each reading its GQA group's K/V head) and its d_ff
-columns, and scatters the partial sum back to its slice; the loss gathers
-the final normed stream, takes the rank's vocab columns of the logits and
-a vocab-parallel cross-entropy and z-loss.  A prefill keeps the rank's
+Tensor and sequence parallelism (any config given a tp context ``tpc``,
+``distributed/tp.py``, which the placed steps pass on a mesh whose
+"model" axis has more than one rank): the blocks' leaves arrive as the
+rank's shards of ``wq``, ``wo`` and the MLP's (its heads and d_ff) and of
+the embedding (its vocab rows), ``wk``/``wv`` whole; an MoE block's as its
+E/tp experts and its shared expert's d_ff slice (the FFN expert-parallel:
+``moe.moe_ffn_tp``), an RWKV block's as its heads' columns of the time
+mix and its d_ff slice of the channel mix (``rwkv6.local_view``,
+``channel_mix``), a hybrid block's SSM as its heads' columns of ``wx``,
+``wB``, ``wC`` and ``conv`` and their rows of ``wo`` (``ssm.local_view``),
+a decoder block's cross-attention as its heads' ``wq`` and ``wo`` and its
+K/V heads' ``wk`` and ``wv``, an encoder block's self-attention as its
+heads' and its K/V heads' (no decode cache holds the encoder's k, v).  A
+shard never cuts a head: where tp does not divide a branch's heads every
+rank computes all of them.  The
+embedding is vocab-parallel; the meta tokens and the patches join it as
+rank 0's part of its sum over tp, which is scattered to the rank's
+sequence slice: the residual stream between blocks is (B, (M + P + S)/tp,
+D) where tp divides M + P + S (else whole).  A block norms its slice,
+gathers the sequence, computes its heads (each reading its GQA group's
+K/V head) and its d_ff columns, and scatters the partial sum back to its
+slice.  The hybrid block sums each branch's partial output over tp before
+its norm (one reduce-scatter of the two stacked, :func:`_mix`), the
+norms and the mix on the rank's slice.  The encoder runs its dense
+blocks, non-causal, on the rank's slice of the frames (no collective to
+split them), ``enc_ln_f`` on the slice, and its output is gathered over
+the sequence once a pass; each decoder block norms its slice with
+``ln_x``, gathers it, and attends from its heads' queries over its K/V
+heads' k, v of the whole encoder output.  The loss gathers the final
+normed stream, takes the rank's vocab columns of the logits and a
+vocab-parallel cross-entropy and z-loss.  A prefill keeps the rank's
 block of span/tp cache slots; a decode step attends over them
 (``layers.decode_attention_tp``), and only the rank owning slot pos mod
 span writes the new k, v; an RWKV layer's state holds the rank's heads
-and its ``x_last`` pair the rank's slice of D, gathered in a decode step.
-The logits a prefill or decode step returns are the rank's vocab columns.
+and its ``x_last`` pair the rank's slice of D, gathered in a decode step;
+a hybrid layer's SSM state its heads and its conv tail their columns (the
+rank's slice of d_inner where tp divides it but not the heads, gathered in
+a decode step); an encdec cache its K/V heads' cross k, v (all of them
+where tp does not divide the K/V heads) and its slice of ``enc_out`` and
+``enc_pos`` where tp divides the frames.  The logits a prefill or decode
+step returns are the rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -235,35 +255,48 @@ class Model:
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
         h = (L.embed(_pick(params["embed"], "tok"), tokens) if tpc is None
              else TP.embed_partial(take(params["embed"]["tok"]), tokens, tpc))
-        n_prefix = 0
+        n_prefix, rest = 0, tpc is not None and tpc.rank > 0   # rank 0's part of the sum over tp
         if cfg.frontend == "patches" and "patches" in batch:
             patches = torch.as_tensor(batch["patches"]).to(device=self.device, dtype=h.dtype)
-            if tpc is not None and tpc.rank:       # rank 0's part of the sum over tp
+            if rest:
                 patches = torch.zeros_like(patches)
             h, n_prefix = torch.cat([patches, h], 1), patches.shape[1]
-        if tpc is not None:                        # the sum over tp, to the residual's layout
-            h = TP.leave(h, tpc, TP.seq_parallel(tpc, h.shape[1]), partial=True)
         if cfg.meta_tokens:
             meta = take(params["meta"])[None].expand(h.shape[0], -1, -1)
+            if rest:               # kept in the graph: every rank's gather sums its gradient
+                meta = meta * 0
             h, n_prefix = torch.cat([meta, h], 1), n_prefix + cfg.meta_tokens
+        if tpc is not None:                        # the sum over tp, to the residual's layout
+            h = TP.leave(h, tpc, TP.seq_parallel(tpc, h.shape[1]), partial=True)
         return constrain(h, "dp", None, None), n_prefix
 
-    def _encode(self, params, batch, remat: bool = False):
+    def _encode(self, params, batch, remat: bool = False, tpc=None):
         """The encoder's output (B, Se, D) after ``enc_ln_f``, its positions
         0..Se−1 and its blocks' aux (zero: its blocks are dense).  Each
-        block non-causal, under activation checkpointing with ``remat``."""
+        block non-causal, under activation checkpointing with ``remat``.
+        With a tp context the stream is the rank's slice of the frames where
+        tp divides Se (cut without a collective), the blocks and
+        ``enc_ln_f`` run on it, and the output is gathered over the
+        sequence once (its backward reduce-scatters the decoder layers'
+        summed gradient)."""
         cfg = self.cfg
         x = torch.as_tensor(batch["src_frames"]).to(device=self.device, dtype=_dtype(cfg))
         pos = _positions(x.shape[0], x.shape[1], self.device)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        sp = TP.seq_parallel(tpc, x.shape[1])
+        if sp:
+            x = TP.split_seq(x, tpc)
+        kw = {} if tpc is None else {"tpc": tpc}
         x = constrain(x, "dp", "tp", None)
         for p in params["enc_layers"]:
             args = (p, x, pos, None, None, False)
-            x, a = (torch.utils.checkpoint.checkpoint(self._block_train, *args, use_reentrant=False)
-                    if remat else self._block_train(*args))
+            x, a = (torch.utils.checkpoint.checkpoint(self._block_train, *args, use_reentrant=False,
+                                                      **kw)
+                    if remat else self._block_train(*args, **kw))
             x = constrain(x, "dp", "tp", None)
             aux = aux + a
-        return L.rmsnorm(x, take(params["enc_ln_f"]["scale"]), cfg.norm_eps), pos, aux
+        x = L.rmsnorm(x, take(params["enc_ln_f"]["scale"]), cfg.norm_eps)
+        return TP.enter(x, tpc, sp), pos, aux
 
     # -------------------------------------------------------------- loss --
     def loss(self, params, batch, tpc=None):
@@ -288,7 +321,7 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         enc = None
         if cfg.kind == "encdec":
-            enc, _, aux = self._encode(params, batch, cfg.remat)
+            enc, _, aux = self._encode(params, batch, cfg.remat, tpc)
         tokens = torch.as_tensor(batch["tokens"]).to(self.device).long()
         h, n_prefix = self._embed_inputs(params, batch, tpc)
         S = n_prefix + tokens.shape[1]                 # prefixes counted
@@ -342,12 +375,15 @@ class Model:
         h = TP.enter(h, tpc, sp)
         q, k, v = _local_heads(cfg, *L.attention_qkv(p["attn"], cfg, h, positions), tpc)
         out = L.attend(p["attn"], q, k, v, causal, kv_chunk=cfg.kv_chunk, window=window)
+        partial = _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim)
         if cfg.kind == "hybrid":
-            out = _mix(p, cfg, out, SSM.ssm_branch(p["ssm"], cfg, h))
-        x = x + constrain(TP.leave(out, tpc, sp, _sharded(p["attn"]["wo"], cfg.n_heads
-                                                           * cfg.head_dim)), "dp", None, None)
+            ssm, ssm_partial = SSM.local_view(p["ssm"], cfg, tpc)
+            out = _mix(p, cfg, out, SSM.ssm_branch(ssm, cfg, h), tpc, sp, (partial, ssm_partial))
+        else:
+            out = TP.leave(out, tpc, sp, partial)
+        x = x + constrain(out, "dp", None, None)
         if enc is not None:
-            x = x + constrain(self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc)),
+            x = x + constrain(self._cross(p, x, *L.cross_kv(p["xattn"], cfg, enc), tpc, sp),
                               "dp", None, None)
         h2 = constrain(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), "dp", None, None)
         if cfg.kind == "moe" and tpc is None:
@@ -362,12 +398,17 @@ class Model:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + constrain(TP.leave(out, tpc, sp, partial), "dp", None, None), aux
 
-    def _cross(self, p, x, xk, xv):
+    def _cross(self, p, x, xk, xv, tpc=None, sp: bool = False):
         """A decoder block's cross-attention output over the encoder's
-        k, v (non-causal, through the kernel)."""
+        k, v (non-causal, through the kernel).  With a tp context ``x`` is
+        the residual's layout: normed there, gathered, its heads' queries
+        over their K/V heads, the output (a partial sum where ``wo`` is the
+        rank's shard) brought back to the residual's layout."""
         cfg = self.cfg
-        q = L.cross_q(p["xattn"], cfg, L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps))
-        return L.attend(p["xattn"], q, xk, xv, causal=False, kv_chunk=cfg.kv_chunk)
+        h = TP.enter(L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps), tpc, sp)
+        q, xk, xv = _local_heads(cfg, L.cross_q(p["xattn"], cfg, h), xk, xv, tpc)
+        out = L.attend(p["xattn"], q, xk, xv, causal=False, kv_chunk=cfg.kv_chunk)
+        return TP.leave(out, tpc, sp, _sharded(p["xattn"]["wo"], cfg.n_heads * cfg.head_dim))
 
     def _block_train_rwkv(self, p, x, positions, window=None, enc=None, tpc=None):
         """One RWKV-6 block of the training forward, the reference's
@@ -397,8 +438,13 @@ class Model:
         −1e30, cache)."""
         cfg = self.cfg
         cache: Dict[str, Any] = {}
+        enc = None
         if cfg.kind == "encdec":
-            cache["enc_out"], cache["enc_pos"], _ = self._encode(params, batch)
+            enc, enc_pos, _ = self._encode(params, batch, tpc=tpc)
+            cache["enc_out"], cache["enc_pos"] = enc, enc_pos
+            if TP.seq_parallel(tpc, enc.shape[1]):   # the rank's slice of the frames, as the rules
+                cache["enc_out"], cache["enc_pos"] = (TP.local_slice(t, tpc, 1).contiguous()
+                                                      for t in (enc, enc_pos))
         h, n_prefix = self._embed_inputs(params, batch, tpc)
         B = h.shape[0]
         S = n_prefix + torch.as_tensor(batch["tokens"]).shape[1]   # S counts the prefixes
@@ -411,7 +457,7 @@ class Model:
             else:
                 w = self.windows[i]
                 h, lc = self._prefill_attn(p, h, positions, total if w is None else min(w, total),
-                                           w, cache.get("enc_out"), tpc)
+                                           w, enc, tpc)
             layers.append(lc)
         cache.update(layers=layers, pos=torch.full((B,), S, dtype=torch.int32, device=self.device))
         h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
@@ -453,19 +499,24 @@ class Model:
         cfg = self.cfg
         p = take(p)
         sp = TP.seq_parallel(tpc, positions.shape[1])
-        h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(p["attn"], cfg, TP.enter(h, tpc, sp), positions)
+        h = TP.enter(L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps), tpc, sp)
+        q, k, v = L.attention_qkv(p["attn"], cfg, h, positions)
         out = L.attend(p["attn"], *_local_heads(cfg, q, k, v, tpc), window=window)
         lc = _ring(k, v, positions, span)
         if tpc is not None and tpc.divides(span):
             lc = {n: TP.local_slice(t, tpc, 1) for n, t in lc.items()}
+        partial = _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim)
         if cfg.kind == "hybrid":
-            s, lc["ssm"] = SSM.ssm_branch(p["ssm"], cfg, h, return_state=True)
-            out = _mix(p, cfg, out, s)
-        x = x + TP.leave(out, tpc, sp, _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim))
+            ssm, ssm_partial = SSM.local_view(p["ssm"], cfg, tpc)
+            s, lc["ssm"] = SSM.ssm_branch(ssm, cfg, h, return_state=True)
+            lc["ssm"]["conv"] = _conv_tail(cfg, lc["ssm"]["conv"], ssm_partial, tpc, out=True)
+            out = _mix(p, cfg, out, s, tpc, sp, (partial, ssm_partial))
+        else:
+            out = TP.leave(out, tpc, sp, partial)
+        x = x + out
         if enc is not None:
             lc["xk"], lc["xv"] = L.cross_kv(p["xattn"], cfg, enc)
-            x = x + self._cross(p, x, lc["xk"], lc["xv"])
+            x = x + self._cross(p, x, lc["xk"], lc["xv"], tpc, sp)
         out, partial = _ffn(p, cfg, TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps),
                                              tpc, sp), tpc)
         return x + TP.leave(out, tpc, sp, partial), lc
@@ -546,6 +597,7 @@ class Model:
         p, lc = take(p), take(lc)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
         slot = pos[:1].long() % span                # every row at pos[0]'s slot, as the reference
+        partial = _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim)
         if tpc is None:
             out, k_new, v_new = L.decode_attention(p["attn"], cfg, h, lc["k"], lc["v"],
                                                    lc["kpos"], pos, layer_window=window)
@@ -559,18 +611,26 @@ class Model:
                                                       lc["kpos"], pos, tpc,
                                                       own=split or tpc.rank == 0,
                                                       layer_window=window)
-            out = TP.leave(out, tpc, False, _sharded(p["attn"]["wo"], cfg.n_heads * cfg.head_dim))
             hit = torch.arange(n, device=slot.device) == slot - (tpc.rank * n if split else 0)
             new_lc = {**lc, "k": torch.where(hit[None, :, None, None], k_new, lc["k"]),
                       "v": torch.where(hit[None, :, None, None], v_new, lc["v"]),
                       "kpos": torch.where(hit[None], pos[:, None], lc["kpos"])}
         if cfg.kind == "hybrid":
-            s, new_lc["ssm"] = SSM.ssm_step(p["ssm"], cfg, h, lc["ssm"])
-            out = _mix(p, cfg, out, s)
+            ssm, ssm_partial = SSM.local_view(p["ssm"], cfg, tpc)
+            state = {**lc["ssm"], "conv": _conv_tail(cfg, lc["ssm"]["conv"], ssm_partial, tpc)}
+            s, new_lc["ssm"] = SSM.ssm_step(ssm, cfg, h, state)
+            new_lc["ssm"]["conv"] = _conv_tail(cfg, new_lc["ssm"]["conv"], ssm_partial, tpc,
+                                                out=True)
+            out = _mix(p, cfg, out, s, tpc, False, (partial, ssm_partial))
+        else:
+            out = TP.leave(out, tpc, False, partial)
         x = x + out
         if "xk" in lc:
             hx = L.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps)
-            x = x + L.cross_decode_attention(p["xattn"], cfg, hx, lc["xk"], lc["xv"])
+            xk, xv = _local_kv(cfg, p["xattn"]["wq"].shape[-1] // cfg.head_dim, lc["xk"],
+                               lc["xv"], tpc)
+            x = x + TP.leave(L.cross_decode_attention(p["xattn"], cfg, hx, xk, xv), tpc, False,
+                             _sharded(p["xattn"]["wo"], cfg.n_heads * cfg.head_dim))
         out, partial = _ffn(p, cfg, L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc)
         return x + TP.leave(out, tpc, False, partial), new_lc
 
@@ -632,12 +692,19 @@ def _sharded(w: torch.Tensor, whole: int) -> bool:
 
 
 def _local_heads(cfg: ModelConfig, q, k, v, tpc):
-    """q of a tp rank's own heads and the K/V heads they read (all of them
-    outside a tp context, or where the rank computes every head)."""
-    n = q.shape[2]
-    if tpc is None or n == cfg.n_heads:
-        return q, k, v
-    return (q, *L.local_kv(k, v, tpc.rank * n, n, cfg.n_heads // cfg.kv_heads))
+    """q of a tp rank's own heads and the K/V heads they read
+    (:func:`_local_kv`)."""
+    return (q, *_local_kv(cfg, q.shape[2], k, v, tpc))
+
+
+def _local_kv(cfg: ModelConfig, n: int, k, v, tpc):
+    """The K/V heads that a tp rank's ``n`` query heads read: k, v as they
+    are outside a tp context, where the rank computes every head, or where
+    they hold the rank's own K/V heads already (a cross-attention's ``wk``,
+    ``wv`` kept as the rank's shards)."""
+    if tpc is None or n == cfg.n_heads or k.shape[2] != cfg.kv_heads:
+        return k, v
+    return L.local_kv(k, v, tpc.rank * n, n, cfg.n_heads // cfg.kv_heads)
 
 
 def _vocab_offset(tpc, logits: torch.Tensor) -> int:
@@ -645,11 +712,33 @@ def _vocab_offset(tpc, logits: torch.Tensor) -> int:
     return 0 if tpc is None else tpc.rank * logits.shape[-1]
 
 
-def _mix(p, cfg: ModelConfig, attn: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:
+def _mix(p, cfg: ModelConfig, attn: torch.Tensor, ssm: torch.Tensor, tpc=None,
+         sp: bool = False, partial=(False, False)) -> torch.Tensor:
     """The hybrid block's branch output, 0.5·(rmsnorm(attn, bn_a) +
-    rmsnorm(ssm, bn_s))."""
+    rmsnorm(ssm, bn_s)), each norm over all of D.  With a tp context the
+    branches' outputs (over the whole sequence; each a partial sum over tp
+    where ``partial`` says its heads are split) are first brought to the
+    residual's layout (``TP.leave``): two partial sums in one collective,
+    stacked along the last dimension; the norms and the mix then run on
+    the rank's slice."""
+    if tpc is not None:
+        if all(partial):
+            attn, ssm = TP.leave(torch.cat([attn, ssm], -1), tpc, sp, True).chunk(2, -1)
+        else:
+            attn, ssm = (TP.leave(t, tpc, sp, part) for t, part in zip((attn, ssm), partial))
     return 0.5 * (L.rmsnorm(attn, p["bn_a"]["scale"], cfg.norm_eps)
                   + L.rmsnorm(ssm, p["bn_s"]["scale"], cfg.norm_eps))
+
+
+def _conv_tail(cfg: ModelConfig, conv: torch.Tensor, heads_split: bool, tpc,
+               out: bool = False) -> torch.Tensor:
+    """A hybrid layer's cached conv tail (B, 4, d_inner) where tp divides
+    d_inner but not the SSM heads (every rank runs every head, and the
+    rules keep the rank's slice of d_inner): gathered over tp for a step,
+    or (``out``) cut to the rank's slice; as it is elsewhere."""
+    if tpc is None or heads_split or not tpc.divides(cfg.n_heads * cfg.head_dim):
+        return conv
+    return TP.local_slice(conv, tpc, 2) if out else TP.gather(conv, tpc, 2)
 
 
 def _ring(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, span: int):

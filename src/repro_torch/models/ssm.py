@@ -32,6 +32,14 @@ log a in float32.  Three changes from the reference:
 - :func:`ssm_step` sums the conv's four products in ``_conv1d``'s order
   and dtype, so that a bf16 decode step rounds as the prefill does; the
   reference's step contracts them in one einsum.
+
+On a tp rank (``distributed/tp.py``) the branch runs on the rank's H/tp
+heads where tp divides them (:func:`local_view`): ``wx`` and ``conv`` hold
+its d_inner/tp columns, ``wB`` and ``wC`` its H/tp·N, ``wo`` its rows, and
+``wdt``'s columns, ``dt_bias``, ``A_log`` and ``Dskip`` are cut to its
+heads; the conv and the chunked scan run over the whole sequence, the
+decode state holds the rank's heads and columns, and the output is a
+partial sum over tp.  Elsewhere every rank runs every head.
 """
 from __future__ import annotations
 
@@ -69,6 +77,21 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, d_inner
     }
 
 
+def local_view(p, cfg: ModelConfig, tpc=None):
+    """(``p`` for a tp rank's SSM heads, whether the branch's output is then
+    a partial sum over tp): where ``wx`` holds the rank's columns only (a
+    whole number of heads of P), ``wdt``'s columns, ``dt_bias``, ``A_log``
+    and ``Dskip`` cut to its heads; else ``p`` and False (every head on
+    every rank)."""
+    H, (_, P) = _heads(cfg), p["Dskip"].shape
+    n = p["wx"].shape[1] // P
+    if tpc is None or n == H:
+        return p, False
+    h0 = tpc.rank * n
+    return {**p, "wdt": p["wdt"][:, h0:h0 + n], "dt_bias": p["dt_bias"][h0:h0 + n],
+            "A_log": p["A_log"][h0:h0 + n], "Dskip": p["Dskip"][h0:h0 + n]}, True
+
+
 def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv of x (B, S, D) with w (K, D):
     out_t = Σ_k w[K − 1 − k] · x_{t−k}, summed in k's order in x's dtype."""
@@ -83,9 +106,10 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _project(p, cfg: ModelConfig, u: torch.Tensor):
     """The conv's raw input u·wx (B, S, d_inner) in u's dtype, and the
     scan's inputs: x (B, S, H, P), B and C (B, S, H, N), dt and log a
-    (B, S, H), float32 (the reference's ``_inputs``)."""
+    (B, S, H), float32 (the reference's ``_inputs``); H the heads of ``p``
+    (a tp rank's, :func:`local_view`)."""
     B, S, _ = u.shape
-    H, N = _heads(cfg), cfg.ssm_state
+    H, N = p["A_log"].shape[0], cfg.ssm_state
     xin = u @ p["wx"]
     x = F.silu(_conv1d(xin, p["conv"]))
     x = x.reshape(B, S, H, x.shape[-1] // H).float()
@@ -182,9 +206,11 @@ def ssm_branch(p, cfg: ModelConfig, u: torch.Tensor, chunk=None, return_state: b
 
 def ssm_step(p, cfg: ModelConfig, u: torch.Tensor, state):
     """Decode: u (B, 1, D) and state {"h" (B, H, N, P), "conv" (B, 4,
-    d_inner)} → (out (B, 1, D), the state after this position)."""
+    d_inner)} → (out (B, 1, D), the state after this position); on a tp
+    rank's heads (:func:`local_view`) the state holds them and their
+    columns."""
     B = u.shape[0]
-    H, N = _heads(cfg), cfg.ssm_state
+    H, N = p["A_log"].shape[0], cfg.ssm_state
     xin = (u @ p["wx"])[:, 0]                                        # (B, d_inner)
     conv_buf = torch.cat([state["conv"][:, 1:], xin[:, None]], 1)
     # _conv1d's out_t = Σ_k w[K − 1 − k] · x_{t−k}, conv_buf[j] = x_{t−(K−1)+j}: the

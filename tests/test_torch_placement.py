@@ -9,7 +9,8 @@ built on ``meta`` (``launch.dryrun.OnMeta``) in the stacked layout; its
 decode cache holds per-layer leaves, held against the reference's
 stacked ones less the L axis (a hybrid's reference cache is per-layer
 too); the port's cross-attention k, v (an encoder–decoder's ``xk``,
-``xv``, which the reference recomputes) take the k rule.  Also:
+``xv``, which the reference recomputes) take the k rule's rows and their
+K/V heads over tp (as the tensor-parallel cross-attention holds them).  Also:
 ``to_placements``, ``elastic.plan_mesh``, the shapes of
 ``configs.cells``/``all_cells`` and ``steps.batch_specs``."""
 import functools
@@ -106,7 +107,9 @@ def test_cache_placement_equals_the_reference(arch, tag):
         for path, spec in got.items():
             parts = path.split("/")
             if parts[0] == "layers" and parts[-1] in ("xk", "xv"):     # the port's own
-                assert spec == got["/".join(parts[:-1] + ["k"])], path
+                tp = dict(zip(*reversed(MESHES[tag])))["model"]
+                heads = "model" if cfg.kv_heads % tp == 0 else None
+                assert spec == (got["/".join(parts[:-1] + ["k"])][0], None, heads, None), path
                 continue
             if parts[0] == "layers" and stacked:
                 ref = want["/".join(["layers"] + parts[2:])]

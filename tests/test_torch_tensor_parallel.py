@@ -26,18 +26,18 @@ head count, so every rank computes every head and takes its sequence
 slice of the output (``wq``, ``wo`` gathered; the MLP and vocab split).
 Each rank records its local shards' shapes: no rank holds a whole
 ``wq``, ``wo``, ``w_gate``, ``w_up``, ``w_down`` or head.  The smoke
-Hymba (a hybrid config: no tp context) on (2, 2) holds the gathered
-path on a tp axis of 2 (the tp ranks computing the same rows, each
-block's weights gathered whole, the gather's backward replicated over
-tp, decode on the cache gathered over tp) against the port in one
-process on the same weights (the port's init from seed 0), unplaced,
-with the same limits and checks (the port's Hymba is held against the
-reference by ``tests/test_torch_hymba*.py``).  A dry-run smoke cell beside the
+Hymba (a hybrid config) on (2, 2) holds its tensor-parallel path on a tp
+axis of 2 (both branches on the rank's heads, the meta tokens in the
+sequence-parallel stream, decode on the rank's slots and SSM heads)
+against the port in one process on the same weights (the port's init
+from seed 0), unplaced, with the same limits and checks (the port's
+Hymba is held against the reference by ``tests/test_torch_hymba*.py``,
+its tp path by ``tests/test_torch_tp_hybrid_encdec.py``).  A dry-run smoke cell beside the
 spawn: TinyLlama train_4k on (1, 4) does at most 1.5× the FLOPs a rank of
 (4, 1) (it did 4× before the blocks split over tp).  In this process:
 ``layers.local_kv`` gives each of a rank's query heads its GQA group's K/V
-head, and only a dense, MoE or RWKV config on a mesh with a "model" axis
-of more than one rank gets a tp context.
+head, and every config on a mesh with a "model" axis of more than one
+rank gets a tp context.
 
 This module imports no JAX at module level: the spawned ranks import it.
 """
@@ -70,13 +70,13 @@ ROOT = Path(__file__).resolve().parents[1]
 JOIN_TIMEOUT_S = 240.0
 ARCHS = ("tinyllama_1_1b", "qwen2_5_32b")
 SIX_HEADS = "qwen2_5_32b@6heads"    # 6 heads of 16 in 2 groups: tp 4 divides no head count
-GATHERED = "hymba_1_5b"             # no tp context: the gathered path, held against one process
+HYBRID = "hymba_1_5b"               # its tp path, held against the port in one process
 MESHES = ((1, 4), (2, 2))
 B, SEQ, ODD, DECODE = 4, 32, 30, 4
 LOSS_RTOL, GRAD_RTOL, LOGIT_RTOL = 1e-5, 1e-4, 1e-4
 # (arch, mesh, S): the cases each rank runs
 CASES = ([(a, m, SEQ) for a in ARCHS for m in MESHES]
-         + [("tinyllama_1_1b", (1, 4), ODD), (SIX_HEADS, (1, 4), SEQ), (GATHERED, (2, 2), SEQ)])
+         + [("tinyllama_1_1b", (1, 4), ODD), (SIX_HEADS, (1, 4), SEQ), (HYBRID, (2, 2), SEQ)])
 
 
 def _cfg(arch, configs=configs):
@@ -133,8 +133,8 @@ def _rank_main(rank, world, rdv, out_dir, spec):
         out = {"coord": {shape: tuple(m.get_coordinate()) for shape, m in meshes.items()}}
         for arch, shape, seq in CASES:
             out[(arch, shape, seq)] = _case(spec[arch], arch, meshes[shape], seq)
-        if rank == 0:                   # the gathered case's reference, off the parent's path
-            out["one_process"] = _one_process(GATHERED, spec[GATHERED])
+        if rank == 0:                   # the hybrid case's reference, off the parent's path
+            out["one_process"] = _one_process(HYBRID, spec[HYBRID])
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(out, fh)
     finally:
@@ -211,7 +211,7 @@ def runs(tmp_path_factory):
     try:
         models = {arch: _ref_model(arch) for arch in (*ARCHS, SIX_HEADS)}
         spec = {arch: convert.lm_stacked(rp, "cpu") for arch, (_, rp) in models.items()}
-        spec[GATHERED] = stack_layers(Model(_cfg(GATHERED), device="cpu").init(
+        spec[HYBRID] = stack_layers(Model(_cfg(HYBRID), device="cpu").init(
             torch.Generator().manual_seed(0)))
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_rank_main, args=(r, 4, str(tmp / "rdv"), str(tmp), spec))
@@ -237,7 +237,7 @@ def runs(tmp_path_factory):
         line = next(x for x in stdout.splitlines() if x.startswith("RESULT "))
     finally:
         dry.kill()
-    ref[GATHERED] = {**ranks[0]["one_process"], "params": spec[GATHERED]}
+    ref[HYBRID] = {**ranks[0]["one_process"], "params": spec[HYBRID]}
     return {"ref": ref, "ranks": ranks, "dry": json.loads(line[len("RESULT "):])}
 
 
@@ -321,11 +321,11 @@ def test_no_rank_holds_a_whole_split_weight(runs, shape):
 
 
 def test_tp_context_is_dense_only(monkeypatch):
-    """Dense, MoE and RWKV configs get a tp context on a mesh whose "model"
-    axis has more than one rank (the MoE and RWKV blocks' own tp paths:
-    ``tests/test_torch_tp_moe.py``, ``tests/test_torch_tp_rwkv.py``);
-    hybrid and encdec configs keep the gathered path; a mesh without a
-    "model" axis of more than one rank has no tp context."""
+    """Every config gets a tp context on a mesh whose "model" axis has more
+    than one rank (the MoE, RWKV, hybrid and encdec blocks' own tp paths:
+    ``tests/test_torch_tp_moe.py``, ``tests/test_torch_tp_rwkv.py``,
+    ``tests/test_torch_tp_hybrid_encdec.py``), their smoke configs too; a
+    mesh without a "model" axis of more than one rank has no tp context."""
     from repro_torch.distributed.sharding import AbstractMesh
 
     class _Mesh(AbstractMesh):
@@ -336,10 +336,9 @@ def test_tp_context_is_dense_only(monkeypatch):
     mesh1, mesh4 = _Mesh((4, 1), ("data", "model")), _Mesh((1, 4), ("data", "model"))
     for arch in ("dbrx_132b", "llama4_scout_17b_a16e", "hymba_1_5b", "seamless_m4t_medium",
                  "rwkv6_1_6b", "tinyllama_1_1b"):
-        cfg = configs.get(arch)
-        assert TP.context(mesh1, cfg) is None
-        split = cfg.kind in ("dense", "moe", "rwkv")
-        assert TP.context(mesh4, cfg) == (("tp", 1) if split else None), arch
+        for cfg in (configs.get(arch), configs.get_smoke(arch)):
+            assert TP.context(mesh1, cfg) is None
+            assert TP.context(mesh4, cfg) == ("tp", 1), arch
 
 
 def test_dry_run_flops_a_rank_split_over_tp(runs):
