@@ -319,9 +319,11 @@ Phases (any failure exits non-zero):
    builds the schema itself.  With the counts at 0, each rank runs (a)
    phase 2's trees compiled under the mesh, ``score_grouped`` by every
    table; (b) phase 2's fit config (5 trees, depth 3, sketch, no SSR)
-   on the first ``DP_FIT_ROWS`` = 2²⁰ of its 2²² fact rows (the whole
+   on the first ``DP_FIT_ROWS`` = 2¹⁸ of its 2²² fact rows (the whole
    table took 61-77 s over the host, most of it all-gathers of
-   fact-sized grouped outputs, whose bytes scale with the rows);
+   fact-sized grouped outputs, whose bytes scale with the rows; 2²⁰
+   took 19.7-22.1 s, 2¹⁹ 15.8 s, cut to 2¹⁸ for (d)'s time and phase 20
+   (d)'s (2, 1) part);
    (c) a ``MaintainedScorer`` through 4 ``delta_stream`` batches of 8
    ops (labels snapped), both roots after each; then, outside the count,
    the one-process fit and scorer.  Gates on every rank: (a) ``tot`` and
@@ -334,7 +336,29 @@ Phases (any failure exits non-zero):
    grouped output, each pass's ms against phase 2's, the fits' seconds,
    the delta batches' ms and the peak memory, and the phase's seconds.
    Two ranks sharing one card through the host measure correctness and
-   the collectives' host cost, not the speed of several cards.
+   the collectives' host cost, not the speed of several cards.  (d) The
+   WAL follower on the mesh (``serve_relational.open_mesh_follower``,
+   ``incremental.wal.MeshFollower``): before the spawn this process, a
+   one-process writer over phase 2's schema and model, applies phase 8's
+   batches 1-10 to a log, checkpointing after batch 8; after (a)-(c),
+   with the counts at 0, every rank loads the checkpoint rank 0 picked
+   and one round of broadcast records brings both to LSN 10; then, while
+   this process's writer thread applies batches 11-26 (one every 50 ms,
+   batch 17 growing dim0 by 2,048 rows: a capacity laid out again on the
+   mesh), rank 0 tails the log and broadcasts each poll, every rank
+   applies each record and scores both roots on the new version's
+   snapshot before rank 0's service may see it, and rank 0 serves
+   Zipf(1.3) requests with a degrade-only staleness objective.  Gates on
+   every rank: recovered at LSN 10 from checkpoint 8 and applied through
+   26, the writer's; at the checkpoint and after each record both roots
+   bit-equal to a one-process follower's (the checkpoint, then each
+   record alone); segment_sum launches = the rank's counter's edges; on
+   rank 0, 256 answers equal to the means of the version they were
+   served at, the staleness objective never ``unhealthy``, nothing shed
+   or failed.  Prints per rank the recovery's seconds, the apply ms and
+   the publication ms a record (p50/p99), the all-reduce, all-gather and
+   broadcast ms of the tail (spans), and rank 0's replication lag a
+   record (p50/p99).
 
 11. The paper's pipeline stage feeding LM training (the reference's
    ``examples/relational_data_pipeline.py``), on phase 4's resident star
@@ -422,8 +446,8 @@ Phases (any failure exits non-zero):
    ``launch/train.py``'s ``build`` and ``launch/steps.make_train_step``:
    global batch 8 × 2,048 tokens (2,176 positions a row with the 128 meta
    tokens), 8 microbatches, remat, count-sketch compression 8 with error
-   feedback, AdamW; ``HYMBA_STEPS`` = 2 steps (4 before phase 20 (d) needed
-   the time) after an untimed warm-up step.  Every training
+   feedback, AdamW; ``HYMBA_STEPS`` = 1 step (4 before phase 20 (d) needed
+   the time, 2 before its (2, 1) part) after an untimed warm-up step.  Every training
    attention's forward is the flash_attention kernel with the layer's
    window and its lse; its backward is the plain ``ref.block_attn_bwd``
    over the window's band (the reference has no backward kernel).  Gates:
@@ -562,7 +586,10 @@ Phases (any failure exits non-zero):
    returning None: each block's weights gathered whole, the ranks of a tp
    group computing the same rows; what the parent commit ran for these
    kinds), and their FLOPs a rank must stay below the gathered path's
-   (seamless's at most 1/8 of it), peak live bytes printed beside.  (d)
+   (seamless's at most 1/8 of it), peak live bytes printed beside.  DBRX's
+   cell runs again on a 1x16 mesh (one dp rank, the same tp): its FLOPs a
+   rank times its dp of 16 must stay within 1 + 1e-3 of that cell's (a
+   dp rank's expert buffer holds its own tokens' pairs alone).  (d)
    Tensor, sequence and expert parallelism on the card
    (``distributed/tp.py``, ``models/moe.moe_ffn_tp``, RWKV-6's heads,
    Hymba's attention and SSM heads, seamless's encoder and
@@ -612,7 +639,24 @@ Phases (any failure exits non-zero):
    largest distance to them.  Prints per rank and part the step ms,
    prefill ms, decode ms a token, peak memory, the shards' shapes, an
    MoE's experts held, drops and loads, and the bytes staged through the
-   host with the host seconds by stage.
+   host with the host seconds by stage.  Then the (2, 1) part
+   (``TP_DP``): DBRX-132B at full width cut to 1 layer, bf16, on a (2, 1)
+   mesh of the same two ranks (dp 2: each rank its slice of the
+   microbatch, ``sharding.place_batch``; every MoE route over the dp
+   group's whole microbatch, ``moe.route(..., dp=)``), one gradient stage
+   of a 4 × 2,048 microbatch at the training factor 1.25 and a 2 × 2,048
+   prefill at the serving factor 4.0, every route recorded (its router
+   input, choices, ranks, keep mask and C).  This process first runs the
+   one-process stage on the same weights and microbatch.  Gates: each
+   route call's C, ranks and keep mask equal to the one-process route of
+   the same microbatch's router inputs (the ranks' rows in dp order) with
+   the ranks' choices, and the choices its own top-k's but where two
+   probabilities tie within 1e-5; the remat recompute routed as its
+   forward; the stage's loss finite and within 1e-2 relative of the
+   one-process stage's; flash_attention twice in the stage and once in
+   the prefill on all 48 heads; the prefill's logits finite.  Prints the
+   pairs dropped at 1.25 (by rank: the later rows' first), the stage's
+   and the prefill's ms, bytes staged and peak memory.
 
 Prints the card's name and power limit, the build time, each phase's
 findings, a JSON line of kernel measurements, and as its last line
@@ -2888,22 +2932,22 @@ def stacked_ab(ops, schema, trees, ens, dev="cuda"):
     return out
 
 
-def follow_writer(ops, schema, trees, tmp, dev="cuda"):
-    """Phase 9(c): a WAL-follower replica of a live writer (module
-    docstring)."""
+def start_writer(schema, trees, wal_dir: str, checkpoint: int, last: int, dev):
+    """A one-process writer (phases 9 (c) and 10 (d)): a ``MaintainedScorer``
+    of ``schema`` and ``trees`` logging to a ``WalWriter`` in ``wal_dir``,
+    phase 8's batches 1..``last`` applied and both roots refreshed after
+    each, a checkpoint after batch ``checkpoint``.  Returns (writer, its WAL,
+    its batch step ``step(b)``, batch 17 growing dim0 by 2,048 rows)."""
     import os
 
     from repro_torch.core import QueryCounter
     from repro_torch.incremental import MaintainedScorer
     from repro_torch.incremental.recover import save_checkpoint
     from repro_torch.incremental.wal import WalWriter
-    from repro_torch.launch import serve_relational as sr
-    from repro_torch.serving import ModelRegistry, RelationalScoringService, compile_ensemble
+    from repro_torch.serving import compile_ensemble
 
-    roots = MAINTAIN_ROOTS
-    wal_dir = os.path.join(tmp, "wal")
     writer = MaintainedScorer(compile_ensemble(schema, trees), counter=QueryCounter())
-    for r in roots:
+    for r in MAINTAIN_ROOTS:
         writer.grouped_cached(r)
     wal = WalWriter(wal_dir, sync_every=8).attach(writer.state)
     rng, mint = np.random.default_rng(8), KeyMint(schema)   # phase 8's batches
@@ -2911,13 +2955,30 @@ def follow_writer(ops, schema, trees, tmp, dev="cuda"):
     def step(b):
         batch, _ = maintain_batch(rng, writer, mint, grow_rows=2048 if b == 17 else 0)
         writer.apply(batch)
-        for r in roots:
+        for r in MAINTAIN_ROOTS:
             writer.grouped_cached(r)
         sync(dev)
 
-    for b in range(1, FOLLOW_CHECKPOINT + 1):
+    for b in range(1, last + 1):
         step(b)
-    save_checkpoint(writer.state, os.path.join(wal_dir, "ckpt"))
+        if b == checkpoint:
+            save_checkpoint(writer.state, os.path.join(wal_dir, "ckpt"))
+    return writer, wal, step
+
+
+def follow_writer(ops, schema, trees, tmp, dev="cuda"):
+    """Phase 9(c): a WAL-follower replica of a live writer (module
+    docstring)."""
+    import os
+
+    from repro_torch.core import QueryCounter
+    from repro_torch.launch import serve_relational as sr
+    from repro_torch.serving import ModelRegistry, RelationalScoringService, compile_ensemble
+
+    roots = MAINTAIN_ROOTS
+    wal_dir = os.path.join(tmp, "wal")
+    writer, wal, step = start_writer(schema, trees, wal_dir, FOLLOW_CHECKPOINT,
+                                     FOLLOW_CHECKPOINT, dev)
     t0 = time.perf_counter()
     rcounter = QueryCounter()
     replica, follower, rep = sr.open_follower(compile_ensemble(schema, trees), wal_dir,
@@ -3061,7 +3122,9 @@ DP_WORLD = 2                       # ranks sharing the one card over gloo
 DP_ROOTS = ("fact", "dim0")
 DP_BATCHES, DP_OPS = 4, 8          # delta_stream batches and ops a batch, (c)
 DP_TIMEOUT_S = 600.0               # every rank joined within this, or the phase fails
-DP_FIT_ROWS = 1 << 20              # (b)'s fits: the first 2^20 of phase 2's fact rows
+DP_FIT_ROWS = 1 << 18              # (b)'s fits: the first 2^18 of phase 2's fact rows
+DP_FOLLOW = (8, 10, 26)            # (d): the writer's checkpoint, its LSN at recovery, its last
+DP_FOLLOW_ANSWERS = 256            # (d): rank 0's answers held to their versions' means
 
 
 def snap16(x):
@@ -3237,12 +3300,210 @@ def dp_work(rank: int, world: int, inp: dict, dev: str) -> dict:
     if launches != edges or launches == 0:
         raise AssertionError(f"{tag}: segment_sum launches {launches}, the counters' edges "
                              f"{edges}")
+    follow = dp_follow(rank, inp, mesh, schema, trees, roots, dev)
     return {"rank": rank, "schema_s": schema_s, "main_s": main_s, "pass_ms": pass_ms,
             "fit_s": fit_s, "fit_one_process_s": fit1_s, "batch_ms": batch_ms,
             "fit_rows": fit_schema.table("fact").n_rows,
             "launches": launches, "edges": edges, "collectives": coll, "peak_gib": peak_gib,
             "queries": {"scores": c_a.count, "fit": booster.counter.count,
-                        "maintain_edges": c_c.edges}}
+                        "maintain_edges": c_c.edges}, "follow": follow}
+
+
+def span_stats(events, name: str) -> dict:
+    """Count and p50/p99 ms of the tracer's ``name`` spans."""
+    ms_ = [e["dur_ms"] for e in events if e["name"] == name]
+    return {"n": len(ms_), "p50_ms": pctl(ms_, 50) if ms_ else None,
+            "p99_ms": pctl(ms_, 99) if ms_ else None}
+
+
+def follow_mesh_serve(served, follower, slo, extra, done: str, ids, dev):
+    """Phase 10 (d)'s traffic on rank 0 while the follower tails: chunks of
+    256 requests on the published versions until the writer is done and
+    the follower applied its last LSN; each chunk with the version before
+    and after it, and the SLO's states.  Returns (chunks, states, the
+    service's shed and failed requests, the writer's last LSN)."""
+    import os
+
+    from repro_torch.serving import ModelRegistry, RelationalScoringService
+
+    registry = ModelRegistry()
+    registry.publish(served)
+    svc = RelationalScoringService(registry, "fact", max_batch=64, max_wait_ms=1.0,
+                                   cache_size=4096, slo=slo, extra_staleness=extra)
+    chunks, states, final = [], [], [None]
+
+    async def go():
+        await svc.start()
+        k, deadline = 0, time.monotonic() + DP_TIMEOUT_S / 2
+        while final[0] is None or follower.applied_lsn < final[0]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"follow (d): the follower at lsn {follower.applied_lsn}, "
+                                     f"the writer's last {final[0]}")
+            if final[0] is None and os.path.exists(done):
+                final[0] = int(Path(done).read_text())
+            chunk = ids[(k * 256) % len(ids):][:256]
+            before = served.data_version
+            got = await svc.score_many(chunk.tolist())
+            chunks.append((before, chunk, np.asarray(got, np.float32), served.data_version))
+            rep_ = slo.evaluate()
+            states.append((rep_["state"], rep_["objectives"]["staleness"]["state"]))
+            k += 1
+            await asyncio.sleep(0.005)
+        await svc.stop()
+
+    asyncio.run(go())
+    return chunks, states, (svc.stats.shed, svc.stats.errors), final[0]
+
+
+def dp_follow(rank, inp, mesh, schema, trees, roots, dev) -> dict:
+    """Phase 10 (d) on one rank (module docstring): the writer's log
+    followed on the mesh (``serve_relational.open_mesh_follower``), rank 0
+    serving meanwhile, the counts at 0 before the recovery and read after
+    the stop; then the one-process follower and the gates."""
+    import os
+
+    from repro_torch.core import QueryCounter
+    from repro_torch.distributed import spmd
+    from repro_torch.incremental import MaintainedScorer
+    from repro_torch.incremental.recover import load_checkpoint
+    from repro_torch.incremental.wal import read_records, wal_path
+    from repro_torch.kernels.segment_sum import ops
+    from repro_torch.launch import serve_relational as sr
+    from repro_torch.obs import disable_tracing, enable_tracing, get_tracer
+    from repro_torch.serving import compile_ensemble
+
+    wal_dir, tmp = inp["wal_dir"], inp["tmp"]
+    ckpt, before, _ = DP_FOLLOW
+    seen, apply_ms, publish_ms, t_applied = {}, [], [], [None]
+    tag = f"follow (d) rank {rank}"
+
+    def on_publish(lsn, snap):
+        seen[lsn] = {r: [x.cpu() for x in snap.grouped_cached(r)] for r in roots}
+        if t_applied[0] is not None:
+            publish_ms.append((time.perf_counter() - t_applied[0]) * 1e3)
+
+    sync(dev)
+    enable_tracing(torch_annotations=False)
+    get_tracer().clear()
+    ops.reset_launches()                                   # the follower's path starts here
+    counter = QueryCounter()
+    t0 = time.perf_counter()
+    with spmd.use_data_mesh(mesh):
+        ens = compile_ensemble(schema, trees, counter=counter)
+    served, follower, rep = sr.open_mesh_follower(ens, wal_dir, 10.0, mesh, roots, counter,
+                                                  on_publish)
+    sync(dev)
+    recover_s = time.perf_counter() - t0
+    real_apply = follower.apply_fn
+
+    def timed_apply(deltas):
+        sync(dev)
+        t = time.perf_counter()
+        real_apply(deltas)
+        sync(dev)
+        t_applied[0] = time.perf_counter()
+        apply_ms.append((t_applied[0] - t) * 1e3)
+    follower.apply_fn = timed_apply
+    out = {"recovered_lsn": rep.recovered_lsn, "checkpoint_lsn": rep.checkpoint_lsn,
+           "replayed": rep.replayed, "recover_s": recover_s}
+    get_tracer().clear()                                   # the tail's collectives from here
+    Path(f"{tmp}/follow_ready{rank}").touch()
+    t0 = time.perf_counter()
+    if rank == 0:
+        slo = sr.make_slo("staleness=5s", follower=True)
+        extra = sr.follower_staleness(follower, grace_s=5.0)
+        n_rows = schema.table("fact").n_rows
+        ids = np.minimum(np.random.default_rng(3).zipf(1.3, 1 << 16) - 1, n_rows - 1)
+        follower.start()
+        try:
+            chunks, states, (shed, errors), final = follow_mesh_serve(
+                served, follower, slo, extra, f"{tmp}/follow_done", ids, dev)
+        finally:
+            follower.stop(drain=True)
+        lag = follower.apply_lag_s.summary()
+        out.update(lag_p50_s=lag["p50"], lag_p99_s=lag["p99"], lag_max_s=lag["max"])
+    else:
+        follower.run()
+        final = int(Path(f"{tmp}/follow_done").read_text())
+    sync(dev)
+    out.update(tail_s=time.perf_counter() - t0, applied_lsn=follower.applied_lsn,
+               rounds=follower.rounds, final_lsn=final)
+    launches, edges = ops.launches, counter.edges          # ... and ends here
+    events = list(get_tracer().events)
+    disable_tracing()
+    out["collectives"] = {k: span_stats(events, f"spmd.{k}")
+                          for k in ("all_reduce", "all_gather", "broadcast")}
+
+    with spmd.use_data_mesh(None):                         # the one-process follower
+        one = MaintainedScorer(compile_ensemble(schema, trees))
+        state, lsn, _ = load_checkpoint(schema, os.path.join(wal_dir, "ckpt"))
+        one.adopt_state(state)
+        want = {lsn: {r: [x.cpu() for x in one.grouped_cached(r)] for r in roots}}
+        for rec_lsn, deltas, _, _ in read_records(wal_path(wal_dir)):
+            if rec_lsn > lsn:
+                one.apply(deltas)
+                want[rec_lsn] = {r: [x.cpu() for x in one.grouped_cached(r)] for r in roots}
+    del one
+
+    if (rep.checkpoint_lsn, rep.recovered_lsn) != (ckpt, before):
+        raise AssertionError(f"{tag}: recovered {rep}, the writer checkpointed at {ckpt} and "
+                             f"stood at {before}")
+    if follower.applied_lsn != final or sorted(seen) != list(range(ckpt, final + 1)):
+        raise AssertionError(f"{tag}: applied through {follower.applied_lsn}, published "
+                             f"{sorted(seen)}, the writer's last lsn {final}")
+    for lsn, got in seen.items():
+        for r in roots:
+            if not all(torch.equal(a, b) for a, b in zip(got[r], want[lsn][r])):
+                raise AssertionError(f"{tag}: {r} at lsn {lsn} differs from the one-process "
+                                     f"follower's")
+    if launches != edges or launches == 0:
+        raise AssertionError(f"{tag}: segment_sum launches {launches}, the counter's edges "
+                             f"{edges}")
+    out.update(launches=launches, edges=edges, apply_ms=apply_ms, publish_ms=publish_ms)
+    if rank == 0:
+        checked = 0
+        for v0, ids_, got, v1 in chunks:
+            if v0 != v1 or checked >= DP_FOLLOW_ANSWERS:
+                continue
+            tot, cnt = seen[v0]["fact"]
+            mean = (tot / torch.clamp(cnt, min=1.0))[torch.from_numpy(ids_)].numpy()
+            bad = int(np.sum(got != mean))
+            if bad:
+                raise AssertionError(f"{tag}: {bad} of {len(ids_)} answers at version {v0} "
+                                     f"differ from its means")
+            checked += len(ids_)
+        stale = sorted(set(s for _, s in states))
+        if checked < DP_FOLLOW_ANSWERS or "unhealthy" in stale or shed or errors:
+            raise AssertionError(f"{tag}: {checked} answers checked, staleness {stale}, shed "
+                                 f"{shed}, failed {errors}")
+        out.update(answered=sum(len(c[1]) for c in chunks), checked=checked,
+                   slo_states=sorted(set(s for s, _ in states)), staleness_states=stale)
+    return out
+
+
+def follow_writer_tail(wal, step, tmp: str, procs, ms: list, errors: list) -> None:
+    """Phase 10 (d)'s live writes, on a thread of this process: once every
+    rank has recovered, batches ``DP_FOLLOW[1]`` + 1..``DP_FOLLOW[2]``, one
+    every ``FOLLOW_PERIOD_S``, then the log closed and its last LSN
+    written to ``follow_done``."""
+    import os
+
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while not all(os.path.exists(f"{tmp}/follow_ready{r}") for r in range(DP_WORLD)):
+            if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                return
+            time.sleep(0.05)
+        t_start = time.perf_counter()
+        for k, b in enumerate(range(DP_FOLLOW[1] + 1, DP_FOLLOW[2] + 1)):
+            time.sleep(max(0.0, t_start + k * FOLLOW_PERIOD_S - time.perf_counter()))
+            t = time.perf_counter()
+            step(b)
+            ms.append((time.perf_counter() - t) * 1e3)
+        wal.close()
+        Path(f"{tmp}/follow_done").write_text(str(DP_FOLLOW[2]))
+    except BaseException as e:           # noqa: BLE001 — re-raised on the main thread
+        errors.append(e)
 
 
 def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
@@ -3254,17 +3515,26 @@ def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        wal_dir = f"{tmp}/wal"
+        t1 = time.perf_counter()
+        writer, wal, step = start_writer(schema, trees, wal_dir, *DP_FOLLOW[:2], dev)
+        writer_start_s = time.perf_counter() - t1
         with open(f"{tmp}/inputs.pkl", "wb") as fh:
             pickle.dump({"tables": [(t.name, t.columns, t.feature_columns)
                                     for t in schema.tables],
                          "label": (schema.label_table, schema.label_column),
                          "trees": [(t.feat.cpu(), t.thr.cpu(), t.leaf.cpu()) for t in trees],
-                         "scores": {n: [x.cpu() for x in v] for n, v in scores.items()}}, fh)
+                         "scores": {n: [x.cpu() for x in v] for n, v in scores.items()},
+                         "wal_dir": wal_dir, "tmp": tmp}, fh)
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=dp_rank, args=(r, DP_WORLD, tmp, dev))
                  for r in range(DP_WORLD)]
         for p in procs:
             p.start()
+        writer_ms, errors = [], []
+        tail = threading.Thread(target=follow_writer_tail, name="wal-writer",
+                                args=(wal, step, tmp, procs, writer_ms, errors))
+        tail.start()
         deadline = time.monotonic() + DP_TIMEOUT_S
         while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
             if any(p.exitcode not in (None, 0) for p in procs):
@@ -3274,13 +3544,21 @@ def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
             if p.is_alive():
                 p.kill()
             p.join(30)
+        tail.join()
         codes = [p.exitcode for p in procs]
+        if errors:
+            raise errors[0]
         if codes != [0] * DP_WORLD:
             raise AssertionError(f"data parallel: ranks exited with {codes} (a kill: one "
                                  f"failed, or {DP_TIMEOUT_S:.0f} s passed)")
         ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(DP_WORLD)]
+        if writer.data_version != DP_FOLLOW[2]:
+            raise AssertionError(f"follow (d): the writer at lsn {writer.data_version}")
+        del writer, wal, step
     out = {"seconds": time.perf_counter() - t0, "ranks": ranks,
            "launches": sum(r["launches"] for r in ranks),
+           "follow_launches": sum(r["follow"]["launches"] for r in ranks),
+           "writer_start_s": writer_start_s, "writer_ms": writer_ms,
            "phase2_pass_ms": {n: serve_times[f"score_grouped_{n}_s"] * 1e3 for n in scores}}
     for r in ranks:
         c = r["collectives"]
@@ -3297,7 +3575,27 @@ def phase_data_parallel(schema, trees, scores, serve_times, dev="cuda"):
             + ", ".join(f"{n} {r['pass_ms'][n]:.3f} / {out['phase2_pass_ms'][n]:.3f}"
                         for n in r["pass_ms"]))
         log(f"    delta batches ms: {[round(x, 3) for x in r['batch_ms']]}")
-    log(f"  phase 10 took {out['seconds']:.1f}s; gates (a)-(c) held on every rank")
+        f = r["follow"]
+        c = f["collectives"]
+        log(f"    follow (d): recovered at lsn {f['recovered_lsn']} (checkpoint "
+            f"{f['checkpoint_lsn']} + {f['replayed']} by broadcast) in {f['recover_s']:.2f} s, "
+            f"applied through lsn {f['applied_lsn']} in {f['tail_s']:.2f} s ({f['rounds']} "
+            f"rounds); apply ms a record p50 {pctl(f['apply_ms'], 50):.1f} / p99 "
+            f"{pctl(f['apply_ms'], 99):.1f}, publish (both roots scored) p50 "
+            f"{pctl(f['publish_ms'], 50):.1f} / p99 {pctl(f['publish_ms'], 99):.1f}; "
+            f"segment_sum launches {f['launches']} = edges {f['edges']}; all-reduce "
+            f"{c['all_reduce']}, all-gather {c['all_gather']}, broadcast {c['broadcast']}")
+        if r["rank"] == 0:
+            log(f"      rank 0: replication lag a record p50 {f['lag_p50_s'] * 1e3:.1f} / p99 "
+                f"{f['lag_p99_s'] * 1e3:.1f} ms (max {f['lag_max_s'] * 1e3:.1f}); "
+                f"{f['answered']} requests answered during the tail, {f['checked']} held to "
+                f"their versions' means; SLO states {f['slo_states']}, staleness "
+                f"{f['staleness_states']}")
+    log(f"  follow (d): the writer's first {DP_FOLLOW[1]} batches and checkpoint "
+        f"{out['writer_start_s']:.2f} s, its live batches p50 {pctl(out['writer_ms'], 50):.1f} / "
+        f"p99 {pctl(out['writer_ms'], 99):.1f} ms; every rank bit-equal to the one-process "
+        f"follower after each record")
+    log(f"  phase 10 took {out['seconds']:.1f}s; gates (a)-(d) held on every rank")
     return out
 
 
@@ -3474,7 +3772,7 @@ def phase_rwkv_train(wops, cops, other_ops, weights, steps: int = 4, batch: int 
 
 RWKV_STEPS = 2                     # phase 11(b)'s timed steps (cut from 4 for phase 20 (d)'s time)
 HYMBA_TRAIN_KINDS = ("ssm_branch", "attention_bwd")    # record_function ranges, phase 14
-HYMBA_STEPS = 2                    # phase 14's timed steps (cut from 4 for phase 20 (d)'s time)
+HYMBA_STEPS = 1                    # phase 14's timed steps (cut from 4, then 2, for phase 20 (d)'s time)
 
 
 def phase_hymba_train(fops, cops, other_ops, sketch_shapes, steps: int = 4, batch: int = 8,
@@ -3722,12 +4020,12 @@ def moe_twin(fops, arch, dev="cuda", seq=2048):
     del g
     replay, untied, route = iter(rec_k.calls), [0, 0], rec_k._route
 
-    def replaying(p, cfg_, xt, capacity_factor=None):
+    def replaying(p, cfg_, xt, capacity_factor=None, dp=None):
         expert = next(replay)[0]
         with torch.no_grad():
-            untied[0] += int((route(p, cfg_, xt, capacity_factor).expert != expert).sum())
+            untied[0] += int((route(p, cfg_, xt, capacity_factor, dp=dp).expert != expert).sum())
         untied[1] += expert.numel()
-        return route(p, cfg_, xt, capacity_factor, expert=expert)
+        return route(p, cfg_, xt, capacity_factor, expert=expert, dp=dp)
     fops.reset_launches()
     with swapped(fops, "flash_attention_gqa", plain_attention), swapped(moe, "route", replaying):
         g, loss_p = grads(params, {"tokens": toks})
@@ -3972,6 +4270,10 @@ DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", "16x16"), ("llama3_405b", "decode
 # below as a share of it
 DRYRUN_GATHERED = {("hymba_1_5b", "train_4k", "16x16"): 1.0,
                    ("seamless_m4t_medium", "train_4k", "16x16"): 1 / 8}
+# cells also run on a mesh with one dp rank at the same tp, whose FLOPs a rank, over the cell's
+# dp, they must not exceed: an MoE rank's expert buffer holds its own tokens' pairs alone
+DRYRUN_DP_ONE = {("dbrx_132b", "prefill_32k", "16x16"): "1x16"}
+DRYRUN_DP_RTOL = 1e-3
 _GATHERED_CELL = ("import sys; from repro_torch.distributed import tp; "
                   "tp.context = lambda mesh, cfg: None; from repro_torch.launch import dryrun; "
                   "sys.exit(dryrun.main(sys.argv[1:]))")
@@ -4028,7 +4330,8 @@ def dryrun_start() -> tuple:
     ``launch/dryrun.py``'s CLI in a subprocess of its own (a fake process
     group of 256 or 512 ranks, within ``DRYRUN_TIMEOUT_S``), side by side,
     and each of ``DRYRUN_GATHERED`` again with ``tp.context`` returning
-    None (the gathered path: no tensor parallelism).
+    None (the gathered path: no tensor parallelism), and each of
+    ``DRYRUN_DP_ONE`` again on its mesh of one dp rank.
     They need no card, so ``main`` starts them before phase 1 and
     :func:`dryrun_cells` collects them; the processes and their directory
     go when this process exits.  Returns (directory, processes, start)."""
@@ -4039,6 +4342,7 @@ def dryrun_start() -> tuple:
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     os.makedirs(Path(tmp) / "gathered")
+    os.makedirs(Path(tmp) / "dp1")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     procs = []
     for arch, shape_name, tag in DRYRUN_CELLS:
@@ -4052,6 +4356,12 @@ def dryrun_start() -> tuple:
         with open(Path(tmp) / "gathered" / f"{arch}__{shape_name}__{tag}.out", "w") as out:
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", _GATHERED_CELL, "--out", str(Path(tmp) / "gathered"),
+                 "--cell", arch, shape_name, tag], stdout=out, stderr=subprocess.STDOUT,
+                env=env))
+    for (arch, shape_name, _), tag in DRYRUN_DP_ONE.items():
+        with open(Path(tmp) / "dp1" / f"{arch}__{shape_name}__{tag}.out", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(Path(tmp) / "dp1"),
                  "--cell", arch, shape_name, tag], stdout=out, stderr=subprocess.STDOUT,
                 env=env))
 
@@ -4069,15 +4379,18 @@ def dryrun_cells(started: tuple) -> list:
     ``arguments`` against the rules' sum, and on a training cell at least
     one all-gather a sharded leaf a microbatch; a cell of
     ``DRYRUN_GATHERED``'s FLOPs a rank at most its share of the gathered
-    path's, its peak live bytes beside."""
+    path's, its peak live bytes beside; a cell of ``DRYRUN_DP_ONE``'s FLOPs
+    a rank, times its dp, at most (1 + ``DRYRUN_DP_RTOL``) times those of
+    its mesh of one dp rank (they do not grow with dp)."""
     from repro_torch.launch import steps
 
     tmp, procs, t0 = started
     done = [(proc.wait(timeout=DRYRUN_TIMEOUT_S + 60), time.perf_counter() - t0)
             for proc in procs]
-    cells = [(c, Path(tmp)) for c in DRYRUN_CELLS] + [(c, Path(tmp) / "gathered")
-                                                      for c in DRYRUN_GATHERED]
-    out, gathered = [], {}
+    cells = ([(c, Path(tmp)) for c in DRYRUN_CELLS]
+             + [(c, Path(tmp) / "gathered") for c in DRYRUN_GATHERED]
+             + [((a, s, t), Path(tmp) / "dp1") for (a, s, _), t in DRYRUN_DP_ONE.items()])
+    out, gathered, dp1 = [], {}, {}
     for ((arch, shape_name, tag), where), (rc, wall) in zip(cells, done):
         path = where / f"{arch}__{shape_name}__{tag}.json"
         if rc != 0 or not path.exists():
@@ -4088,6 +4401,9 @@ def dryrun_cells(started: tuple) -> list:
         rec = json.loads(path.read_text())
         if where.name == "gathered":
             gathered[arch, shape_name, tag] = rec
+            continue
+        if where.name == "dp1":
+            dp1[arch, shape_name] = rec
             continue
         want = rule_bytes(arch, shape_name, tag)
         b, census, cost = rec["per_device_bytes"], rec["collectives"], rec["cost_analysis"]
@@ -4111,6 +4427,20 @@ def dryrun_cells(started: tuple) -> list:
         out.append({**rec, "rules": want, "subprocess_s": wall})
     for rec in out:
         cell = (rec["arch"], rec["shape"], rec["mesh"])
+        if cell in DRYRUN_DP_ONE:
+            one = dp1[cell[:2]]
+            dp = math.prod(int(x) for x in cell[2].split("x")[:-1])
+            flops, one_flops = (r["cost_analysis"]["flops_per_device"] for r in (rec, one))
+            rec["dp_one"] = {k: one[k] for k in ("mesh", "per_device_bytes", "cost_analysis",
+                                                  "lower_s")}
+            log(f"  dry run {' x '.join(cell)} against {one['mesh']} (one dp rank): flops a rank "
+                f"x dp {flops * dp:.4e} / {one_flops:.4e} = {flops * dp / one_flops:.6f} (limit "
+                f"{1 + DRYRUN_DP_RTOL}), peak live "
+                f"{rec['per_device_bytes']['peak_live'] / 2 ** 30:.2f} / "
+                f"{one['per_device_bytes']['peak_live'] / 2 ** 30:.2f} GiB")
+            if not flops * dp <= (1 + DRYRUN_DP_RTOL) * one_flops:
+                raise AssertionError(f"dry run {cell}: flops a rank {flops} times dp {dp} above "
+                                     f"{one['mesh']}'s {one_flops}: they grow with dp")
         if cell not in gathered:
             continue
         g = gathered[cell]
@@ -4294,14 +4624,15 @@ TP_NOISE = 2.0                     # logits: within this times the plain bf16 mo
 # seq; None: none), its bf16 steps (layers, batch, seq, microbatches, compression; None: not
 # trained) and its serve (layers, batch, prompt).  An encoder-decoder's layers count its
 # encoder's too, and its seq and prompt are half frames, half tokens; Hymba's add its 128
-# meta positions.  TinyLlama cut from 22 layers to 2 (its twin from 4 to 2) for the time the
-# MoE, RWKV, hybrid and encoder-decoder parts take; DBRX trained on 1 layer (its state at 40
+# meta positions.  TinyLlama cut from 22 layers to 2 (its twin from 4 to 2 layers, then from 2
+# rows to 1) for the time the MoE, RWKV, hybrid and encoder-decoder parts and the (2, 1) part
+# take; DBRX trained on 1 layer (its state at 40
 # would not fit), the MoE LMs served on 2 (the stream crosses a block boundary), RWKV-6 on 4
 # of 24; Hymba trained on 2 of 32 (one global layer, one windowed) and served on 4 (one
 # global), seamless on 2 + 2 and 4 + 4 of 12 + 12, trained uncompressed (the sketch would
 # gather its 256k-vocab embedding and head whole through gloo every step).
 TP_PARTS = (
-    {"arch": "tinyllama_1_1b", "twin": (2, 2, 2048), "train": (2, 4, 2048, 4, 8),
+    {"arch": "tinyllama_1_1b", "twin": (2, 1, 2048), "train": (2, 4, 2048, 4, 8),
      "serve": (2, 8, 2048)},
     {"arch": "dbrx_132b", "twin": (1, 1, 2048), "train": (1, 4, 2048, 4, 0),
      "serve": (2, 1, 2048)},
@@ -4313,6 +4644,15 @@ TP_PARTS = (
     {"arch": "seamless_m4t_medium", "twin": (2, 2, 2048), "train": (2, 4, 2048, 4, 0),
      "serve": (4, 8, 2048)},
 )
+
+
+# Phase 20 (d)'s (2, 1) part: DBRX-132B at full width cut to 1 layer on a (2, 1) mesh (dp 2,
+# tp 1), each rank its slice of every microbatch and every MoE route over the dp group's whole
+# microbatch: one bf16 gradient stage of (batch, seq) at the training factor, a prefill of
+# (batch, seq) at the serving factor.
+TP_DP = {"arch": "dbrx_132b", "layers": 1, "train": (4, 2048), "serve": (2, 2048)}
+TP_DP_TIE = 1e-5                   # two router probabilities this close may order either way
+TP_DP_CALLS = ("stage forward", "stage remat recompute", "prefill")
 
 
 def tp_cfg(part, layers: int, **kw):
@@ -4435,12 +4775,35 @@ class RouteReplay:
 
         self.calls, self._route, self.untied, self.choices = iter(calls), moe.route, 0, 0
 
-    def __call__(self, p, cfg, xt, capacity_factor=None, expert=None, aux_rows=None):
+    def __call__(self, p, cfg, xt, capacity_factor=None, expert=None, aux_rows=None, dp=None):
         expert = next(self.calls)[0]
         with torch.no_grad():
-            self.untied += int((self._route(p, cfg, xt, capacity_factor).expert != expert).sum())
+            self.untied += int((self._route(p, cfg, xt, capacity_factor, dp=dp).expert
+                                != expert).sum())
         self.choices += expert.numel()
-        return self._route(p, cfg, xt, capacity_factor, expert=expert, aux_rows=aux_rows)
+        return self._route(p, cfg, xt, capacity_factor, expert=expert, aux_rows=aux_rows, dp=dp)
+
+
+class DpRouteLog:
+    """A recording stand-in for ``models/moe.route`` on a dp rank: each
+    call's router input (on the host), factor, dp group and its C,
+    choices, ranks and keep mask; the router's weights once (layer 0's:
+    the only layer of ``TP_DP``)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.calls, self.router, self._route = [], None, moe.route
+
+    def __call__(self, p, cfg, xt, capacity_factor=None, expert=None, aux_rows=None, dp=None):
+        r = self._route(p, cfg, xt, capacity_factor, expert=expert, aux_rows=aux_rows, dp=dp)
+        if self.router is None:
+            self.router = p["router"].detach().cpu()
+        self.calls.append({"xt": xt.detach().cpu(), "factor": capacity_factor,
+                           "dp": None if dp is None else [dp.rank, dp.size],
+                           "expert": r.expert.cpu(), "rank": r.rank.cpu(), "keep": r.keep.cpu(),
+                           "capacity": r.capacity})
+        return r
 
 
 def tp_twin(mesh, part, dev):
@@ -4646,6 +5009,148 @@ def tp_serve(mesh, part, inp, ops, seen, dev):
     return rec, served
 
 
+def tp_dp_part(ops, seen, dev):
+    """The (2, 1) part on one rank (module docstring): ``TP_DP``'s gradient
+    stage and prefill on a (2, 1) mesh, the counts at 0 before each and
+    read after, every route recorded.  Returns (the record, the routes)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import tp as TPM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import Model, moe
+    from repro_torch.optim import adamw
+
+    mesh = init_device_mesh(dev, (TP_WORLD, 1), mesh_dim_names=("data", "model"))
+    cfg = tp_cfg(TP_DP, TP_DP["layers"])
+    model = Model(cfg, device=dev)
+    params = tp_weights(cfg, dev)
+    placed = S.place(params, S.param_shardings(mesh, params))
+    del params
+    empty(dev)
+    B, seq = TP_DP["train"]
+    batch = S.place_batch(mesh, tp_batch(cfg, B, seq, 13, dev), 1)
+    routes = DpRouteLog()
+    for s in seen:
+        s.take()
+    tp_reset(dev, *ops)                                                 # the stage starts here
+    sync(dev)
+    t0 = time.perf_counter()
+    with swapped(moe, "route", routes):
+        g, loss = ST.make_train_step(model, adamw.AdamWConfig(), 1).grads(placed, batch)
+    sync(dev)
+    rec = {"stage_s": time.perf_counter() - t0, "loss": float(loss),
+           "stage_launches": tp_counts(*ops), "stage_heads": {s.name: s.take() for s in seen},
+           "stage_staged_bytes": TPM.staged_bytes, "stage_host_s": dict(TPM.host_seconds),
+           "stage_peak_bytes": torch.cuda.max_memory_allocated() if dev == "cuda" else 0,
+           "local_rows": batch["tokens"].to_local().shape[0]}
+    del g, batch
+    empty(dev)
+    B, seq = TP_DP["serve"]
+    batch = S.place_batch(mesh, tp_batch(cfg, B, seq, 11, dev))
+    tp_reset(dev, *ops)                                                 # the prefill starts here
+    sync(dev)
+    t0 = time.perf_counter()
+    with swapped(moe, "route", routes):
+        logits, cache = ST.placed_prefill(model, placed, batch)
+    sync(dev)
+    rec.update(prefill_s=time.perf_counter() - t0, prefill_launches=tp_counts(*ops),
+               prefill_heads={s.name: s.take() for s in seen},
+               prefill_staged_bytes=TPM.staged_bytes,
+               prefill_finite=bool(torch.isfinite(logits.to_local()[:, :cfg.vocab]).all()))
+    del placed, batch, logits, cache
+    empty(dev)
+    return rec, {"calls": routes.calls, "router": routes.router}
+
+
+def tp_dp_check(ranks, routes, dev) -> tuple:
+    """The (2, 1) part's gates on the ranks' records: every route call's
+    C, ranks and keep mask those of the one-process route of the same
+    microbatch's router inputs (the ranks' rows in dp order) with the
+    ranks' choices, and those choices its own top-k's but where two
+    probabilities tie within ``TP_DP_TIE``; the forward and its remat
+    recompute routed alike; the stage's loss finite and within
+    ``TP_LOSS_RTOL`` of the one-process stage's; flash_attention twice in
+    the stage and once in the prefill, on all 48 heads.  Returns (what it
+    printed as a dict, the failures)."""
+    from repro_torch.models import moe
+
+    cfg = tp_cfg(TP_DP, TP_DP["layers"])
+    bad, calls = [], []
+    for i, parts in enumerate(zip(*(r["calls"] for r in routes))):
+        xt = torch.cat([c["xt"] for c in parts]).to(dev)
+        mine = {k: torch.cat([c[k] for c in parts]) for k in ("expert", "rank", "keep")}
+        p = {"router": routes[0]["router"].to(dev)}
+        with torch.no_grad():
+            own = moe.route(p, cfg, xt, parts[0]["factor"])
+            replay = moe.route(p, cfg, xt, parts[0]["factor"], expert=mine["expert"].to(dev))
+            probs = torch.softmax(xt.float() @ p["router"], -1)
+        differ = (own.expert.cpu() != mine["expert"]).any(1)
+        top = torch.sort(probs[differ.to(dev)], -1, descending=True).values
+        gaps = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]).cpu() if len(top) else torch.zeros(0)
+        rec = {"call": i, "what": TP_DP_CALLS[i] if i < len(TP_DP_CALLS) else f"call {i}",
+               "factor": parts[0]["factor"] or cfg.capacity_factor,
+               "tokens": xt.shape[0], "capacity": [c["capacity"] for c in parts],
+               "one_process_capacity": replay.capacity, "dp": [c["dp"] for c in parts],
+               "dropped_pairs": int((~replay.keep).sum()),
+               "dropped_by_rank": [int((~c["keep"]).sum()) for c in parts],
+               "choices_differing": int(differ.sum())}
+        calls.append(rec)
+        if any(c["capacity"] != replay.capacity for c in parts):
+            bad.append(f"dp route {i}: capacities {rec['capacity']}, one process "
+                       f"{replay.capacity}")
+        if not (torch.equal(replay.rank.cpu(), mine["rank"])
+                and torch.equal(replay.keep.cpu(), mine["keep"])):
+            bad.append(f"dp route {i}: ranks or keep mask differ from the one-process route's")
+        if len(gaps) and float(gaps.max()) > TP_DP_TIE:
+            bad.append(f"dp route {i}: {rec['choices_differing']} choices differ, gap "
+                       f"{float(gaps.max())}")
+    for r, rt in zip(ranks, routes):
+        d, tag = r["dp"], f"tp (2, 1) rank {r['rank']}"
+        fwd, again = rt["calls"][0], rt["calls"][1]
+        if not (torch.equal(fwd["expert"], again["expert"])
+                and torch.equal(fwd["keep"], again["keep"])):
+            bad.append(f"{tag}: the remat recompute routed otherwise than its forward")
+        if len(rt["calls"]) != len(TP_DP_CALLS):
+            bad.append(f"{tag}: {len(rt['calls'])} route calls, expected 3")
+        want_stage, want_prefill = {"flash_attention": 2}, {"flash_attention": 1}
+        got_stage = {k: v for k, v in d["stage_launches"].items() if v}
+        got_prefill = {k: v for k, v in d["prefill_launches"].items() if v}
+        if (got_stage != want_stage or got_prefill != want_prefill
+                or d["stage_heads"]["flash_attention_gqa"] != [cfg.n_heads]):
+            bad.append(f"{tag}: launches {got_stage} / {got_prefill} on heads "
+                       f"{d['stage_heads']}")
+        if not math.isfinite(d["loss"]) or abs(d["loss"] - d["plain_loss"]) > (
+                TP_LOSS_RTOL * abs(d["plain_loss"])):
+            bad.append(f"{tag}: loss {d['loss']} against the one-process stage's "
+                       f"{d['plain_loss']}")
+        if not d["prefill_finite"]:
+            bad.append(f"{tag}: the prefill's logits are not finite")
+    return calls, bad
+
+
+def tp_dp_reference(dev) -> dict:
+    """The (2, 1) part's one-process gradient stage on the same weights and
+    microbatch (its loss), in this process before the ranks start."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+
+    cfg = tp_cfg(TP_DP, TP_DP["layers"])
+    B, seq = TP_DP["train"]
+    model, base = Model(cfg, device=dev), tp_weights(cfg, dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    g, loss = make_train_step(model, adamw.AdamWConfig(), 1).grads(
+        base, tp_batch(cfg, B, seq, 13, dev))
+    sync(dev)
+    out = {"loss": float(loss), "stage_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated() if dev == "cuda" else 0}
+    del g, base
+    empty(dev)
+    return out
+
+
 def tp_rank(rank: int, world: int, tmp: str, dev: str) -> None:
     """One rank of phase 20 (d): joins the gloo group, runs its work and
     writes its record (and rank 0 its served logits)."""
@@ -4662,9 +5167,10 @@ def tp_rank(rank: int, world: int, tmp: str, dev: str) -> None:
     try:
         with open(f"{tmp}/inputs.pkl", "rb") as fh:
             inp = pickle.load(fh)
-        out, logits = tp_work(rank, world, inp, dev)
+        out, logits, routes = tp_work(rank, world, inp, dev)
         if rank == 0:
             torch.save(logits, f"{tmp}/logits.pt")
+        torch.save(routes, f"{tmp}/dp_routes{rank}.pt")
         with open(f"{tmp}/rank{rank}.json", "w") as fh:
             json.dump(out, fh)
     finally:
@@ -4706,10 +5212,14 @@ def tp_work(rank: int, world: int, inp: dict, dev: str):
                                       "serve": time.perf_counter() - t2})
             empty(dev)
             log(f"  rank {rank}: {part['arch']} done, seconds {rec['seconds']}")
+        t0 = time.perf_counter()
+        out["dp"], routes = tp_dp_part(ops, seen, dev)
+        out["dp"]["seconds"] = time.perf_counter() - t0
+        log(f"  rank {rank}: the (2, 1) part done, seconds {out['dp']['seconds']:.1f}")
     finally:
         for s in seen:
             s.restore()
-    return out, served
+    return out, served, routes
 
 
 def empty(dev) -> None:
@@ -4803,6 +5313,9 @@ def phase_tp(dev="cuda") -> dict:
 
     t0 = time.perf_counter()
     ref = tp_references(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dp_ref = tp_dp_reference(dev)
     ref_s = time.perf_counter() - t0
     log(f"  phase 20 (d)'s references took {ref_s:.1f}s")
     with tempfile.TemporaryDirectory() as tmp:
@@ -4828,6 +5341,7 @@ def phase_tp(dev="cuda") -> dict:
                                  f"{TP_TIMEOUT_S:.0f} s passed)")
         ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(TP_WORLD)]
         served = torch.load(f"{tmp}/logits.pt")
+        dp_routes = [torch.load(f"{tmp}/dp_routes{r}.pt") for r in range(TP_WORLD)]
     out = {"mesh": [1, TP_WORLD], "transport": "gloo through the host", "references_s": ref_s,
            "steps": TP_STEPS, "decode": TP_DECODE, "parts": {}, "ranks": ranks}
     bad = []
@@ -4907,6 +5421,32 @@ def phase_tp(dev="cuda") -> dict:
         if max(dist_tp) > TP_NOISE * noise or not all(math.isfinite(x) for x in dist_tp):
             bad.append(f"tp {arch}: served logits {dist_tp} from the float32 twin, past "
                        f"{TP_NOISE} x the plain model's {noise}")
+    for r in ranks:
+        r["dp"]["plain_loss"] = dp_ref["loss"]
+    dp_calls, dp_bad = tp_dp_check(ranks, dp_routes, dev)
+    bad += dp_bad
+    del dp_routes
+    out["dp"] = {"reference": dp_ref, "routes": dp_calls}
+    log(f"  (2, 1) {TP_DP['arch']} at {TP_DP['layers']} layer, full width, dp 2 over gloo "
+        f"through the host: the one-process stage's loss {dp_ref['loss']:.6f} "
+        f"({dp_ref['stage_s'] * 1e3:.1f} ms, peak {dp_ref['peak_bytes'] / 2 ** 30:.2f} GiB)")
+    for r in ranks:
+        d = r["dp"]
+        log(f"    rank {r['rank']}: {d['local_rows']} of {TP_DP['train'][0]} rows; gradient "
+            f"stage {d['stage_s'] * 1e3:.1f} ms, loss {d['loss']:.6f}, staged "
+            f"{d['stage_staged_bytes'] / 1e9:.2f} GB (host s "
+            f"{ {k: round(v, 2) for k, v in d['stage_host_s'].items()} }), peak "
+            f"{d['stage_peak_bytes'] / 2 ** 30:.2f} GiB; prefill {TP_DP['serve'][0]} x "
+            f"{TP_DP['serve'][1]} {d['prefill_s'] * 1e3:.1f} ms, staged "
+            f"{d['prefill_staged_bytes'] / 1e9:.2f} GB; launches "
+            f"{ {k: v for k, v in d['stage_launches'].items() if v} } / "
+            f"{ {k: v for k, v in d['prefill_launches'].items() if v} } on heads "
+            f"{d['stage_heads']}; {d['seconds']:.1f} s in all")
+    for c in dp_calls:
+        log(f"    route {c['call']} ({c['what']}) at factor {c['factor']} over {c['tokens']} tokens: C {c['capacity']} a rank, "
+            f"one process {c['one_process_capacity']}; pairs dropped {c['dropped_pairs']} "
+            f"({c['dropped_by_rank']} by rank), ranks and keep mask equal to the one-process "
+            f"route's; {c['choices_differing']} choices differ from its own top-k (ties)")
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 20 (d) took {out['seconds']:.1f}s (references {ref_s:.1f}s)")
     if bad:
@@ -5005,7 +5545,8 @@ def main() -> int:
     log(f"phase 10: phase 2's schema and model data-parallel over {DP_WORLD} ranks sharing "
         f"the one card over gloo (correctness and the collectives' host cost, not multi-card "
         f"speed); (b)'s fits on the first {DP_FIT_ROWS} of its {args.n_fact} fact rows (for phase "
-        f"20 (d)'s time)")
+        f"20 (d)'s time); (d) a WAL follower on the mesh, {DP_FOLLOW[2] - DP_FOLLOW[1]} records "
+        f"live")
     dp = phase_data_parallel(serve_schema, serve_trees, serve_scores, serve["times"])
     del serve_schema, serve_trees, serve_ens, serve_scores     # phases 5-7 run without them
     gc.collect()                          # a scorer and its snapshots hold each other
@@ -5078,7 +5619,8 @@ def main() -> int:
     host["phase 14"] = host_state("phase 14")
     log(f"phase 14: {hymba_cfg.name} training at full width and depth: global batch 8 x 2048 "
         f"(+{hymba_cfg.meta_tokens} meta positions a row), n_micro 8, count-sketch compression "
-        f"8, {HYMBA_STEPS} steps after a warm-up step (cut from 4 for phase 20 (d)'s time)")
+        f"8, {HYMBA_STEPS} step(s) after a warm-up step (cut from 4, then 2, for phase 20 (d)'s "
+        f"time)")
     hymba_train = phase_hymba_train(fops, cops, (ops, pops, wops), cshapes, steps=HYMBA_STEPS)
     moe_serve = []
     for arch, depth in MOE_SERVE:
@@ -5151,7 +5693,12 @@ def main() -> int:
         + "; ".join(f"{configs.get(p['arch']).name} ({configs.get(p['arch']).n_layers} layers) "
                     f"twin {p['twin']}, train {p['train']}, serve {p['serve']}"
                     for p in TP_PARTS)
-        + " (cut for the script's time: TinyLlama from 22 layers to 2, its twin from 4 to 2)")
+        + " (cut for the script's time: TinyLlama from 22 layers to 2, its twin from 4 to 2 "
+        "layers and 2 to 1 row)"
+        + f"; then a ({TP_WORLD}, 1) part: {configs.get(TP_DP['arch']).name} at "
+        f"{TP_DP['layers']} layer, a gradient stage of {TP_DP['train'][0]} x "
+        f"{TP_DP['train'][1]} and a prefill of {TP_DP['serve'][0]} x {TP_DP['serve'][1]}, "
+        f"every MoE route over the dp group's whole microbatch")
     placed["tp"] = phase_tp()
     tp0 = placed["tp"]["ranks"][0]["parts"]
     tp_l, tp_d, tp_s, tp_r, tp_h, tp_e = (tp0[a] for a in (

@@ -241,6 +241,39 @@ def batch_shardings(mesh, batch) -> Any:
     return unflatten(batch, [one(x) for x in leaves(batch)])
 
 
+def dp_rows(G: int, n_micro: int, dp: int, rank: int) -> List[int]:
+    """The global rows that dp rank ``rank`` of ``dp`` holds of a G-row
+    batch cut in ``n_micro`` microbatches: its slice of each microbatch,
+    the reference's microbatch j being rows [j·m, (j+1)·m), m = G/n_micro,
+    and rank r's slice of it rows [j·m + r·m/dp, j·m + (r+1)·m/dp).  In
+    that order, so ``steps.split_micro`` of the rank's rows gives its slice
+    of microbatch j as its j-th, and the dp group's slices of microbatch j
+    are the reference's microbatch j in dp-rank order."""
+    if G % n_micro or (G // n_micro) % dp:
+        raise ValueError(f"a batch of {G} rows in {n_micro} microbatches does not split "
+                         f"over {dp} dp ranks")
+    m = G // n_micro
+    k = m // dp
+    return [j * m + rank * k + i for j in range(n_micro) for i in range(k)]
+
+
+def place_batch(mesh, batch, n_micro: int = 1) -> Any:
+    """A global batch (the same on every rank) placed on ``mesh`` by
+    :func:`batch_shardings`, each dp rank holding the rows
+    :func:`dp_rows` gives it: each leaf whose rows split over dp is
+    reordered so that the DTensor's contiguous dp blocks are those rows
+    (its global tensor is the batch in that order)."""
+    shard = batch_shardings(mesh, batch)
+    dp = _axis_size(mesh, mesh_axes(mesh)["dp"])
+    out = []
+    for t, sh in zip(leaves(batch), leaves(shard)):
+        if dp > 1 and n_micro > 1 and sh.spec and sh.spec[0] is not None:
+            order = [i for r in range(dp) for i in dp_rows(t.shape[0], n_micro, dp, r)]
+            t = t[torch.tensor(order, device=t.device)]
+        out.append(t)
+    return place(unflatten(batch, out), shard)
+
+
 def cache_shardings(mesh, cache) -> Any:
     """A decode cache's leaves (the port's per-layer lists)."""
     return _by_rules(_CACHE_RULES, mesh, cache)

@@ -201,6 +201,23 @@ def psum_message(x: torch.Tensor, op: str = "sum",
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
+def broadcast_object(obj, mesh: Optional[DataMesh] = None):
+    """``obj`` (any picklable value) from the mesh's rank 0 to every rank:
+    a collective every rank calls, the others passing anything (None).
+    Identity when no mesh is active."""
+    m = _resolve(mesh)
+    if m is None:
+        return obj
+    box = [obj]
+    src = 0 if m.group is None else dist.get_global_rank(m.group, 0)
+    with span("spmd.broadcast"):
+        t0 = time.perf_counter()
+        dist.broadcast_object_list(box, src=src, group=m.group)
+        dt = time.perf_counter() - t0
+    get_registry().histogram("spmd.broadcast_ms").observe(dt * 1e3)
+    return box[0]
+
+
 def replicate(x: torch.Tensor, mesh: Optional[DataMesh] = None, row_axis: int = 0,
               rows: Optional[int] = None) -> torch.Tensor:
     """The whole tensor from this rank's row block: an all-gather of the

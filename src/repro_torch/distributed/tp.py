@@ -113,6 +113,45 @@ def axis(mesh, dim: int) -> TensorParallel:
                           dist.get_backend(mesh.get_group(dim)) == "gloo")
 
 
+@dataclasses.dataclass(frozen=True)
+class DataGroup:
+    """The dp ranks of one tp group, in dp-rank order: the mesh's dp
+    dimensions of more than one rank (``axes``, the major one first, as
+    ``sharding``'s dp entry splits the batch's rows over them)."""
+    axes: Tuple[TensorParallel, ...]
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axes:
+            n *= a.size
+        return n
+
+    @property
+    def rank(self) -> int:
+        r = 0
+        for a in self.axes:
+            r = r * a.size + a.rank
+        return r
+
+
+def data_group(mesh) -> Optional[DataGroup]:
+    """The dp group of this rank on ``mesh`` (None where no dp axis has
+    more than one rank)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    dims = [i for i, n in enumerate(names) if n in ("pod", "data") and mesh.size(i) > 1]
+    return DataGroup(tuple(axis(mesh, d) for d in dims)) if dims else None
+
+
+def gather_dp(x: torch.Tensor, dp: DataGroup) -> torch.Tensor:
+    """Every dp rank's ``x`` stacked in dp-rank order: (dp.size, *x.shape),
+    one all-gather a dp dimension, the minor one first."""
+    out = x[None]
+    for a in reversed(dp.axes):
+        out = gather(out, a, 0)
+    return out
+
+
 def context(mesh, cfg) -> Optional[TensorParallel]:
     """The tp context of a config on ``mesh``: None unless the mesh has a
     "model" axis of more than one rank and tp divides the padded vocab

@@ -36,6 +36,8 @@ Entry points:
   :class:`~repro_torch.incremental.maintain.MaintainedScorer` (factor rows
   re-evaluated for the recovered live slots; replay runs through
   ``scorer.apply`` so maintained factors stay exact).
+- :func:`recover_scorer_on_mesh` — every rank of a data mesh at the
+  checkpoint rank 0 chose; the log follows through a ``MeshFollower``.
 
 Checkpoint format 1 is the JAX package's: a checkpoint written by either
 package recovers in the other.
@@ -367,6 +369,38 @@ def recover_scorer(ens, wal_dir: str, ckpt_dir: Optional[str] = None,
     )
     _note_metrics(rep)
     return ms, rep
+
+
+def recover_scorer_on_mesh(ens, ckpt_dir: str, mesh, **scorer_kw
+                           ) -> Tuple["MaintainedScorer", int, int]:
+    """The recovery of a replica sharded over a data mesh (``ens``
+    compiled on it), each rank one process: rank 0 picks the newest valid
+    checkpoint in ``ckpt_dir`` (none where the directory is not there),
+    its LSN is broadcast, and every other rank loads that same checkpoint;
+    no rank replays the log here.  The log past the checkpoint
+    reaches every rank through a
+    :class:`~repro_torch.incremental.wal.MeshFollower`'s rounds instead,
+    rank 0 reading it and broadcasting its records, which every rank
+    applies at the same points.  A replay on each rank
+    (:func:`recover_scorer`'s) would stop wherever that rank found the end
+    of a log the writer is still appending, and the collectives of the
+    ranks' applies would then pair different records.  Returns (the
+    scorer at the checkpoint's LSN, that LSN (0 without one), the
+    checkpoints rank 0 skipped)."""
+    from ..distributed import spmd
+    from .maintain import MaintainedScorer
+
+    with spmd.use_data_mesh(mesh):
+        ms = MaintainedScorer(ens, **scorer_kw)
+    state, lsn, skipped = None, 0, 0
+    if mesh.rank == 0 and os.path.isdir(ckpt_dir):
+        state, lsn, skipped = load_checkpoint(ens.schema, ckpt_dir)
+    lsn, skipped = spmd.broadcast_object((lsn, skipped), mesh)
+    if mesh.rank != 0 and lsn:
+        state, _ = _load_one(ens.schema, os.path.join(ckpt_dir, f"ckpt_{lsn}"))
+    if state is not None:
+        ms.adopt_state(state)
+    return ms, lsn, skipped
 
 
 def _note_metrics(rep: RecoveryReport):

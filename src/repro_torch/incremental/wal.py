@@ -27,6 +27,10 @@ theirs (the machinery JoinBoost leans on, see PAPERS.md):
   keeps serving its last applied version while the log lags or the
   writer dies — replication lag is exported for the SLO staleness
   objective to burn against (degraded, not dead).
+- :class:`MeshFollower` — the follower of a replica sharded over a data
+  mesh: rank 0 reads the log and broadcasts each poll's records, and
+  every rank applies them at the same points (an apply runs
+  collectives).
 
 Attachment: ``WalWriter.attach(state)`` sets ``state.wal``;
 :meth:`DynamicState.apply` then logs every batch *under the existing
@@ -485,7 +489,15 @@ class WalFollower:
     def step(self) -> int:
         """One poll+apply round (also the synchronous test surface).
         Returns the number of records applied."""
-        records = self.reader.poll()
+        n = self._apply(self.reader.poll())
+        self._note_pending(self._unread())
+        return n
+
+    def _apply(self, records, tailing: bool = True) -> int:
+        """Apply a poll's records in LSN order (heartbeats and records at
+        or below ``start_lsn`` only move the writer's wall time); each
+        record's lag is observed only while ``tailing`` (not in a
+        recovery's replay)."""
         n = 0
         for lsn, deltas, tw in records:
             self._last_record_wall = max(self._last_record_wall or tw, tw)
@@ -496,17 +508,29 @@ class WalFollower:
                     f"follower lsn gap: {self.applied_lsn} → {lsn}")
             self.apply_fn(deltas)
             self.applied_lsn = lsn
-            self.apply_lag_s.observe(max(0.0, time.time() - tw))
+            self._applied(lsn)
+            if tailing:
+                self.apply_lag_s.observe(max(0.0, time.time() - tw))
             self._c_applied.inc()
             n += 1
-        try:                             # undrained tail (e.g. mid-write)?
+        return n
+
+    def _applied(self, lsn: int) -> None:
+        """Called after each record's apply (a subclass's hook)."""
+
+    def _unread(self) -> bool:
+        """Whether the log holds bytes past the reader's offset (a record
+        mid-write)."""
+        try:
             size = os.path.getsize(self.reader.path)
         except OSError:
             size = self.reader.offset
-        self._pending = size > self.reader.offset
+        return size > self.reader.offset
+
+    def _note_pending(self, pending: bool) -> None:
+        self._pending = pending
         self._g_lag.set(self.replication_lag_s())
         self._g_lsn.set(self.applied_lsn)
-        return n
 
     def _run(self):
         retry = self.backoff.clone()
@@ -545,3 +569,149 @@ class WalFollower:
             self.step()                  # pick up the final records
         if self.error is not None:
             raise self.error
+
+    def abort(self, error: BaseException) -> None:
+        """End the tail where the caller failed with ``error`` (which the
+        caller re-raises): the loop stops and the log is not drained."""
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self._thread = None
+
+
+class MeshFollower(WalFollower):
+    """A :class:`WalFollower` for a replica sharded over a data mesh
+    (``distributed.spmd``), each rank one process.  An apply, and the
+    scoring after it, run collectives, so every rank must apply the same
+    records at the same points: rank 0 alone reads the log, and each round
+    it polls once and broadcasts one message to the mesh's group (
+    ``spmd.broadcast_object``): the poll's records (LSN, deltas, the
+    writer's wall time; its heartbeats among them), or none (a heartbeat
+    of rank 0's own, which keeps the other ranks' wait short of the
+    group's timeout), or a stop.  Every rank applies the records in LSN
+    order through ``apply_fn`` and after each one calls ``publish(lsn)``
+    (the caller's warm-up of the served snapshot: its collectives too run
+    on every rank in the same order).
+
+    Rank 0 runs the rounds in its thread (:meth:`start`; :meth:`stop`
+    ends them with a last round that drains the log, then the stop); a
+    rank other than 0 runs them in :meth:`run`, which returns at the
+    stop.  :meth:`round` is one round on any rank (a catch-up before the
+    loops start).  The status (lag, writer idle) is rank 0's: the other
+    ranks see its records' wall times but not the log's size.  A poll
+    that meets a record mid-write or a transient error is retried with
+    the backoff, rounds of heartbeats going on meanwhile; once its budget
+    is spent the stop carries the error, and every rank raises it.  Where
+    rank 0 fails outside the rounds (its serving), :meth:`abort` sends the
+    stop with that error, so the other ranks raise it promptly where they
+    would wait for rounds that do not come."""
+
+    def __init__(self, wal_dir: str, apply_fn: Callable, mesh, start_lsn: int = 0,
+                 poll_interval_s: float = 0.01, backoff: Optional[Backoff] = None,
+                 publish: Optional[Callable[[int], None]] = None):
+        super().__init__(wal_dir, apply_fn, start_lsn, poll_interval_s, backoff)
+        self.mesh = mesh
+        self.publish = publish
+        self.lead = mesh.rank == 0
+        self.rounds = 0
+        self._drain = True
+        self._cause: Optional[BaseException] = None   # why rank 0 was aborted
+        self._stopped = False                          # a stop went out (or came in)
+
+    def _applied(self, lsn: int) -> None:
+        if self.publish is not None:
+            self.publish(lsn)
+
+    def round(self, stop: Optional[str] = None, recovery: bool = False) -> Optional[int]:
+        """One round on this rank: rank 0 polls (unless ``stop``, the
+        stop's error text or "" for a clean stop) and broadcasts, every
+        rank applies (``recovery``: a replay of the log up to where the
+        tail starts, its records' lag not observed, and a poll's error
+        raised on every rank: the log is damaged, not mid-write).  Returns
+        the records applied, None at a stop (a rank other than 0 raises the
+        error a stop carries)."""
+        from ..distributed import spmd
+
+        msg = None
+        if self.lead:
+            if stop is not None:
+                msg = {"stop": stop}
+            else:
+                try:
+                    msg = {"records": self.reader.poll(), "error": None}
+                except WalCorruptError as e:     # mid-write or damaged: retried
+                    msg = {"records": [], "error": repr(e)}
+        msg = spmd.broadcast_object(msg, self.mesh)
+        self.rounds += 1
+        if "stop" in msg:
+            self._stopped = True
+            if msg["stop"] and not self.lead:
+                raise RuntimeError(f"rank 0's follower stopped: {msg['stop']}")
+            return None
+        n = self._apply(msg["records"], tailing=not recovery)
+        if self.lead:
+            self._note_pending(self._unread())
+        if msg["error"] is not None and (self.lead or recovery):
+            raise WalCorruptError(msg["error"])
+        return n
+
+    def _run(self):
+        retry = self.backoff.clone()
+        try:
+            while not self._stop.is_set():
+                try:
+                    self.round()
+                    retry.reset()
+                    self._stop.wait(self.poll_interval_s)
+                except WalCorruptError:
+                    self._c_retries.inc()
+                    self._stop.wait(retry.next_delay())   # RuntimeError once spent
+            if self._drain:
+                self.round()                 # the records appended until the stop
+        except BaseException as e:           # noqa: BLE001 — carried by the stop, re-raised
+            self.error = e
+        finally:
+            why = self.error if self.error is not None else self._cause
+            self.round(stop="" if why is None else repr(why))
+
+    def start(self) -> "MeshFollower":
+        if not self.lead:
+            raise RuntimeError("only the mesh's rank 0 tails the log; the other ranks run()")
+        return super().start()
+
+    def stop(self, drain: bool = True):
+        """Rank 0: end the rounds (the last one draining the log where
+        ``drain``), broadcast the stop, and raise the loop's error if it
+        failed."""
+        self._drain = drain
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self._thread = None
+        if self.error is not None:
+            raise self.error
+
+    def abort(self, error: BaseException) -> None:
+        """Rank 0, where it failed outside the rounds with ``error`` (which
+        the caller re-raises): end the rounds without draining the log and
+        broadcast a stop that carries ``error``, unless a stop went out
+        already; every other rank then raises it."""
+        self._cause, self._drain = error, False
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self._thread = None
+        elif self.lead and not self._stopped:
+            self.round(stop=repr(error))
+
+    def run(self) -> int:
+        """A rank other than 0: apply every round rank 0 broadcasts until
+        its stop; returns the records applied."""
+        if self.lead:
+            raise RuntimeError("rank 0 tails the log in its thread: start()")
+        n = 0
+        while True:
+            got = self.round()
+            if got is None:
+                return n
+            n += got

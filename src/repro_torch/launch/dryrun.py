@@ -197,17 +197,17 @@ def run_cell(arch: str, shape_name: str, mesh_tag: str, smoke: bool = False) -> 
     if mode == "train":
         ocfg = adamw.AdamWConfig()
         opt = adamw.init(ocfg, params)
-        args = (P, S.place(opt, S.opt_shardings(mesh, pshard, opt)),
-                S.place(specs["batch"], S.batch_shardings(mesh, specs["batch"])))
         dp = math.prod(mesh.size(i) for i, n in enumerate(names) if n in ("pod", "data"))
         run = steps.make_train_step(model, ocfg, steps.n_micro(arch, G, dp))
+        args = (P, S.place(opt, S.opt_shardings(mesh, pshard, opt)),
+                S.place_batch(mesh, specs["batch"], run.n_micro))
     elif mode == "prefill":
-        args = (P, S.place(specs["batch"], S.batch_shardings(mesh, specs["batch"])))
+        args = (P, S.place_batch(mesh, specs["batch"]))
         run = lambda p, b: steps.placed_prefill(model, p, b)
     else:
         cache, tokens = specs["cache"], specs["tokens"]
         args = (P, S.place(cache, S.cache_shardings(mesh, cache)),
-                S.place(tokens, S.batch_shardings(mesh, tokens)))
+                S.place_batch(mesh, tokens))
         run = lambda p, c, t: steps.placed_decode(model, p, c, t)
     del params
     arguments = nbytes(args)

@@ -33,8 +33,20 @@ card a rank on CUDA).  Collectives run only where every rank runs the
 same program: the fit, the compile, and one bulk pass of the served
 table for the model and for the hot swap's model, all before traffic.
 Rank 0 alone then serves, and its requests read those replicated
-results.  ``--follow`` needs one process: a follower applies the log on
-its own clock, so the ranks' collectives would fall out of step.
+results.
+
+A follower on a mesh (``--mesh N --follow DIR``) is a replica sharded over
+the N ranks, and an apply and the scoring after it are collectives, so
+the ranks apply the log together (:func:`open_mesh_follower`): every rank
+loads the checkpoint rank 0 picked; rank 0 alone reads the log and
+broadcasts each poll's records, heartbeats and finally a stop
+(``incremental.wal.MeshFollower``); after each record every rank scores
+the served table on a snapshot of the new version, and only then does
+rank 0's service see that version (:class:`Published`), so a request
+reads cached results and no collective runs on its thread.  The other
+ranks stay in the follower's rounds until rank 0 stops it after the
+traffic.  Staleness, the degrade-only SLO and the exit report are rank
+0's.  Follow mode has no hot swap, so its swap model is not compiled.
 """
 from __future__ import annotations
 
@@ -93,6 +105,77 @@ def open_follower(ens, wal_dir: str, poll_ms: float, counter=None):
     follower = WalFollower(wal_dir, replica.apply, start_lsn=rep.recovered_lsn,
                            poll_interval_s=poll_ms / 1e3).start()
     return replica, follower, rep
+
+
+class Published:
+    """What rank 0's service serves in follow mode on a mesh: the
+    replica's newest snapshot whose grouped outputs of ``roots`` every
+    rank has already filled.  :meth:`publish` (every rank, after each
+    applied record, in the follower's rounds) scores the snapshot of the
+    current version, then makes it the one served; the service's batches
+    read it through :meth:`snapshot` and find its grouped outputs cached,
+    so they run no collective and never see a version whose scoring is
+    half done.  ``on_publish(lsn, snapshot)``: a caller's hook, after each
+    publication.  The surface is the one the service reads of a
+    maintained model: ``snapshot``, ``staleness_s``, ``data_version``,
+    ``n_rows``."""
+
+    def __init__(self, replica, roots, on_publish=None):
+        self.replica, self.roots, self.on_publish = replica, tuple(roots), on_publish
+        self._snap = None
+        self.publish()
+
+    def publish(self, lsn: Optional[int] = None) -> None:
+        snap = self.replica.snapshot(roots=self.roots)
+        for r in self.roots:
+            snap.grouped_cached(r)
+        self._snap = snap                       # the only thing rank 0's service reads
+        if self.on_publish is not None:
+            self.on_publish(snap.data_version if lsn is None else lsn, snap)
+
+    def snapshot(self, roots=None):
+        return self._snap
+
+    def staleness_s(self, root: Optional[str] = None) -> float:
+        return self.replica.staleness_s(root)
+
+    @property
+    def data_version(self) -> int:
+        return self._snap.data_version
+
+    def n_rows(self, table: str) -> int:
+        return self._snap.n_rows(table)
+
+
+def open_mesh_follower(ens, wal_dir: str, poll_ms: float, mesh, roots, counter=None,
+                       on_publish=None):
+    """A follower of ``wal_dir`` sharded over ``mesh`` (every rank calls
+    it, ``ens`` compiled on the mesh; module docstring): each rank loads
+    the checkpoint rank 0 picked (``recover_scorer_on_mesh``), then one
+    round of the :class:`~repro_torch.incremental.wal.MeshFollower`
+    applies the log past it on every rank, so every rank ends recovery at
+    the same LSN (a damaged log raises on every rank there: the round's
+    message carries the error).  ``roots``: the tables each publication
+    scores.  Returns
+    (the :class:`Published` view, the follower, its recovery report); rank
+    0 then ``start()``s the follower, the others ``run()`` it."""
+    from repro_torch.incremental.recover import RecoveryReport, recover_scorer_on_mesh
+    from repro_torch.incremental.wal import MeshFollower
+
+    t0 = time.perf_counter()
+    replica, ckpt_lsn, skipped = recover_scorer_on_mesh(ens, os.path.join(wal_dir, "ckpt"), mesh,
+                                                        counter=counter)
+    served = Published(replica, roots, on_publish)
+    follower = MeshFollower(wal_dir, replica.apply, mesh, start_lsn=ckpt_lsn,
+                            poll_interval_s=poll_ms / 1e3, publish=served.publish)
+    n = follower.round(recovery=True)           # the log past the checkpoint, on every rank
+    unread = 0
+    if follower.lead and os.path.exists(follower.reader.path):
+        unread = max(0, os.path.getsize(follower.reader.path) - follower.reader.offset)
+    rep = RecoveryReport(checkpoint_lsn=ckpt_lsn, recovered_lsn=follower.applied_lsn,
+                         replayed=n, tail_bytes_discarded=unread, checkpoints_skipped=skipped,
+                         replay_s=time.perf_counter() - t0)
+    return served, follower, rep
 
 
 def follower_staleness(follower, grace_s: float) -> Callable[[], float]:
@@ -308,10 +391,6 @@ def main(argv=None):
     add_device_args(ap)
     args = ap.parse_args(argv)
     mesh = resolve_mesh(args)
-    if args.follow and spmd.data_axis_size(mesh) > 1:
-        raise ValueError("--follow needs one process (--mesh 0 or 1): a follower applies "
-                         "the log on its own clock, so the ranks' collectives would fall "
-                         "out of step")
     lead = is_lead(mesh)
     with contextlib.nullcontext() if lead else contextlib.redirect_stdout(None):
         return _run(args, mesh, lead)
@@ -322,10 +401,11 @@ def _run(args, mesh, lead: bool):
     group = schema.label_table
     counter = QueryCounter()
     swap = None
+    sharded = spmd.data_axis_size(mesh) > 1
     with spmd.use_data_mesh(mesh):
         trees = train(schema, args)
         ens = compile_ensemble(schema, trees, counter=counter)
-        if spmd.data_axis_size(mesh) > 1:
+        if sharded and not args.follow:
             # every rank runs these bulk passes; the served requests then
             # read their replicated results and run no collective
             ens.grouped_cached(group)
@@ -333,28 +413,42 @@ def _run(args, mesh, lead: bool):
             swap.grouped_cached(group)
     print(f"compiled ensemble: {ens.n_trees} trees, {ens.total_leaves} stacked "
           f"leaves over {schema.n_tables} tables (group_by={group}) on {schema.device}"
-          + (f", data-parallel over {mesh.size} ranks ({mesh.backend})"
-             if swap is not None else ""))
-    if not lead:
-        return {"evals": counter.count}
-
+          + (f", data-parallel over {mesh.size} ranks ({mesh.backend})" if sharded else ""))
     follower = extra = None
     serve_model = ens
     if args.follow:
-        serve_model, follower, rep = open_follower(ens, args.follow, args.follow_poll_ms,
-                                                   counter)
+        if sharded:
+            serve_model, follower, rep = open_mesh_follower(
+                ens, args.follow, args.follow_poll_ms, mesh, (group,), counter)
+        else:
+            serve_model, follower, rep = open_follower(ens, args.follow, args.follow_poll_ms,
+                                                       counter)
         print(f"follower: recovered to data_v{rep.recovered_lsn} (checkpoint lsn "
               f"{rep.checkpoint_lsn} + {rep.replayed} replayed, "
-              f"{rep.tail_bytes_discarded}B torn tail discarded)")
-        extra = follower_staleness(follower, args.heartbeat_grace_s)
+              f"{rep.tail_bytes_discarded}B torn tail discarded)"
+              + (f", on {mesh.size} ranks" if sharded else ""))
+        if not lead:                # rank 0's rounds until its stop
+            follower.run()
+            return {"evals": counter.count, "applied_lsn": follower.applied_lsn}
+        if sharded:
+            follower.start()
+    if not lead:
+        return {"evals": counter.count}
 
-    registry = ModelRegistry()
-    registry.publish(serve_model)
-    w = wire(args, registry, group, extra_staleness=extra, follower=follower is not None)
-    n_rows = schema.table(group).n_rows
-    out = asyncio.run(drive(w.service, n_rows, args.requests, args.concurrency, args.zipf,
-                            registry, schema, args, counter, telemetry=w.telemetry,
-                            hot_swap=follower is None, swap_model=swap))
+    try:
+        if follower is not None:
+            extra = follower_staleness(follower, args.heartbeat_grace_s)
+        registry = ModelRegistry()
+        registry.publish(serve_model)
+        w = wire(args, registry, group, extra_staleness=extra, follower=follower is not None)
+        n_rows = schema.table(group).n_rows
+        out = asyncio.run(drive(w.service, n_rows, args.requests, args.concurrency, args.zipf,
+                                registry, schema, args, counter, telemetry=w.telemetry,
+                                hot_swap=follower is None, swap_model=swap))
+    except BaseException as e:
+        if follower is not None:    # on a mesh the stop carries e: the other ranks raise it
+            follower.abort(e)
+        raise
     if follower is not None:
         follower.stop(drain=True)
         out["applied_lsn"] = follower.applied_lsn

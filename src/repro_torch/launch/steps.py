@@ -14,10 +14,17 @@ accumulators are allocated once, at the first step.
 
 Placed (``distributed/sharding.py``): where the parameters are DTensors,
 so are AdamW's moments and the batch (rows over dp), and the step runs on
-each rank's local tensors.  Each dp rank computes on its own rows: its
-microbatch j is the j-th of its rows cut in ``n_micro`` (the reference's
-microbatch j is the j-th of the global batch cut in ``n_micro``: the same
-rows in all, grouped otherwise).  A block gathers its own weights
+each rank's local tensors.  Each dp rank computes on its own rows, which
+``sharding.place_batch`` chooses (``sharding.dp_rows``): its slice of each
+of the reference's microbatches (microbatch j is rows [j·G/n, (j+1)·G/n)
+of the global batch), so ``split_micro`` of its rows gives its slice of
+microbatch j as its j-th and the dp group's slices of it, in dp-rank
+order, are the reference's microbatch j, for every kind.  An MoE config
+routes each microbatch whole: its dp ranks exchange their per-expert
+counts and probability sums in every route call (``moe.route`` with the
+mesh's ``tp.DataGroup``), in the train step, its remat recomputes, the
+prefill and decode, so C, the ranks, the drops and the aux loss are the
+reference's.  A block gathers its own weights
 (``sharding.take``: every kernel sees plain tensors).  Over tp, every
 config on a mesh whose "model" axis has more than one rank computes
 tensor- and sequence-parallel (``distributed/tp.py``): its blocks keep
@@ -35,7 +42,8 @@ the tp ranks where the block read the leaf whole over tp) and
 reduce-scatters it to the leaf's placement, each rank's loss weighted by
 its share of the microbatch's tokens, t_r / Σ t, so the sum is the mean
 over every rank's tokens (with tokens of equal count, the reference's
-mean; an MoE's aux loss is each rank's own routing's).  The compressor
+mean); an MoE's aux loss, the group's on every rank, is not weighted: its
+gradient reaches each rank's own probabilities alone.  The compressor
 sketches each leaf whole, gathered (its hashes and error feedback one
 process's), and gives back the rank's slice; the clip takes the norm of
 the whole gradient (each shard's squares summed over the mesh dimensions
@@ -226,7 +234,8 @@ def make_train_step(model, ocfg: adamw.AdamWConfig, n_micro: int, compressor=Non
         shard = _view_shardings(params, held) if placed else None
         tpc = TP.context(mesh, model.cfg) if placed else None
         keep = TP.keeps(model.cfg, tpc) if tpc is not None else None
-        kw = {} if tpc is None else {"tpc": tpc}
+        dpg = _data_group(model, mesh, batch) if placed else None
+        kw = {"tpc": tpc, "dpg": dpg} if placed else {}     # one process: the loss alone
         loss_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
         with sharding.use_mesh(mesh):                   # constrain's mesh, as the reference's
             for mb in split_micro(sharding.local(batch), n_micro):
@@ -237,7 +246,10 @@ def make_train_step(model, ocfg: adamw.AdamWConfig, n_micro: int, compressor=Non
                 ce = metrics["ce"].detach()
                 if dp:                                  # this rank's share of the tokens
                     w = metrics["tokens"] / _all_reduce(metrics["tokens"].detach(), mesh, dp)
-                    loss, ce = loss * w, ce * w
+                    # routed over dp, the aux is the group's, its gradient the rank's own
+                    # probabilities' share (moe.route): weighted, it would count 1/dp
+                    aux = metrics["aux"] if dpg is not None else 0.0
+                    loss, ce = (loss - aux) * w + aux, ce * w
                 for (i, layer), g in zip(slots, torch.autograd.grad(loss, wrt)):
                     (acc[i] if layer is None else acc[i][layer]).add_(g)
                 loss_sum += ce
@@ -274,8 +286,18 @@ def make_train_step(model, ocfg: adamw.AdamWConfig, n_micro: int, compressor=Non
     def train_step(params, opt_state, batch):
         return update(params, opt_state, *grads(params, batch))
 
-    train_step.grads, train_step.update = grads, update
+    train_step.grads, train_step.update, train_step.n_micro = grads, update, n_micro
     return train_step
+
+
+def _data_group(model, mesh, batch) -> Optional[TP.DataGroup]:
+    """The dp group an MoE config routes over: where the batch's rows
+    split over dp (each rank's rows a slice of the microbatch), every route
+    sees the group's whole microbatch (``moe.route``); None for the other
+    kinds, which route nothing, and where the rows are replicated."""
+    if model.cfg.kind != "moe" or _rows(batch) == 1:
+        return None
+    return TP.data_group(mesh)
 
 
 def make_eval_loss(model):
@@ -393,7 +415,7 @@ def placed_prefill(model, params, batch, max_len: Optional[int] = None):
     local = sharding.local(batch)
     with sharding.use_mesh(mesh), torch.no_grad():
         logits, cache = model.prefill(_served(model, params, tpc), local, max_len,
-                                      **({} if tpc is None else {"tpc": tpc}))
+                                      tpc=tpc, dpg=_data_group(model, mesh, batch))
     rows = _rows(batch)
     if tpc is None:
         return (_rows_placed(logits, mesh, _logit_shardings, rows),
@@ -417,12 +439,13 @@ def placed_decode(model, params, cache, tokens):
     mesh = _mesh(params)
     tpc = TP.context(mesh, model.cfg)
     rows = _rows(tokens)
+    dpg = _data_group(model, mesh, tokens)
     if tpc is not None:
         if model.cfg.kind != "rwkv":
             tpc = tpc.with_spans(lc["k"].shape[1] for lc in cache["layers"])
         with sharding.use_mesh(mesh), torch.no_grad():
             logits, new = model.decode_step(_served(model, params, tpc), sharding.local(cache),
-                                            sharding.local(tokens), tpc=tpc)
+                                            sharding.local(tokens), tpc=tpc, dpg=dpg)
         return (_local_placed(logits, _global_logits(logits, rows, model.cfg), mesh,
                               _logit_shardings),
                 unflatten(new, [_like(t, d) for t, d in zip(leaves(new), leaves(cache))]))
@@ -430,6 +453,7 @@ def placed_decode(model, params, cache, tokens):
                          keep_rows=True)
     held = {k: v if k == "layers" else sharding.take(v) for k, v in held.items()}
     with sharding.use_mesh(mesh), torch.no_grad():
-        logits, new = model.decode_step(_served(model, params), held, sharding.local(tokens))
+        logits, new = model.decode_step(_served(model, params), held, sharding.local(tokens),
+                                        dpg=dpg)
     return (_rows_placed(logits, mesh, _logit_shardings, rows),
             _rows_placed(new, mesh, sharding.cache_shardings, rows))

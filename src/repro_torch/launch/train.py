@@ -108,9 +108,11 @@ class Trainer:
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
         """The pipeline's next batch on the model's device, placed on the
-        mesh (rows over dp) where there is one."""
+        mesh where there is one: each dp rank its slice of every
+        microbatch (``sharding.place_batch``)."""
         b = {k: torch.from_numpy(v).to(self.model.device) for k, v in next(self.pipe).items()}
-        return b if self.mesh is None else sharding.place(b, sharding.batch_shardings(self.mesh, b))
+        return b if self.mesh is None else sharding.place_batch(self.mesh, b,
+                                                                self.step_fn.n_micro)
 
     def step(self, batch, on_failure=None) -> Dict[str, torch.Tensor]:
         """One train step on ``batch``.  The gradient stage is retried on

@@ -299,7 +299,7 @@ class Model:
         return TP.enter(x, tpc, sp), pos, aux
 
     # -------------------------------------------------------------- loss --
-    def loss(self, params, batch, tpc=None):
+    def loss(self, params, batch, tpc=None, dpg=None):
         """Next-token cross-entropy, the reference's ``Model.loss``: (ce +
         1e-4 · z-loss + aux, {"ce", "aux", "tokens"}), over
         ``batch["tokens"]`` (B, S) with an optional ``loss_mask`` (and
@@ -316,7 +316,10 @@ class Model:
         WKV's forward, and an MoE block's routing, run twice a backward
         pass.  Under a tp context ``tpc`` (module docstring) the logits
         are the rank's vocab columns and the cross-entropy is
-        vocab-parallel."""
+        vocab-parallel.  ``dpg`` (a ``tp.DataGroup``, an MoE config's):
+        the batch is this dp rank's rows of the group's microbatch, which
+        every MoE layer routes whole (``moe.route``); the aux loss is then
+        the group's."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         enc = None
@@ -327,11 +330,14 @@ class Model:
         S = n_prefix + tokens.shape[1]                 # prefixes counted
         sp = TP.seq_parallel(tpc, S)
         positions = _positions(h.shape[0], S, self.device)
-        block = self._block_train_rwkv if cfg.kind == "rwkv" else self._block_train
-        kw = {} if tpc is None else {"tpc": tpc}
+        block, kw = ((self._block_train_rwkv, {"tpc": tpc}) if cfg.kind == "rwkv"
+                     else (self._block_train, {"tpc": tpc, "dpg": dpg}))
         h = constrain(h, "dp", "tp", None)
         for p, w in zip(params["layers"], self.windows):
             args = (p, h, positions, w, enc)
+            # the recompute runs in autograd's thread and, with ``dpg``, routes again over dp:
+            # every rank's backward recomputes the blocks in the same (reverse) order, so the
+            # ranks' exchanges pair up, and the same inputs route the same way
             h, a = (torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False, **kw)
                     if cfg.remat else block(*args, **kw))
             h = constrain(h, "dp", "tp", None)
@@ -359,7 +365,7 @@ class Model:
         return _pick(params["embed"], "tok" if self.cfg.tie_embeddings else "head")
 
     def _block_train(self, p, x, positions, window: Optional[int] = None, enc=None,
-                     causal: bool = True, tpc=None):
+                     causal: bool = True, tpc=None, dpg=None):
         """One dense, hybrid, moe or encdec block of the training forward
         (no cache), its attention over ``window``, then (a decoder block of
         encdec) its cross-attention over the encoder's output ``enc``;
@@ -387,11 +393,11 @@ class Model:
                               "dp", None, None)
         h2 = constrain(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), "dp", None, None)
         if cfg.kind == "moe" and tpc is None:
-            out, aux = MOE.moe_ffn(p["moe"], cfg, h2)
+            out, aux = MOE.moe_ffn(p["moe"], cfg, h2, dp=dpg)
             return x + constrain(out, "dp", None, None), aux
         h2 = TP.enter(h2, tpc, sp)
         if cfg.kind == "moe":
-            out, aux = MOE.moe_ffn_tp(p["moe"], cfg, h2, tpc)
+            out, aux = MOE.moe_ffn_tp(p["moe"], cfg, h2, tpc, dp=dpg)
             partial = MOE.is_partial(p["moe"], cfg)
         else:
             out, partial = L.mlp(p["mlp"], cfg, h2), _sharded(p["mlp"]["w_down"], cfg.d_ff)
@@ -427,13 +433,15 @@ class Model:
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     # ----------------------------------------------------------- prefill --
-    def prefill(self, params, batch, max_len: Optional[int] = None, tpc=None):
+    def prefill(self, params, batch, max_len: Optional[int] = None, tpc=None, dpg=None):
         """Full-sequence forward building the decode cache.  batch:
         ``{"tokens": (B, S) int}`` (with ``patches`` or ``src_frames`` for
         a front end); ``max_len``: the token positions the cache makes room
         for (S + the decode tokens to come; None: S, the reference's
         layout, which has room for one decode step), the meta and patch
-        positions not counted; ``tpc``: a tp context (module docstring).
+        positions not counted; ``tpc``: a tp context (module docstring);
+        ``dpg``: a dp group whose rows every MoE layer routes whole (as in
+        :meth:`loss`).
         Returns (last_logits (B, padded vocab) float32, ids ≥ vocab at
         −1e30, cache)."""
         cfg = self.cfg
@@ -457,7 +465,7 @@ class Model:
             else:
                 w = self.windows[i]
                 h, lc = self._prefill_attn(p, h, positions, total if w is None else min(w, total),
-                                           w, enc, tpc)
+                                           w, enc, tpc, dpg)
             layers.append(lc)
         cache.update(layers=layers, pos=torch.full((B,), S, dtype=torch.int32, device=self.device))
         h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
@@ -487,7 +495,7 @@ class Model:
         return x, {"S": S_fin, "x_last_tm": last[0], "x_last_cm": last[1]}
 
     def _prefill_attn(self, p, x, positions, span: int, window: Optional[int], enc=None,
-                      tpc=None):
+                      tpc=None, dpg=None):
         """One dense, hybrid, moe or encdec decoder block with the layer's
         window; its cache holds the last min(span, S) positions.  K and V
         are computed once, for the attention and for the cache, and the
@@ -518,17 +526,18 @@ class Model:
             lc["xk"], lc["xv"] = L.cross_kv(p["xattn"], cfg, enc)
             x = x + self._cross(p, x, lc["xk"], lc["xv"], tpc, sp)
         out, partial = _ffn(p, cfg, TP.enter(L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps),
-                                             tpc, sp), tpc)
+                                             tpc, sp), tpc, dpg)
         return x + TP.leave(out, tpc, sp, partial), lc
 
     # ------------------------------------------------------------ decode --
-    def decode_step(self, params, cache, tokens, tpc=None):
+    def decode_step(self, params, cache, tokens, tpc=None, dpg=None):
         """One token for every sequence.  tokens: (B,) → (logits, cache);
         the cache passed in is left as it was.  A dense model raises where
         the cache lacks room for the position (see the module docstring).
         An encdec decoder block cross-attends to its cached k, v of the
         encoder's output, plain (one query a sequence: no kernel).
-        ``tpc``: a tp context (module docstring)."""
+        ``tpc``: a tp context (module docstring); ``dpg`` as in
+        :meth:`prefill`."""
         cfg = self.cfg
         pos = cache["pos"]
         spans = self._spans(cache, tpc)
@@ -543,7 +552,8 @@ class Model:
             if cfg.kind == "rwkv":
                 h, new_lc = self._decode_rwkv(p, h, lc, tpc)
             else:
-                h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i], spans[i], tpc)
+                h, new_lc = self._decode_attn(p, h, lc, pos, self.windows[i], spans[i], tpc,
+                                              dpg)
             layers.append(new_lc)
         h = L.rmsnorm(h, take(params["ln_f"]["scale"]), cfg.norm_eps)
         logits = L.unembed(self._head(params), cfg, h).float()[:, 0]
@@ -592,7 +602,8 @@ class Model:
                     f"cache holds {span}: give prefill a max_len of the prompt plus every decode "
                     f"token")
 
-    def _decode_attn(self, p, x, lc, pos, window: Optional[int], span: int, tpc=None):
+    def _decode_attn(self, p, x, lc, pos, window: Optional[int], span: int, tpc=None,
+                     dpg=None):
         cfg = self.cfg
         p, lc = take(p), take(lc)
         h = L.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
@@ -631,7 +642,7 @@ class Model:
                                lc["xv"], tpc)
             x = x + TP.leave(L.cross_decode_attention(p["xattn"], cfg, hx, xk, xv), tpc, False,
                              _sharded(p["xattn"]["wo"], cfg.n_heads * cfg.head_dim))
-        out, partial = _ffn(p, cfg, L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc)
+        out, partial = _ffn(p, cfg, L.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps), tpc, dpg)
         return x + TP.leave(out, tpc, False, partial), new_lc
 
     # ------------------------------------------------------- cache specs --
@@ -672,15 +683,17 @@ class Model:
         return cache
 
 
-def _ffn(p, cfg: ModelConfig, h: torch.Tensor, tpc=None):
+def _ffn(p, cfg: ModelConfig, h: torch.Tensor, tpc=None, dpg=None):
     """A serving block's FFN: the MLP, or the MoE FFN at capacity factor
     4.0 (the reference's ``_prefill_block`` and ``_decode_block``; expert
-    parallel with a tp context).  Returns (out, whether it is a partial
-    sum over tp)."""
+    parallel with a tp context; routed over the dp group ``dpg``'s rows
+    where given).  Returns (out, whether it is a partial sum over tp)."""
     if cfg.kind == "moe":
         if tpc is None:
-            return MOE.moe_ffn(p["moe"], cfg, h, capacity_factor=SERVE_CAPACITY)[0], False
-        return (MOE.moe_ffn_tp(p["moe"], cfg, h, tpc, capacity_factor=SERVE_CAPACITY)[0],
+            return (MOE.moe_ffn(p["moe"], cfg, h, capacity_factor=SERVE_CAPACITY, dp=dpg)[0],
+                    False)
+        return (MOE.moe_ffn_tp(p["moe"], cfg, h, tpc, capacity_factor=SERVE_CAPACITY,
+                               dp=dpg)[0],
                 MOE.is_partial(p["moe"], cfg))
     return L.mlp(p["mlp"], cfg, h), _sharded(p["mlp"]["w_down"], cfg.d_ff)
 

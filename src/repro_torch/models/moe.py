@@ -7,9 +7,10 @@ gates are renormalised to sum to 1.  Each (token, choice) pair takes its
 rank in its expert in arrival order, the flattened (T·K) pairs token
 by token and, within a token, choice by choice; pairs ranked at the
 capacity C or past it are dropped.  The kept tokens are scattered into an
-(E, C, D) buffer, run through each expert's SwiGLU (a batched product a
-weight, ``torch.bmm``: the reference computes it outside any Pallas
-kernel too), gathered back, weighted by their gates and summed over a
+(E, C, D) buffer (a dp rank's, (E, min(C, T), D): ``Routing.slot``), run
+through each expert's SwiGLU (a batched product a weight, ``torch.bmm``:
+the reference computes it outside any Pallas kernel too), gathered back,
+weighted by their gates and summed over a
 token's K contributions; the shared expert, where there is one, adds its
 MLP of every token.  The Switch load-balance loss comes back beside the
 output.  Under autograd (the training loss, at the config's own capacity
@@ -48,6 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tp as TP
 from .config import ModelConfig
 from .layers import _dense_init
 
@@ -73,13 +75,19 @@ class Routing:
     """The routing of T tokens: the top-k ``expert`` (T, K) and their
     renormalised ``gate`` (T, K), each pair's ``rank`` in its expert
     (T·K,), ``keep`` = rank < ``capacity``, and the Switch ``aux`` loss (a
-    float32 scalar)."""
+    float32 scalar).  A kept pair's row in this process's (E, ``depth``, D)
+    expert buffer is ``slot`` (T·K,): its rank, less the pairs that lower
+    dp ranks sent to its expert (``route``'s ``dp``); ``depth`` is C, or
+    min(C, T) on a dp rank (a token picks an expert once, so a rank holds at
+    most T pairs an expert, and the lower ranks' pairs take no row here)."""
     expert: torch.Tensor
     gate: torch.Tensor
     rank: torch.Tensor
     keep: torch.Tensor
     capacity: int
     aux: torch.Tensor
+    slot: torch.Tensor
+    depth: int
 
 
 def capacity(cfg: ModelConfig, T: int, capacity_factor=None) -> int:
@@ -90,14 +98,31 @@ def capacity(cfg: ModelConfig, T: int, capacity_factor=None) -> int:
 
 
 def route(p, cfg: ModelConfig, xt: torch.Tensor, capacity_factor=None,
-          expert=None, aux_rows=None) -> Routing:
+          expert=None, aux_rows=None, dp=None) -> Routing:
     """Routing of the tokens ``xt`` (T, D) (see the module docstring).
     ``expert`` (T, K): take these choices instead of the top k (a run that
-    replays another's routing); the gates are then their probabilities,
+    replays another run's routing); the gates are then their probabilities,
     renormalised, and the rest follows from them as it does from the top k.
     ``aux_rows`` (lo, hi): the aux loss's value is the same, but its
     gradient reaches the probabilities of tokens lo..hi−1 alone (a tp
-    rank's share: summed over the ranks it counts once)."""
+    rank's share: summed over the ranks it counts once).
+
+    ``dp`` (a ``tp.DataGroup``): ``xt`` is this dp rank's slice of one
+    microbatch whose rows the group's ranks hold in dp-rank order, T rows
+    each.  The route is then the whole microbatch's, as one process routes
+    it: C is the capacity of the group's T·dp tokens, a pair's rank in its
+    expert counts the pairs the lower dp ranks sent there before its own
+    (so the later rows' pairs are the ones dropped), and the aux loss's f_e
+    and p̄_e are the group's means.  One all-gather over dp a call carries
+    each rank's per-expert counts and probability sums (float64: the counts
+    exact).  The aux loss's value is then the group's on every rank, and its
+    gradient reaches the rank's own probabilities alone (its ``aux_rows``
+    where given), so summed over the dp ranks it counts once: the caller
+    must not weight it by the rank's share of the tokens (``launch/steps``).
+    Every rank of the group must make the same calls in the same order,
+    a remat recompute's included.  A rank's expert buffer holds its own
+    kept pairs alone (``Routing.slot`` and ``depth``), so its expert
+    products are those of its T tokens, not the group's."""
     T, E, K = xt.shape[0], cfg.n_experts, cfg.top_k
     probs = torch.softmax(xt.float() @ p["router"], -1)                   # (T, E)
     if expert is None:
@@ -106,28 +131,39 @@ def route(p, cfg: ModelConfig, xt: torch.Tensor, capacity_factor=None,
     else:
         gate = torch.gather(probs, 1, expert)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    onehot = F.one_hot(expert.reshape(-1), E)                             # (T·K, E)
-    me, ce = probs.mean(0), onehot.reshape(T, K, E).sum(1).float().mean(0)
-    if aux_rows is not None:
-        own = probs[aux_rows[0]:aux_rows[1]].sum(0) / T
+    flat = expert.reshape(-1)
+    onehot = F.one_hot(flat, E)                                           # (T·K, E)
+    slot = torch.gather(torch.cumsum(onehot, 0) - onehot, 1, flat[:, None])[:, 0]
+    rank, total = slot, T
+    if dp is None:
+        me, ce = probs.mean(0), onehot.reshape(T, K, E).sum(1).float().mean(0)
+    else:
+        total = T * dp.size
+        parts = TP.gather_dp(torch.cat([onehot.sum(0).double(),
+                                        probs.detach().sum(0).double()]), dp)   # (dp, 2E)
+        rank = rank + parts[:dp.rank, :E].sum(0).long()[flat]
+        ce = (parts[:, :E].sum(0) / total).float()
+        me = (parts[:, E:].sum(0) / total).float()
+    if aux_rows is not None or dp is not None:
+        own = (probs if aux_rows is None else probs[aux_rows[0]:aux_rows[1]]).sum(0) / total
         me = me.detach() + (own - own.detach())             # the value bit for bit
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
-    rank = torch.gather(torch.cumsum(onehot, 0) - onehot, 1, expert.reshape(-1, 1))[:, 0]
-    C = capacity(cfg, T, capacity_factor)
-    return Routing(expert, gate, rank, rank < C, C, aux)
+    C = capacity(cfg, total, capacity_factor)
+    return Routing(expert, gate, rank, rank < C, C, aux, slot, C if dp is None else min(C, T))
 
 
-def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, capacity_factor=None):
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, capacity_factor=None, dp=None):
     """x (B, S, D) → (out (B, S, D) in x's dtype, aux float32 scalar).
     ``capacity_factor`` overrides the config's (serving passes 4.0: a
-    token dropped at training's factor must not move a decode result)."""
+    token dropped at training's factor must not move a decode result).
+    ``dp``: x is a dp rank's rows of the group's microbatch (``route``)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     xt = x.reshape(B * S, D)
-    r = route(p, cfg, xt, capacity_factor)
-    C = r.capacity
+    r = route(p, cfg, xt, capacity_factor, dp=dp)
+    C = r.depth
     # a dropped pair writes zeros at slot 0, where its row is dropped again: no host sync
-    slot = torch.where(r.keep, r.expert.reshape(-1) * C + r.rank, 0)
+    slot = torch.where(r.keep, r.expert.reshape(-1) * C + r.slot, 0)
     rows = torch.where(r.keep[:, None], xt.repeat_interleave(K, 0), 0)
     buf = xt.new_zeros(E * C, D).index_add_(0, slot, rows).view(E, C, D)
     with torch.profiler.record_function("moe_experts"):
@@ -151,7 +187,7 @@ def is_partial(p, cfg: ModelConfig) -> bool:
         cfg.shared_expert and p["shared"]["w_down"].shape[0] != cfg.d_ff)
 
 
-def moe_ffn_tp(p, cfg: ModelConfig, x: torch.Tensor, tpc, capacity_factor=None):
+def moe_ffn_tp(p, cfg: ModelConfig, x: torch.Tensor, tpc, capacity_factor=None, dp=None):
     """Expert parallelism on a tp rank (``distributed/tp.py``): x (B, S, D),
     the tp group's whole token set, the same on every rank → (out (B, S,
     D) in x's dtype, a partial sum over tp where :func:`is_partial`, aux).
@@ -160,18 +196,20 @@ def moe_ffn_tp(p, cfg: ModelConfig, x: torch.Tensor, tpc, capacity_factor=None):
     choices, ranks, drops and capacity C as one process), the aux loss's
     gradient taken from the rank's 1/tp share of the tokens (``route``'s
     ``aux_rows``).  The rank runs its own experts only (``p["w_gate"]``'s
-    E/tp block, as the rules place it): their (E/tp, C, D) buffer is
+    E/tp block, as the rules place it): their (E/tp, ``depth``, D) buffer is
     gathered from the tokens by slot, the pairs routed elsewhere never
     copied, and each slot's output, weighted by its gate, is added to its
     token's row in float32.  The shared expert adds the rank's d_ff slice.
     A part the rules keep whole (E or d_ff that tp does not divide) is
-    added by tp rank 0 alone where the output is a partial sum."""
+    added by tp rank 0 alone where the output is a partial sum.  ``dp``:
+    the tp group's token set is one dp rank's rows of the microbatch, and
+    the route exchanges its counts over dp alone (``route``)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
     r = route(p, cfg, xt, capacity_factor,
-              aux_rows=(tpc.rank * T // tpc.size, (tpc.rank + 1) * T // tpc.size))
+              aux_rows=(tpc.rank * T // tpc.size, (tpc.rank + 1) * T // tpc.size), dp=dp)
     partial = is_partial(p, cfg)
     El = p["w_gate"].shape[0]
     split = El != E
@@ -179,10 +217,10 @@ def moe_ffn_tp(p, cfg: ModelConfig, x: torch.Tensor, tpc, capacity_factor=None):
     if not split and partial and tpc.rank:
         El = 0                                          # rank 0 adds the routed part
     w = {k: p[k][:El] for k in ("w_gate", "w_up", "w_down")}
-    C, n = r.capacity, El * r.capacity
+    C, n = r.depth, El * r.depth
     e = r.expert.reshape(-1)
     mine = r.keep & (e >= e0) & (e < e0 + El)
-    slot = torch.where(mine, (e - e0) * C + r.rank, n)                  # n: no slot
+    slot = torch.where(mine, (e - e0) * C + r.slot, n)                  # n: no slot
     token = torch.arange(T, device=x.device).repeat_interleave(K)
     tok_of = torch.full((n + 1,), T, dtype=torch.long, device=x.device).scatter_(
         0, slot, token)[:n]                                              # T: an empty slot

@@ -50,7 +50,8 @@ ARCHS = ("tinyllama_1_1b", "dbrx_132b", "rwkv6_1_6b")
 CELLS = [("tinyllama_1_1b", "train_4k"), ("rwkv6_1_6b", "train_4k"),
          ("tinyllama_1_1b", "decode_32k"), ("dbrx_132b", "decode_32k"),
          ("dbrx_132b", "prefill_32k"), ("rwkv6_1_6b", "decode_32k")]
-WORLDS = {"2x2": CELLS, "4x4": CELLS, "1x1": [("tinyllama_1_1b", "prefill_32k")]}
+WORLDS = {"2x2": CELLS, "4x4": CELLS,
+          "1x1": [("tinyllama_1_1b", "prefill_32k"), ("dbrx_132b", "prefill_32k")]}
 
 _GUARDS = textwrap.dedent("""
     from torch.distributed.tensor import DTensor, Replicate
@@ -192,8 +193,23 @@ def test_training_gathers_every_sharded_leaf_every_microbatch(worlds):
 
 
 def test_a_mesh_of_one_exchanges_nothing(worlds):
-    (rec,) = worlds["1x1"]["cells"]
-    assert all(v == {"count": 0, "bytes": 0} for v in rec["collectives"].values())
+    assert len(worlds["1x1"]["cells"]) == len(WORLDS["1x1"])
+    for rec in worlds["1x1"]["cells"]:
+        assert all(v == {"count": 0, "bytes": 0} for v in rec["collectives"].values())
+
+
+@pytest.mark.parametrize("tag", ["2x2", "4x4"])
+def test_moe_flops_a_rank_do_not_grow_with_the_mesh(worlds, tag):
+    """DBRX's prefill routes each microbatch whole over dp, and a dp rank's
+    expert buffer holds its own tokens' pairs alone: the FLOPs summed over
+    the mesh's ranks are at most the one-rank cell's (a buffer of the
+    group's capacity on every rank would multiply the expert products by
+    dp)."""
+    flops = {t: next(r for r in worlds[t]["cells"] if (r["arch"], r["shape"])
+                     == ("dbrx_132b", "prefill_32k"))["cost_analysis"]["flops_per_device"]
+             for t in (tag, "1x1")}
+    world = math.prod(int(x) for x in tag.split("x"))
+    assert flops[tag] * world <= flops["1x1"], (flops, world)
 
 
 def test_a_failing_cell_is_recorded_and_the_run_exits_1(worlds):

@@ -5,7 +5,8 @@ process and against the reference.
 TinyLlama's smoke config in float32 with count-sketch compression 8
 (the reference's hashes injected, ``tests/test_torch_train.py::_inject``),
 from the reference's weights carried across by ``convert``, one step on
-an 8 × 40 batch (2 microbatches), on the meshes (2, 2) and (4, 1) of a
+an 8 × 40 batch (2 microbatches, each dp rank holding its slice of both:
+``sharding.place_batch``), on the meshes (2, 2) and (4, 1) of a
 world of 4 ranks and (2, 1) of a world of 2, one spawn per world size
 for the module, each rank joined with a timeout.  Against one process on
 the same batch: the loss within 1e-6 relative, every gradient leaf
@@ -87,7 +88,7 @@ def _step(params, batch, hashes, mesh=None):
     if mesh is not None:
         shard = T.state_shardings(mesh, (params, state))
         params, state = S.place(params, shard[0]), S.place(state, shard[1])
-        batch = S.place(batch, S.batch_shardings(mesh, batch))
+        batch = S.place_batch(mesh, batch, N_MICRO)      # a dp rank's slice of each microbatch
     fn = steps.make_train_step(model, OCFG, N_MICRO, compressor=_compressor(hashes, comp))
     g, loss = fn.grads(params, batch)
     raw = [t.clone() for t in leaves(S.gathered(g))]

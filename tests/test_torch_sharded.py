@@ -346,17 +346,6 @@ def test_mesh_size_must_be_the_world_size(monkeypatch):
         stream_deltas.main(["--device", "cpu", "--mesh", "2"])
 
 
-def test_follow_refuses_a_mesh(monkeypatch):
-    """A follower applies the log on its own clock: with ranks, their
-    collectives would fall out of step."""
-    from repro_torch.launch import serve_relational
-
-    monkeypatch.setattr(serve_relational, "resolve_mesh",
-                        lambda args: spmd.DataMesh(size=2, backend="gloo"))
-    with pytest.raises(ValueError, match="--follow needs one process"):
-        serve_relational.main(["--device", "cpu", "--follow", "unused"])
-
-
 # ------------------------------------------------------ sharded vs one --
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -15,16 +15,21 @@ expert's d_ff slices and tp rank 0's routed part:
 - the placed step's gradient stage (one microbatch of 4 rows): its loss
   within 1e-5 relative of the reference's ``ce`` and every gathered
   gradient leaf within 1e-4·max|g| of ``jax.value_and_grad(Model.loss)``
-  (the router's among them: a missed or doubled sum over tp, or an aux
-  loss counted on every rank, shows there).  Each dp rank routes its own
-  rows (``launch/steps.py``), so on (2, 2) the reference is the mean of
-  its loss and gradient over the two dp ranks' rows;
+  on the whole microbatch (the router's among them: a missed or doubled
+  sum over tp or dp, or an aux loss counted on every rank, shows there).
+  On (2, 2) each dp rank holds 2 of the 4 rows and every route call sees
+  the whole microbatch (``moe.route(..., dp=)``);
 - the routing: every route call of the gradient stage and the prefill
-  replays the reference's top-k choices (``moe.route(..., expert=...)``,
-  as chip_smoke's ``moe_twin`` does), and the port's own choices, ranks
-  and keep mask must equal the reference's, a choice differing only where
-  the reference's two probabilities lie within ``TIE`` of each other
-  (printed: how many);
+  replays the reference's top-k choices of the rank's rows
+  (``moe.route(..., expert=...)``, as chip_smoke's ``moe_twin`` does), and
+  the port's own choices, ranks, keep mask and capacity must equal the
+  reference's on the whole microbatch, a choice differing only where the
+  reference's two probabilities lie within ``TIE`` of each other (printed:
+  how many).  The smoke DBRX drops pairs at its training factor (1.25),
+  and on (2, 2) a route of each dp rank's rows alone would keep others:
+  ``test_dp_route_keeps_the_reference_pairs`` holds the keep mask of the
+  (2, 2) gradient stage, and of a (2, 2) ``placed_prefill`` at that
+  factor (the reference's prefill run at it too), to the reference's;
 - ``steps.placed_prefill`` of 4 × S tokens with room for 4 more, then 4
   ``placed_decode`` steps of the batch's next tokens: each step's logits
   within 1e-4·max|logit| of the reference's prefill(S + t);
@@ -68,6 +73,8 @@ ARCHS = ("dbrx_132b", "llama4_scout_17b_a16e")
 WHOLE = tuple(f"{a}@6experts" for a in ARCHS)   # 6 experts: tp 4 divides no expert count
 MESHES = ((1, 4), (2, 2))
 B, SEQ, ODD, DECODE = 4, 32, 30, 4
+LOW = 1.25                  # a prefill factor at which the smoke DBRX drops pairs (dp case)
+DROPS = ("dbrx_132b", MESHES[1], SEQ)   # the (2, 2) case whose routes drop pairs
 LOSS_RTOL, GRAD_RTOL, LOGIT_RTOL = 1e-5, 1e-4, 1e-4
 TIE = 1e-5                  # two probabilities this close may order either way in float32
 # (arch, mesh, S): the cases each rank runs
@@ -90,25 +97,28 @@ def _tokens(arch, n):
 class _Replay:
     """A stand-in for ``moe.route``: each call routes as the port would
     (recorded) and returns the routing of the reference's choices for
-    that call.  ``want``: the reference's (T, K) choices by layer; a
+    that call.  ``want``: the reference's (T, K) choices of the whole
+    microbatch by layer, of which the rank's rows are tokens lo..hi−1; a
     gradient stage routes layers 0..L−1, then L−1..0 again in the remat
     recomputes, a prefill 0..L−1."""
 
-    def __init__(self, want, route=moe.route):
-        self.want, self.route, self.calls = want, route, 0
+    def __init__(self, want, rows, route=moe.route):
+        self.want, self.rows, self.route, self.calls = want, rows, route, 0
         self.own, self.used = [], []
 
-    def __call__(self, p, cfg, xt, capacity_factor=None, expert=None, aux_rows=None):
+    def __call__(self, p, cfg, xt, capacity_factor=None, expert=None, aux_rows=None, dp=None):
         L, i = len(self.want), self.calls % (2 * len(self.want))
         self.calls += 1
         want = torch.from_numpy(self.want[i if i < L else 2 * L - 1 - i]).long()
+        want = want[self.rows[0]:self.rows[1]]
         with torch.no_grad():
-            own = self.route(p, cfg, xt, capacity_factor)
-        r = self.route(p, cfg, xt, capacity_factor, expert=want, aux_rows=aux_rows)
+            own = self.route(p, cfg, xt, capacity_factor, dp=dp)
+        r = self.route(p, cfg, xt, capacity_factor, expert=want, aux_rows=aux_rows, dp=dp)
         if i < L:
             self.own.append({k: getattr(own, k).numpy().copy() for k in ("expert", "rank", "keep")})
             self.used.append({"rank": r.rank.detach().numpy().copy(),
-                              "keep": r.keep.numpy().copy(), "capacity": r.capacity})
+                              "keep": r.keep.numpy().copy(), "capacity": r.capacity,
+                              "factor": capacity_factor or cfg.capacity_factor})
         return r
 
 
@@ -119,14 +129,19 @@ def _swap_route(stand_in):
 
 def _case(params, arch, mesh, seq, routes):
     """One case on this rank: its gradients, loss, routing, served logits
-    and its local shards' shapes."""
+    (and, for ``DROPS``, a prefill's at ``LOW``) and its local shards'
+    shapes."""
+    from repro_torch.models import lm
+
     model = Model(_cfg(arch), device="cpu")
     P = S.place(params, S.param_shardings(mesh, params))
-    group = mesh.get_coordinate()[0]                     # this rank's dp group
+    group, dp = mesh.get_coordinate()[0], mesh.size(0)   # this rank's dp coordinate
+    T = B // dp * seq                                     # the tokens of its rows
+    rows = (group * T, (group + 1) * T)
     tok = torch.from_numpy(_tokens(arch, seq + DECODE))
     batch = {"tokens": tok[:, :seq]}
     fn = steps.make_train_step(model, adamw.AdamWConfig(), 1)
-    train = _Replay(routes["train"][group])
+    train = _Replay(routes["train"], rows)
     old = _swap_route(train)
     try:
         g, loss = fn.grads(P, S.place(batch, S.batch_shardings(mesh, batch)))
@@ -136,7 +151,7 @@ def _case(params, arch, mesh, seq, routes):
            "grads": [t.clone() for t in leaves(S.gathered(g))],
            "local_shapes": {n: tuple(t.to_local().shape) for n, t in zip(paths(P), leaves(P))},
            "train_calls": train.calls, "train_own": train.own, "train_used": train.used}
-    pre = _Replay(routes["prefill"][group])
+    pre = _Replay(routes["prefill"], rows)
     old = _swap_route(pre)
     try:
         logits, cache = steps.placed_prefill(model, P, S.place(batch, S.batch_shardings(
@@ -144,6 +159,18 @@ def _case(params, arch, mesh, seq, routes):
     finally:
         _swap_route(old)
     out.update(prefill_own=pre.own, prefill_used=pre.used)
+    if "prefill_low" in routes:
+        low = _Replay(routes["prefill_low"], rows)
+        old, serve = _swap_route(low), lm.SERVE_CAPACITY
+        lm.SERVE_CAPACITY = LOW
+        try:
+            low_logits, _ = steps.placed_prefill(model, P, S.place(batch, S.batch_shardings(
+                mesh, batch)))
+        finally:
+            _swap_route(old)
+            lm.SERVE_CAPACITY = serve
+        out.update(prefill_low_own=low.own, prefill_low_used=low.used,
+                   prefill_low_logits=low_logits.full_tensor().clone())
     served = [logits.full_tensor().clone()]
     for t in range(DECODE):
         nxt = {"t": tok[:, seq + t]}
@@ -186,6 +213,7 @@ _DRY = textwrap.dedent("""
 
 
 _SINKS = {}                 # by (name, experts): where a config's routings go (None: nowhere)
+_FACTOR = {}                # by (name, experts): a capacity factor in place of the caller's
 
 
 def _recording(real):
@@ -204,9 +232,10 @@ def _recording(real):
 
     def recording(p, cfg, x, capacity_factor=None):
         probs = jax.nn.softmax(x.reshape(-1, x.shape[-1]).astype(jnp.float32) @ p["router"], -1)
-        jax.debug.callback(functools.partial(record, (cfg.name, cfg.n_experts)), probs,
+        name = (cfg.name, cfg.n_experts)
+        jax.debug.callback(functools.partial(record, name), probs,
                            jax.lax.top_k(probs, cfg.top_k)[1])
-        return real(p, cfg, x, capacity_factor)
+        return real(p, cfg, x, _FACTOR.get(name, capacity_factor))
     return recording
 
 
@@ -225,6 +254,7 @@ class _Reference:
         self.params = self.model.init(jax.random.PRNGKey(0))
         self.grad = jax.jit(jax.value_and_grad(lambda p, b: self.model.loss(p, b), has_aux=True))
         self.prefill = jax.jit(lambda p, b: self.model.prefill(p, b))
+        self.prefill_low = jax.jit(lambda p, b: self.model.prefill(p, b))   # traced at LOW
 
     def routed(self, fn, rows, first: int):
         """``fn`` on these token rows, and the first ``first`` routings it
@@ -239,24 +269,29 @@ class _Reference:
 
 
 def _reference_routed(ref, arch):
-    """Per case of ``arch``: the reference's (dp-group mean) ``ce`` and
-    gradient, and by dp group its routing of the gradient's forward and
-    of the prefill of S tokens."""
+    """Per case of ``arch``: the reference's ``ce`` and gradient on the
+    whole microbatch, and its routing of the gradient's forward and of the
+    prefill of S tokens (for ``DROPS`` also of the prefill at ``LOW``,
+    with its logits)."""
     import jax
 
-    L, out = _cfg(arch).n_layers, {}
-    for arch_, shape, seq in CASES:
-        if arch_ != arch:
-            continue
-        ce, gs, train, pre = 0.0, None, [], []
-        for rows in np.split(_tokens(arch, seq + DECODE)[:, :seq], shape[0]):
-            ((_, m), g), r = ref.routed(ref.grad, rows, L)
-            g = [np.asarray(x) / shape[0] for x in jax.tree.leaves(g)]
-            ce += float(m["ce"]) / shape[0]
-            gs = g if gs is None else [a + b for a, b in zip(gs, g)]
-            train.append(r)
-            pre.append(ref.routed(ref.prefill, rows, L)[1])
-        out[(arch, shape, seq)] = {"ce": ce, "grads": gs, "train": train, "prefill": pre}
+    L, out, by_seq = _cfg(arch).n_layers, {}, {}
+    for case in (c for c in CASES if c[0] == arch):
+        seq = case[2]
+        rows = _tokens(arch, seq + DECODE)[:, :seq]
+        if seq not in by_seq:
+            ((_, m), g), train = ref.routed(ref.grad, rows, L)
+            by_seq[seq] = {"ce": float(m["ce"]), "grads": [np.asarray(x) for x in
+                                                            jax.tree.leaves(g)],
+                           "train": train, "prefill": ref.routed(ref.prefill, rows, L)[1]}
+        out[case] = dict(by_seq[seq])
+        if case == DROPS:
+            _FACTOR[ref.name] = LOW
+            try:
+                (logits, _), low = ref.routed(ref.prefill_low, rows, L)
+            finally:
+                del _FACTOR[ref.name]
+            out[case].update(prefill_low=low, prefill_low_logits=np.asarray(logits))
     return out
 
 
@@ -305,8 +340,9 @@ def runs(tmp_path_factory):
             refs[arch] = _Reference(arch)
             ref[arch] = _reference_routed(refs[arch], arch)
             spec[arch] = convert.lm_stacked(refs[arch].params, "cpu")
-            routes = {case: {k: [[idx for _, idx in layers] for layers in ref[arch][case][k]]
-                             for k in ("train", "prefill")} for case in ref[arch]}
+            routes = {case: {k: [idx for _, idx in ref[arch][case][k]]
+                             for k in ("train", "prefill", "prefill_low") if k in ref[arch][case]}
+                      for case in ref[arch]}
             for box in inboxes:
                 box.put((arch, spec[arch], routes))
             _reference_logits(refs[arch], arch, ref[arch])
@@ -366,14 +402,51 @@ def _ref_rank_keep(expert, E, C):
     return rank, rank < C
 
 
+def _rows(res, case, n):
+    """The rank's slice of the whole microbatch's n entries (its dp
+    coordinate's rows)."""
+    dp = case[1][0]
+    return slice(res["group"] * n // dp, (res["group"] + 1) * n // dp)
+
+
+def _check_stage(cfg, want, own, used, res, case):
+    """One stage's routings on one rank against the reference's of the
+    whole microbatch: the replayed ranks, keep and C are the reference's
+    rule's, the port's own the same where no choice differed; returns the
+    (token, choice) differences (ties) and the reference's dropped pairs."""
+    ties = dropped = 0
+    assert len(own) == cfg.n_layers
+    for (probs, idx), o, u in zip(want, own, used):
+        T = idx.shape[0]
+        mine = _rows(res, case, T)
+        differ = (o["expert"] != idx[mine]).any(1)
+        if differ.any():
+            srt = np.sort(probs[mine][differ], 1)[:, ::-1]
+            gap = srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]
+            assert (gap <= TIE).all(), gap
+            ties += int(differ.sum())
+        C = moe.capacity(cfg, T, u["factor"])
+        assert u["capacity"] == C, (u["capacity"], C)
+        rank, keep = _ref_rank_keep(idx, cfg.n_experts, C)
+        pairs = _rows(res, case, T * cfg.top_k)
+        np.testing.assert_array_equal(u["rank"], rank[pairs])
+        np.testing.assert_array_equal(u["keep"], keep[pairs])
+        if not differ.any():
+            np.testing.assert_array_equal(o["rank"], rank[pairs])
+            np.testing.assert_array_equal(o["keep"], keep[pairs])
+        dropped += int((~keep).sum())
+    return ties, dropped
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_routing_matches_reference(runs, case):
     """The gradient stage's forward routing and the prefill's, on every
     rank: the port's own top-k choices are the reference's but where its
-    two probabilities tie within ``TIE``; the replayed routing's ranks
-    and keep are the reference's rule applied to its choices, and the
-    port's own ranks and keep equal them where no choice differed."""
-    arch, shape, _ = case
+    two probabilities tie within ``TIE``; the replayed routing's ranks,
+    keep and capacity are the reference's rule applied to its choices of
+    the whole microbatch (on (2, 2): at the rank's rows), and the port's
+    own ranks and keep equal them where no choice differed."""
+    arch = case[0]
     cfg = _cfg(arch)
     want = runs["ref"][arch][case]
     ties = 0
@@ -381,23 +454,34 @@ def test_routing_matches_reference(runs, case):
         got = res[case]
         assert got["train_calls"] == 2 * cfg.n_layers           # forward, then the recomputes
         for stage in ("train", "prefill"):
-            own, used = got[f"{stage}_own"], got[f"{stage}_used"]
-            assert len(own) == cfg.n_layers
-            for (probs, idx), o, u in zip(want[stage][got["group"]], own, used):
-                differ = (o["expert"] != idx).any(1)
-                if differ.any():
-                    srt = np.sort(probs[differ], 1)[:, ::-1]
-                    gap = srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]
-                    assert (gap <= TIE).all(), (stage, gap)
-                    ties += int(differ.sum())
-                rank, keep = _ref_rank_keep(idx, cfg.n_experts, u["capacity"])
-                np.testing.assert_array_equal(u["rank"], rank)
-                np.testing.assert_array_equal(u["keep"], keep)
-                if not differ.any():
-                    np.testing.assert_array_equal(o["rank"], rank)
-                    np.testing.assert_array_equal(o["keep"], keep)
+            ties += _check_stage(cfg, want[stage], got[f"{stage}_own"], got[f"{stage}_used"],
+                                 got, case)[0]
     print(f"{case}: {ties} token choices differed from the reference's (replayed) across "
           f"the ranks")
+
+
+@pytest.mark.parametrize("stage", ("train", "prefill_low"))
+def test_dp_route_keeps_the_reference_pairs(runs, stage):
+    """The smoke DBRX on (2, 2) at its training factor: the gradient
+    stage's routes, and a ``placed_prefill``'s at ``LOW``, drop pairs, and
+    every rank keeps exactly the pairs the reference's route of the whole
+    microbatch keeps (a route of the dp rank's rows alone, under its own
+    C, keeps others: the reference drops the later rows' pairs first);
+    the prefill's logits within 1e-4·max|logit| of the reference's at
+    that factor."""
+    cfg = _cfg(DROPS[0])
+    want = runs["ref"][DROPS[0]][DROPS]
+    dropped = 0
+    for res in runs["ranks"]:
+        got = res[DROPS]
+        dropped = _check_stage(cfg, want[stage], got[f"{stage}_own"], got[f"{stage}_used"],
+                               got, DROPS)[1]
+        if stage == "prefill_low":
+            _close(got["prefill_low_logits"].numpy(), want["prefill_low_logits"], LOGIT_RTOL,
+                   "prefill at the low factor")
+    print(f"{stage}: the reference drops {dropped} (token, choice) pairs over "
+          f"{cfg.n_layers} layers of the {B} x {DROPS[2]} microbatch")
+    assert dropped > 0
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
