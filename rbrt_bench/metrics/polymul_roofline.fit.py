@@ -1,0 +1,6 @@
+"""polymul's share of its roofline over a fit's calls, in percent."""
+from rbrt_bench.lib.readers import roofline_pct
+
+
+def read(trace):
+    return roofline_pct(trace, "polymul")
